@@ -1,0 +1,188 @@
+"""The calendar multi-queue (paper §II-B), as dense device-resident rings.
+
+Port of ``repro/core/calendar.py``.  Per device, for its local objects, a
+calendar of ``n_buckets`` epoch buckets with a static capacity each:
+
+    ts/seed/payload : [n_local, n_buckets, cap]     (compact: slots [0, cnt) live)
+    cnt             : [n_local, n_buckets]
+
+Bucket ``e % n_buckets`` holds epoch ``e`` and is reused once drained.
+Insertion sorts incoming events by (object, bucket) and ranks them inside
+each group with a prefix max, so every event lands at ``cnt + rank`` — a
+conflict-free scatter.  Overflow is counted and returned, never silent.
+
+Torch has no ``mode="drop"`` scatter: dropped entries are scattered into one
+extra sentinel slot that is sliced off afterwards.  The functions here
+return new tensors and leave their inputs unchanged.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .events import EventBatch, compact, concat_batches, empty_batch
+
+
+class Calendar(NamedTuple):
+    ts: torch.Tensor       # f32 [n_local, n_buckets, cap]
+    seed: torch.Tensor     # u32 in i64 [n_local, n_buckets, cap]
+    payload: torch.Tensor  # f32 [n_local, n_buckets, cap]
+    cnt: torch.Tensor      # i32 [n_local, n_buckets]
+
+    @property
+    def n_local(self) -> int:
+        return self.ts.shape[0]
+
+    @property
+    def n_buckets(self) -> int:
+        return self.ts.shape[1]
+
+    @property
+    def cap(self) -> int:
+        return self.ts.shape[2]
+
+
+def make_calendar(n_local: int, n_buckets: int, cap: int, device) -> Calendar:
+    shape = (n_local, n_buckets, cap)
+    return Calendar(
+        ts=torch.full(shape, float("inf"), dtype=torch.float32, device=device),
+        seed=torch.zeros(shape, dtype=torch.int64, device=device),
+        payload=torch.zeros(shape, dtype=torch.float32, device=device),
+        cnt=torch.zeros((n_local, n_buckets), dtype=torch.int32,
+                        device=device),
+    )
+
+
+def group_ranks(key: torch.Tensor, valid: torch.Tensor, sentinel: int):
+    """Sort events by group key; return (order, sorted_key, rank-in-group).
+
+    rank[i] is the position of sorted element i inside its contiguous key
+    group — the prefix-sum replacement for fetch-and-add slot assignment.
+    """
+    k = torch.where(valid, key.to(torch.int64), sentinel)
+    ks, order = torch.sort(k, stable=True)
+    idx = torch.arange(k.shape[0], dtype=torch.int64, device=k.device)
+    is_start = torch.ones_like(ks, dtype=torch.bool)
+    is_start[1:] = ks[1:] != ks[:-1]
+    start_idx = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
+    return order, ks, idx - start_idx
+
+
+def _scatter_drop(dst: torch.Tensor, flat: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """``dst.reshape(-1).at[flat].set(src, mode="drop")`` where every dropped
+    entry carries ``flat == dst.numel()`` (the sentinel slot)."""
+    n = dst.numel()
+    buf = torch.empty(n + 1, dtype=dst.dtype, device=dst.device)
+    buf[:n] = dst.reshape(-1)
+    buf[flat] = src
+    return buf[:n].view(dst.shape)
+
+
+def insert(cal: Calendar, local_idx: torch.Tensor, epoch: torch.Tensor,
+           ts: torch.Tensor, seed: torch.Tensor, payload: torch.Tensor,
+           valid: torch.Tensor):
+    """Insert a flat batch of events destined to local objects.
+
+    ``epoch`` must already be within the calendar horizon (the caller splits
+    off the fallback).  Returns (calendar, n_overflow).
+    """
+    n_local, n_buckets, cap = cal.ts.shape
+    sentinel = n_local * n_buckets
+    bucket = epoch.to(torch.int64) % n_buckets
+    key = local_idx.to(torch.int64) * n_buckets + bucket
+    order, ks, rank = group_ranks(key, valid, sentinel)
+
+    ts_s, seed_s, pay_s = ts[order], seed[order], payload[order]
+    valid_s = ks < sentinel
+
+    base = cal.cnt.reshape(-1)[torch.where(valid_s, ks, 0)].to(torch.int64)
+    slot = base + rank
+    ok = valid_s & (slot < cap)
+    n_overflow = (valid_s & ~ok).sum()
+
+    flat = torch.where(ok, ks * cap + slot, n_local * n_buckets * cap)
+    new_ts = _scatter_drop(cal.ts, flat, ts_s)
+    new_seed = _scatter_drop(cal.seed, flat, seed_s)
+    new_pay = _scatter_drop(cal.payload, flat, pay_s)
+
+    cnt_flat = torch.zeros(sentinel + 1, dtype=torch.int32,
+                           device=cal.cnt.device)
+    cnt_flat[:sentinel] = cal.cnt.reshape(-1)
+    cnt_flat.index_add_(0, torch.where(ok, ks, sentinel),
+                        torch.ones_like(ks, dtype=torch.int32))
+    new_cnt = cnt_flat[:sentinel].view(cal.cnt.shape)
+    return Calendar(new_ts, new_seed, new_pay, new_cnt), n_overflow
+
+
+def _bucket(cal: Calendar, epoch: torch.Tensor) -> torch.Tensor:
+    """Bucket index of ``epoch`` as a 1-element device tensor (no host read)."""
+    return (epoch.to(torch.int64) % cal.n_buckets).reshape(1)
+
+
+def bucket_occupancy(cal: Calendar, epoch: torch.Tensor) -> torch.Tensor:
+    """Per-row event count of the bucket holding ``epoch`` — no drain."""
+    return torch.index_select(cal.cnt, 1, _bucket(cal, epoch)).squeeze(1)
+
+
+def extract_sorted(cal: Calendar, epoch: torch.Tensor):
+    """Drain the bucket for ``epoch``: per-object events sorted by (ts, seed).
+
+    Returns (calendar-with-cleared-bucket, ts, seed, payload, cnt_b), the
+    event arrays [n_local, cap] with invalid slots at ts=+inf.
+    """
+    n_local, n_buckets, cap = cal.ts.shape
+    b = _bucket(cal, epoch)
+    ts = torch.index_select(cal.ts, 1, b).squeeze(1)
+    seed = torch.index_select(cal.seed, 1, b).squeeze(1)
+    pay = torch.index_select(cal.payload, 1, b).squeeze(1)
+    cnt_b = torch.index_select(cal.cnt, 1, b).squeeze(1)
+
+    live = torch.arange(cap, device=ts.device)[None, :] < cnt_b[:, None]
+    ts = torch.where(live, ts, float("inf"))
+
+    # lexicographic (ts, seed): two stable argsorts composed.  Seeds are
+    # non-negative int64, so their order is the unsigned u32 order.
+    p1 = torch.sort(seed, dim=1, stable=True).indices
+    ts1 = torch.gather(ts, 1, p1)
+    p2 = torch.sort(ts1, dim=1, stable=True).indices
+    order = torch.gather(p1, 1, p2)
+
+    ts = torch.gather(ts, 1, order)
+    seed = torch.gather(seed, 1, order)
+    pay = torch.gather(pay, 1, order)
+
+    # clear the bucket for reuse (epoch + n_buckets).
+    new_cnt = cal.cnt.index_fill(1, b, 0)
+    new_ts = cal.ts.index_fill(1, b, float("inf"))
+    return cal._replace(ts=new_ts, cnt=new_cnt), ts, seed, pay, cnt_b
+
+
+class Fallback(NamedTuple):
+    """The per-thread TLS fallback list (paper §II-B) → per-device buffer.
+
+    Events beyond the calendar horizon (or that missed the route capacity)
+    park here with their global dst and are re-offered every epoch.
+    """
+
+    events: EventBatch  # flat [cap]
+
+    @property
+    def cap(self) -> int:
+        return self.events.capacity
+
+
+def make_fallback(cap: int, device) -> Fallback:
+    return Fallback(empty_batch(cap, device=device))
+
+
+def fallback_put(fb: Fallback, new: EventBatch):
+    """Append valid events of ``new`` into free slots of the fallback buffer.
+
+    Returns (fallback, n_overflow).  Compaction keeps live events in front.
+    """
+    merged = compact(concat_batches(fb.events, new))
+    cap = fb.cap
+    keep = EventBatch(*(x[..., :cap] for x in merged))
+    return Fallback(keep), merged.valid[..., cap:].sum()

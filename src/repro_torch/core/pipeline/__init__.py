@@ -1,0 +1,25 @@
+"""The engine as a pipeline of composable stages (PyTorch port).
+
+  * :mod:`base`        — stage interfaces, registries, shared engine types;
+  * :mod:`config`      — :class:`EngineConfig` (stage selection + capacities,
+    fail-fast validation);
+  * :mod:`schedulers`  — ``batch`` (PARSIR rounds), ``batch-model`` (model
+    kernel);
+  * :mod:`routers`     — ``allgather`` (single device);
+  * :mod:`deliver`     — owner-side calendar/fallback insertion;
+  * :mod:`step`        — :func:`make_step`, the wiring.
+"""
+from . import routers, schedulers  # noqa: F401  (registration imports)
+from .base import (ROUTERS, SCHEDULERS, EngineState, Router, Scheduler, Stats,
+                   epoch_of, register_router, register_scheduler,
+                   resolve_router, resolve_scheduler, zero_stats)
+from .config import EngineConfig
+from .deliver import deliver
+from .step import make_step
+
+__all__ = [
+    "ROUTERS", "SCHEDULERS", "EngineConfig", "EngineState", "Router",
+    "Scheduler", "Stats", "deliver", "epoch_of", "make_step",
+    "register_router", "register_scheduler", "resolve_router",
+    "resolve_scheduler", "zero_stats",
+]

@@ -1,0 +1,182 @@
+"""Stage interfaces, registries and shared engine types (PyTorch).
+
+Port of ``repro/core/pipeline/base.py`` for the stages this slice runs: the
+:class:`Scheduler` (how a device's epoch batch is executed) and the
+:class:`Router` (how emitted events reach their owners).  Stage
+implementations are small registered classes; :class:`EngineConfig`
+selects them by name and :func:`~repro_torch.core.pipeline.step.make_step`
+wires them together.
+
+Bit-exactness contract (unchanged): a stage chooses *how*, never *what* —
+every registered implementation leaves the processed-event multiset and,
+for dyadic workloads, the object state bit-identical to the sequential
+oracle.
+"""
+from __future__ import annotations
+
+import abc
+import math
+from typing import TYPE_CHECKING, Any, Callable, NamedTuple
+
+import torch
+
+from ..api import SimModel
+from ..calendar import Calendar, Fallback
+from ..events import EventBatch, to_f32
+from ..placement import Placement
+from .names import BATCH_IMPLS
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from .config import EngineConfig
+
+
+class Stats(NamedTuple):
+    """Per-device event counters, each an int64 tensor of shape [1]."""
+
+    processed: torch.Tensor             # events processed on this device
+    cal_overflow: torch.Tensor          # bucket-capacity overflows (must be 0)
+    fb_overflow: torch.Tensor           # fallback-capacity overflows (must be 0)
+    route_overflow: torch.Tensor        # route-capacity overflows (must be 0)
+    late_events: torch.Tensor           # causality violations (must be 0)
+    lookahead_violations: torch.Tensor  # model emitted ts < ts_in + L (must be 0)
+    stolen: torch.Tensor                # loaned batches processed on this device
+    oob_events: torch.Tensor            # emitted dst outside [0, n_objects)
+    rebalances: torch.Tensor            # adaptive-placement rebalance firings
+    migrated: torch.Tensor              # object rows received via migration
+    rollbacks: torch.Tensor             # speculation windows aborted
+    speculated: torch.Tensor            # events processed past the safe horizon
+    spec_commits: torch.Tensor          # speculation windows committed
+
+
+def zero_stats(device) -> Stats:
+    return Stats(*(torch.zeros((1,), dtype=torch.int64, device=device)
+                   for _ in Stats._fields))
+
+
+class EngineState(NamedTuple):
+    cal: Calendar
+    fb: Fallback
+    obj: Any            # dict of [n_local_max, ...] tensors (model-defined)
+    epoch: torch.Tensor   # i32 [1]
+    stats: Stats
+    bounds: torch.Tensor  # i32 [1, n_devices + 1]
+    load: torch.Tensor    # i32 [n_local_max] processed counts per row
+
+
+def epoch_of(ts: torch.Tensor, epoch_len: float) -> torch.Tensor:
+    """Epoch index of each timestamp, i32.
+
+    Multiplies by ``1/epoch_len`` when that is a power of two, divides by
+    ``epoch_len`` otherwise — the same choice as the JAX package, so both
+    round identically.  The divisor is a device tensor: CUDA turns a division
+    by a host scalar into a multiplication by its reciprocal, which can
+    differ in the last bit.  Non-finite timestamps (empty slots, always
+    masked by the callers) saturate instead of hitting an undefined cast.
+    """
+    if math.log2(1.0 / epoch_len).is_integer():
+        e = torch.floor(ts * to_f32(1.0 / epoch_len))
+    else:
+        e = torch.floor(ts / torch.full_like(ts, epoch_len))
+    return e.clamp(-2147483648.0, 2147483520.0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# stage interfaces
+# ---------------------------------------------------------------------------
+
+#: a scheduler's result: (updated object state, flat emitted EventBatch,
+#: lookahead-violation count).
+ProcessResult = tuple[Any, EventBatch, torch.Tensor]
+
+
+class Scheduler(abc.ABC):
+    """Per-epoch batch execution strategy (pipeline stage 3, paper §II-A).
+
+    Contract: a scheduler is a *schedule*, never a semantics change — it
+    processes each object's epoch batch in timestamp order and hands the
+    model exactly the extracted (ts, seed, payload) values.
+    """
+
+    name: str
+    #: host reads of device values one ``process`` call makes.
+    host_syncs: int = 0
+
+    def validate(self, model: SimModel, cfg: "EngineConfig") -> None:
+        """Fail fast at engine construction if the model/config can't run."""
+
+    @abc.abstractmethod
+    def process(self, model: SimModel, cfg: "EngineConfig", obj: Any,
+                ts_s: torch.Tensor, seed_s: torch.Tensor, pay_s: torch.Tensor,
+                cnt_b: torch.Tensor) -> ProcessResult:
+        """Apply every object's sorted epoch batch; return emitted events.
+
+        Inputs are the per-object [n_local, cap] arrays of
+        :func:`repro_torch.core.calendar.extract_sorted`.
+        """
+
+
+class Router(abc.ABC):
+    """Event exchange strategy (pipeline stage 5, paper §II-B).
+
+    Contract: routing moves events, never invents, drops or reorders them;
+    what does not fit the route buffer is handed back to the caller's
+    fallback and counted.
+    """
+
+    name: str
+
+    def validate(self, cfg: "EngineConfig", placement: Placement) -> None:
+        """Fail fast at engine construction on bad capacity/topology."""
+
+    @abc.abstractmethod
+    def select_send(self, prod: EventBatch, eligible: torch.Tensor,
+                    placement: Placement, cfg: "EngineConfig"
+                    ) -> tuple[EventBatch, torch.Tensor, torch.Tensor]:
+        """Pick which eligible produced events ride this epoch's exchange.
+
+        Returns (route buffer, sent-mask over ``prod``, overflow count).
+        """
+
+    @abc.abstractmethod
+    def exchange(self, buf: EventBatch, placement: Placement,
+                 cfg: "EngineConfig") -> EventBatch:
+        """Run the collective; return the events visible to this device."""
+
+
+# ---------------------------------------------------------------------------
+# registries
+# ---------------------------------------------------------------------------
+
+SCHEDULERS: dict[str, Scheduler] = {}
+ROUTERS: dict[str, Router] = {}
+
+
+def _register(registry: dict, kind: str, name: str) -> Callable:
+    def deco(cls):
+        if name in registry:
+            raise ValueError(f"{kind} {name!r} already registered")
+        cls.name = name
+        registry[name] = cls()
+        return cls
+    return deco
+
+
+def register_scheduler(name: str):
+    """Class decorator: register a :class:`Scheduler` under ``name``."""
+    return _register(SCHEDULERS, "scheduler", name)
+
+
+def register_router(name: str):
+    """Class decorator: register a :class:`Router` under ``name``."""
+    return _register(ROUTERS, "router", name)
+
+
+def resolve_scheduler(cfg: "EngineConfig") -> Scheduler:
+    """EngineConfig → Scheduler (``batch`` is split by ``batch_impl``)."""
+    if cfg.scheduler == "batch":
+        return SCHEDULERS[BATCH_IMPLS[cfg.batch_impl]]
+    return SCHEDULERS[cfg.scheduler]
+
+
+def resolve_router(name: str) -> Router:
+    return ROUTERS[name]

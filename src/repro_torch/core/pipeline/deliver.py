@@ -1,0 +1,50 @@
+"""Delivery stage: insertion at the owner (paper §II-B, pipeline stage 5).
+
+Port of ``repro/core/pipeline/deliver.py``.  Owners insert routed
+in-horizon events into calendar buckets (conflict-free scatter) and park
+beyond-horizon events in the fallback buffer.  Capacity overflow, late
+(already-closed-epoch) arrivals and out-of-range destinations are counted,
+never silent.  The per-epoch step and the initial ingest share this code
+(``init=True`` widens the window to include the current epoch).
+
+Out-of-range ``dst`` are excluded from ``mine`` and counted.  On one device
+the batch is seen once, so each is counted once.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..calendar import Calendar, Fallback, fallback_put, insert
+from ..events import EventBatch
+from ..placement import Placement
+from .base import epoch_of
+
+
+def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
+            placement: Placement, cfg, init: bool):
+    """Insert my in-horizon events; park my beyond-horizon events in fallback.
+
+    ``cur`` is the current epoch (a 0-dim tensor), ``dev`` this device's
+    index.  Returns (cal, fb, n_cal_overflow, n_fb_overflow, n_late, n_oob).
+    """
+    N = cfg.n_buckets
+    epochs = epoch_of(batch.ts, cfg.epoch_len)
+    boundaries = torch.as_tensor(placement.boundaries,
+                                 device=batch.dst.device).to(torch.int32)
+    oob = batch.valid & ((batch.dst < 0)
+                         | (batch.dst >= placement.n_objects))
+    n_oob = oob.sum()
+    owner = placement.owner(batch.dst)
+    mine = batch.valid & ~oob & (owner == dev)
+    lo = torch.zeros_like(cur) if init else cur + 1
+    hi = cur + (N - 1 if init else N)
+    insertable = mine & (epochs >= lo) & (epochs <= hi)
+    beyond = mine & (epochs > hi)
+    late = (mine & (epochs < lo)).sum()
+
+    local_idx = torch.clamp(batch.dst - boundaries[dev], 0, cal.n_local - 1)
+    cal, cal_ovf = insert(cal, local_idx, epochs, batch.ts, batch.seed,
+                          batch.payload, insertable)
+    fb, fb_ovf = fallback_put(fb, EventBatch(batch.dst, batch.ts, batch.seed,
+                                             batch.payload, beyond))
+    return cal, fb, cal_ovf, fb_ovf, late, n_oob

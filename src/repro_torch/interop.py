@@ -1,0 +1,63 @@
+"""Engine state carried between the JAX package and the port.
+
+PHOLD has no weights: its "weights" are the object state and the calendar.
+:func:`engine_state_from_numpy` turns a JAX ``EngineState`` whose leaves
+were fetched to the host (``jax.device_get``: numpy arrays, u32 seeds) into
+the port's :class:`~repro_torch.core.pipeline.base.EngineState` on a given
+device, so both engines can continue from the same mid-run state;
+:func:`engine_state_to_numpy` goes the other way.  The input is read by
+field name only, so this module imports nothing of the JAX package.
+
+Dtypes: seeds become int64 in the port (u32 again on the way back); the
+``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
+on); every other leaf keeps its dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.calendar import Calendar, Fallback
+from .core.device import resolve_device
+from .core.events import EventBatch
+from .core.pipeline.base import EngineState, Stats
+
+
+def _to(a, device, dtype=None) -> torch.Tensor:
+    a = np.array(a, copy=True)   # writable, and owned by the new tensor
+    if dtype is not None:
+        a = a.astype(dtype)
+    return torch.from_numpy(a).to(device)
+
+
+def engine_state_from_numpy(tree, device="cuda") -> EngineState:
+    """A host copy of a JAX ``EngineState`` → the port's ``EngineState``."""
+    dev = resolve_device(device)
+    seed = lambda a: _to(np.asarray(a, np.uint32), dev, np.int64)  # noqa: E731
+    cal = Calendar(ts=_to(tree.cal.ts, dev), seed=seed(tree.cal.seed),
+                   payload=_to(tree.cal.payload, dev), cnt=_to(tree.cal.cnt, dev))
+    e = tree.fb.events
+    fb = Fallback(EventBatch(dst=_to(e.dst, dev), ts=_to(e.ts, dev),
+                             seed=seed(e.seed), payload=_to(e.payload, dev),
+                             valid=_to(e.valid, dev, np.bool_)))
+    obj = {k: _to(v, dev) for k, v in tree.obj.items()}
+    stats = Stats(*(_to(getattr(tree.stats, k), dev, np.int64)
+                    for k in Stats._fields))
+    return EngineState(cal, fb, obj, epoch=_to(tree.epoch, dev), stats=stats,
+                       bounds=_to(tree.bounds, dev), load=_to(tree.load, dev))
+
+
+def engine_state_to_numpy(state: EngineState) -> EngineState:
+    """The port's ``EngineState`` → the same tree of numpy arrays, with the
+    JAX package's dtypes for seeds (u32)."""
+    np_ = lambda t: t.detach().cpu().numpy()  # noqa: E731
+    seed = lambda t: np_(t).astype(np.uint32)  # noqa: E731
+    c, e = state.cal, state.fb.events
+    return EngineState(
+        cal=Calendar(np_(c.ts), seed(c.seed), np_(c.payload), np_(c.cnt)),
+        fb=Fallback(EventBatch(np_(e.dst), np_(e.ts), seed(e.seed),
+                               np_(e.payload), np_(e.valid))),
+        obj={k: np_(v) for k, v in state.obj.items()},
+        epoch=np_(state.epoch),
+        stats=Stats(*(np_(v) for v in state.stats)),
+        bounds=np_(state.bounds), load=np_(state.load))

@@ -1,0 +1,71 @@
+"""Golden digests of the oracle, for the workloads the port has.
+
+The port's copy of ``state_digest`` and of the pinned digests of
+``repro/testing/golden_digests.json`` for its workloads.  A run of the
+port's own oracle (:func:`repro_torch.core.ref_engine.run_sequential`) must
+reproduce them, which ties the port's RNG, model arithmetic and oracle order
+to the frozen history of the JAX package without importing it.
+"""
+from __future__ import annotations
+
+import hashlib
+
+import numpy as np
+
+from ..core.ref_engine import SequentialResult, run_sequential
+from ..workloads.registry import conformance_spec, get_workload
+
+#: pinned digests, copied from the JAX package's golden_digests.json.
+PINNED: dict[str, str] = {
+    "phold/medium":
+        "580ca61ca229025b135bcf2948ec85c79d5a92262e09017ae28fa3ca8a003f71",
+    "phold/small":
+        "37caeaa85eb12c467de98d8ff12c1df7fa23e401cfbf03c24df9b2515f64e38c",
+}
+
+#: the "medium" size per workload: model_kw overrides on top of the
+#: CONFORMANCE model_kw, plus the horizon in epochs.
+MEDIUM_SIZES: dict[str, tuple[dict, int]] = {
+    "phold": (dict(n_objects=48, initial_events=6), 32),
+}
+
+
+def golden_case(key: str) -> tuple[str, dict, int]:
+    """``"<workload>/<size>"`` → (workload, model_kw, n_epochs)."""
+    name, size = key.split("/")
+    spec = conformance_spec(name)
+    if size == "small":
+        return name, spec["model_kw"], spec["n_epochs"]
+    over, n_epochs = MEDIUM_SIZES[name]
+    return name, dict(spec["model_kw"], **over), n_epochs
+
+
+def state_digest(res: SequentialResult) -> str:
+    """Canonical sha256 of a sequential run's final state: per-object
+    processed counts (i64), the sorted pending ``(dst, seed)`` multiset
+    (u64), then every object's state dict in key order with dtype and shape
+    tags."""
+    h = hashlib.sha256()
+    h.update(np.ascontiguousarray(
+        res.processed_per_object.astype(np.int64)).tobytes())
+    pend = res.pending_sorted()
+    h.update(np.int64(pend.shape[0]).tobytes())
+    h.update(np.ascontiguousarray(pend.astype(np.uint64)).tobytes())
+    for st in res.obj_state:
+        for k in sorted(st):
+            v = np.asarray(st[k])
+            h.update(k.encode())
+            h.update(str(v.dtype).encode())
+            h.update(str(v.shape).encode())
+            h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def compute_digest(key: str) -> str:
+    """Run the port's oracle for one pinned case and digest its state."""
+    name, model_kw, n_epochs = golden_case(key)
+    model = get_workload(name, **model_kw)
+    res = run_sequential(model, n_epochs, model.params.lookahead)
+    if res.total_processed <= 0:
+        raise AssertionError(f"golden case {key} processed nothing")
+    return state_digest(res)

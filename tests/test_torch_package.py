@@ -1,0 +1,86 @@
+"""Package boundaries of the PyTorch port.
+
+``repro_torch`` imports torch and never jax or anything of the JAX package
+``repro``; ``chip_smoke.py`` imports nothing of either.  Entry points run on
+the card unless the caller asks for the CPU, and a missing card is an error.
+"""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_every_module_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n == 'jax' or n.startswith('jax.')"
+        " or n == 'repro' or n.startswith('repro.'))\n"
+        "print(len([n for n in sys.modules if n.startswith('repro_torch')]))\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 20
+
+
+def test_sources_import_neither_jax_nor_repro():
+    files = (sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+             + [ROOT / "chip_smoke.py"])
+    assert len(files) > 20
+    for f in files:
+        hits = FORBIDDEN.findall(f.read_text())
+        assert not hits, (f, hits)
+    assert FORBIDDEN.search("from repro_torch import x") is None
+    assert FORBIDDEN.search("  from repro.core import x")
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+
+
+def test_engine_needs_a_card_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.core.engine import EngineConfig, ParsirEngine
+    from repro_torch.interop import engine_state_from_numpy
+    from repro_torch.workloads import get_workload
+    model = get_workload("phold", n_objects=4, state_nodes=64)
+    cfg = EngineConfig(lookahead=0.5)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ParsirEngine(model, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine_state_from_numpy(None)
+    assert ParsirEngine(model, cfg, device="cpu").device.type == "cpu"
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    # alone, without the rest of the repository, it fails as well.
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout

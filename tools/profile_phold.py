@@ -1,0 +1,137 @@
+#!/usr/bin/env python3
+"""Where a full-width PHOLD epoch of the PyTorch port spends its time on a GPU.
+
+Runs the port's main path (``repro_torch.workloads.phold.main_path``:
+default PHOLD, 1024 objects x 4000 nodes x 6 lanes, dyadic draw, through
+``batch_impl="model"`` — the configuration ``chip_smoke.py`` drives), warms
+it up, times a window of epochs untraced, then traces the
+same number of epochs with ``torch.profiler`` and prints, per epoch: host
+wall time, device busy time (sum of the device-side ops: kernels, memcpy,
+memset) and its share of the untraced wall time, device ops launched, and
+the device ops and operators with the most device time.  Run from the
+repository root on a machine with a CUDA card::
+
+    python3 tools/profile_phold.py [--epochs 16] [--out DIR]
+
+``--out`` (default ``artifacts/profile_phold``) receives ``profile_phold.json`` and the
+Chrome trace ``profile_phold_trace.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, name, None)
+        if v is not None:
+            return float(v)
+    return 0.0
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--epochs", type=int, default=16)
+    ap.add_argument("--warmup", type=int, default=16)
+    ap.add_argument("--out", default=str(ROOT / "artifacts" / "profile_phold"))
+    args = ap.parse_args(argv)
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if not torch.cuda.is_available():
+        print("profile_phold: no CUDA device is available", file=sys.stderr)
+        return 1
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.workloads.phold import main_path
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    model, cfg = main_path()
+    eng = ParsirEngine(model, cfg, device="cuda")
+    st = eng.run(eng.init(), args.warmup)
+    torch.cuda.synchronize()
+
+    # the same window untraced, for the wall time the profiler does not slow.
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    st = eng.run(st, args.epochs)
+    e1.record()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6 / args.epochs
+    span_us = e0.elapsed_time(e1) * 1e3 / args.epochs
+    p0 = eng.totals(st)["processed"]
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = eng.run(st, args.epochs)
+        torch.cuda.synchronize()
+        traced_us = (time.perf_counter() - t0) * 1e6 / args.epochs
+    tot = eng.totals(st)
+    assert_clean(tot, context="profile_phold")
+
+    n = args.epochs
+    kernels, ops = [], []
+    for evt in prof.key_averages():
+        dev_us = _self_device_us(evt)
+        if dev_us <= 0:
+            continue
+        row = {"name": evt.key, "calls_per_epoch": evt.count / n,
+               "device_us_per_epoch": dev_us / n}
+        # device-side rows (kernels, memcpy, memset) hold the busy time;
+        # CPU-op rows repeat it, attributed to the operator that launched it.
+        (ops if evt.device_type == DeviceType.CPU else kernels).append(row)
+    for rows in (kernels, ops):
+        rows.sort(key=lambda r: -r["device_us_per_epoch"])
+    busy_us = sum(r["device_us_per_epoch"] for r in kernels)
+    launches = sum(r["calls_per_epoch"] for r in kernels)
+    report = {
+        "card": smi, "torch": torch.__version__, "epochs": n,
+        "events_per_epoch": (tot["processed"] - p0) / n,
+        "wall_us_per_epoch": wall_us,
+        "cuda_event_span_us_per_epoch": span_us,
+        "traced_wall_us_per_epoch": traced_us,
+        "device_busy_us_per_epoch": busy_us if busy_us else None,
+        "device_busy_share": busy_us / wall_us if busy_us else None,
+        "device_ops_per_epoch": launches,
+        "top_device_ops": kernels[:20],
+        "top_operators": ops[:20],
+    }
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "profile_phold.json").write_text(json.dumps(report, indent=1))
+    prof.export_chrome_trace(str(out / "profile_phold_trace.json"))
+
+    print(f"card: {smi}, torch {torch.__version__}")
+    print(f"{n} epochs: wall {wall_us:.1f} us/epoch untraced (CUDA-event "
+          f"span {span_us:.1f}), {traced_us:.1f} traced, "
+          f"{report['events_per_epoch']:.0f} events/epoch")
+    if busy_us:
+        print(f"device busy {busy_us:.1f} us/epoch ({100 * busy_us / wall_us:.1f}"
+              f"% of the untraced wall), {launches:.1f} device ops/epoch")
+    else:
+        print("device time: not measured (the profiler saw no device time)")
+    for title, rows in (("device ops", kernels), ("operators", ops)):
+        print(f"top {title} by device time per epoch:")
+        for r in rows[:15]:
+            print(f"  {r['device_us_per_epoch']:9.2f} us  "
+                  f"{r['calls_per_epoch']:6.1f}x  {r['name'][:90]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
