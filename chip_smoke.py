@@ -8,27 +8,41 @@ Run from the root of a checkout on a machine with a CUDA card::
 Phases, each reported on its own lines; any failure exits nonzero:
 
   1. device   — the card's name and power limit, torch/CUDA versions;
-  2. build    — the port's CUDA source, compiled with nvcc;
-  3. kernels  — each kernel against its plain PyTorch version on the card, at
-                the unit-test shapes and the full default PHOLD shape, for all
-                three draw distributions with hot routing on and off;
+  2. build    — the port's CUDA sources, one nvcc each, all started together;
+  3. kernels  — each kernel against its plain PyTorch version on the card:
+                event_apply at the unit-test shapes and the full default
+                PHOLD shape, for all three draw distributions with hot
+                routing on and off; ssd_scan at the unit-test shapes, T=37
+                and T=160 with chunk 128, and the serving shape, in f32 and
+                with bf16 x/y;
   4. golden   — the port's numpy oracle reproduces the pinned digests;
   5. main     — the ``phold`` conformance recipe under ``batch_impl`` rounds
-                and model, then the main path (``workloads.phold.main_path``:
-                full-width PHOLD, 1024 objects x 4000 nodes x 6 lanes)
-                through the event_apply kernel: init + 32 epochs held
+                and model, then PHOLD's main path (``workloads.phold.
+                main_path``: full-width PHOLD, 1024 objects x 4000 nodes x 6
+                lanes) through the event_apply kernel: init + 32 epochs held
                 against the oracle (clean counters, processed count, pending
                 multiset, bit-exact state), then 256 timed epochs;
-  6. timing   — ms/epoch, events/s, host syncs per epoch, each kernel's time
+  6. timing   — ms/epoch, events/s, host syncs per epoch, event_apply's time
                 per launch at the main path's shapes beside its bound;
-  7. a JSON line listing every ported kernel, the nvidia-smi line, and the
+  7. serve    — zamba2 serving (``ServeSession``): the reduced config on the
+                card against the CPU; the full-width zamba2-1.2b in f32,
+                every decode step's logits against the teacher-forced
+                forward; then in its own bf16, B=4 prompts of 1024 tokens
+                and 32 greedy tokens, timed (prefill ms, decode ms/token,
+                tok/s, peak memory), with 38 ssd_scan launches per prefill,
+                a profile of where the device time goes, and ssd_scan's own
+                time per launch beside its bound;
+  8. a JSON line listing every ported kernel, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -43,6 +57,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 MAIN_EPOCHS_CHECKED = 32
 MAIN_EPOCHS_TIMED = 256
+#: zamba2 serving: prompts, prompt length, generated tokens (the first from
+#: the prefill), timed repeats after one warm-up.
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_REPEATS = 4, 1024, 32, 3
+#: ssd_scan tolerances against the plain version: the JAX package's own
+#: (tests/test_kernels.py), f32 and bf16 x/y.
+SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+#: the f32 decode-vs-teacher-forced check at full width: the JAX package's
+#: tolerance at the reduced size (tests/test_models_smoke.py).
+CAUSAL_TOL = 2e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -173,23 +196,310 @@ def event_apply_bound(seed_s, cnt_b, S, K, KR, LANES, C):
     return nbytes, flops
 
 
+# -- ssd_scan: kernel against its plain version, time, bound -----------------------
+
+#: (b, T, H, P, N, chunk): the JAX tests' shapes at chunk 32, T=37 (one chunk
+#: of 37) and T=160 (chunk 128, 96 padded steps), then the serving shape.
+SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 160, 4, 64, 32, 32),
+              (1, 96, 1, 16, 8, 32), (1, 37, 2, 16, 8, 128),
+              (2, 160, 2, 16, 8, 128), (4, 1024, 64, 64, 64, 128)]
+
+
+def _ssd_inputs(b, T, H, P, N, xdtype, seed, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = (torch.randn((b, T, H, P), generator=g) * 0.5).to(xdtype)
+    dt = torch.rand((b, T, H), generator=g) * 0.2
+    A = -torch.rand((H,), generator=g)
+    B = torch.randn((b, T, N), generator=g) * 0.3
+    C = torch.randn((b, T, N), generator=g) * 0.3
+    return [t.to(device) for t in (x, dt, A, B, C)]
+
+
+def check_ssd_scan(device) -> float:
+    """ssd_scan kernel vs ssd_ref on the card, both on the inputs padded by
+    ``ops.ssd``'s chunk rule; returns the largest |kernel - plain|."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    worst = 0.0
+    for i, (b, T, H, P, N, chunk) in enumerate(SSD_SHAPES):
+        errs = []
+        for name in ("float32", "bfloat16"):
+            x, dt, A, B, C = _ssd_inputs(b, T, H, P, N, getattr(torch, name),
+                                         2000 + i, device)
+            x, dt, B, C, ch = ops.ssd_pad(x, dt, B, C, chunk=chunk)
+            before = ssd_cuda.launches
+            got = ssd_cuda(x, dt, A, B, C, chunk=ch)[:, :T]
+            want = ssd_ref(x, dt, A, B, C, chunk=ch)[:, :T]
+            torch.cuda.synchronize()
+            if ssd_cuda.launches != before + 1 or got.dtype != want.dtype:
+                raise AssertionError("ssd_scan: the wrapper did not launch")
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= SSD_TOL[name]:
+                raise AssertionError(
+                    f"ssd_scan kernel != plain at b={b} T={T} H={H} P={P} "
+                    f"N={N} chunk={chunk} x {name}: max |diff| {err} > "
+                    f"{SSD_TOL[name]}")
+            worst = max(worst, err)
+            errs.append(f"{name} {err:.3g}")
+        log("kernels", f"ssd_scan b={b} T={T} H={H} P={P} N={N} chunk="
+                       f"{chunk} (runs Q={ch}): max |kernel - plain| "
+                       f"{', '.join(errs)} (tol 1e-4 f32, 5e-2 bf16)")
+    return worst
+
+
+def ssd_bound(b, T, H, P, N, Q, x_bytes):
+    """(bytes, flops) of one ssd_scan call: x and y once, dt, A, B, C once;
+    per (batch, head) and chunk the lower-triangle C Bᵀ and G x products
+    (Q(Q+1)/2 entries) plus C h and the state update, 2 flops a multiply-add."""
+    nbytes = 2 * b * T * H * P * x_bytes + (b * T * H + H + 2 * b * T * N) * 4
+    tri = Q * (Q + 1) // 2
+    flops = b * H * (T // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
+    return nbytes, flops
+
+
+# -- zamba2 serving ----------------------------------------------------------------
+
+def serve_reduced(dev) -> float:
+    """The reduced zamba2 on the card and on the CPU, same weights and
+    prompts, prefill + 8 greedy tokens: tokens equal, logits within 1e-4."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.zamba import Zamba
+    from repro_torch.serve.engine import ServeSession
+    cfg = get_config("zamba2-1.2b", reduced=True)
+    cpu = Zamba(cfg, device="cpu", seed=0)
+    card = Zamba(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch(cfg, 2, 32, step=2, device="cpu")
+    outs = []
+    for m, d in ((cpu, torch.device("cpu")), (card, dev)):
+        sess = ServeSession(m, 2, 32 + 9, device=d)
+        first = sess.prefill(batch)
+        toks = torch.cat([first[:, None], sess.decode(first, 8)], dim=1)
+        outs.append((toks.cpu(), torch.stack(sess.logits, 1).cpu()))
+    err = float((outs[0][1] - outs[1][1]).abs().max())
+    if not torch.equal(outs[0][0], outs[1][0]) or not err <= 1e-4:
+        raise AssertionError(f"reduced zamba2: card and CPU disagree (tokens "
+                             f"equal {torch.equal(outs[0][0], outs[1][0])}, "
+                             f"max |logit diff| {err})")
+    log("serve", f"reduced zamba2 (4 layers, d_model 64), 2 prompts x 32 + 8 "
+                 f"greedy tokens: card == CPU tokens, max |logit diff| {err:.3g}"
+                 f" (tol 1e-4)")
+    return err
+
+
+def serve_causal_check(dev, cfg):
+    """Full width in f32: each served step's logits against the
+    teacher-forced forward over prompt + generated tokens."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models.zamba import Zamba
+    from repro_torch.serve.engine import ServeSession
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m = Zamba(cfg32, device=dev, seed=0)
+    batch = make_batch(cfg32, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                        device=dev)
+    before = ssd_cuda.launches
+    first = sess.prefill(batch)
+    if ssd_cuda.launches - before != cfg.n_layers:
+        raise AssertionError("f32 prefill: ssd_scan did not launch once per "
+                             "Mamba layer")
+    out = sess.decode(first, SERVE_TOKENS - 1)
+    seq = torch.cat([batch["tokens"], first[:, None], out[:, :-1]], dim=1)
+    full = m(seq)[:, SERVE_PROMPT - 1:]
+    steps = torch.stack(sess.logits, dim=1)
+    diff = (steps - full).abs()
+    err, big = float(diff.max()), float(full.abs().max())
+    rel = float((diff / full.abs().clamp(min=1.0)).max())
+    agree = float((steps.argmax(-1) == full.argmax(-1)).float().mean())
+    torch.cuda.synchronize()
+    if not bool((diff <= CAUSAL_TOL + CAUSAL_TOL * full.abs()).all()):
+        raise AssertionError(
+            f"full-width f32: decode logits differ from the teacher-forced "
+            f"forward by up to {err} (max |logit| {big})")
+    log("serve", f"full-width zamba2-1.2b in f32, {SERVE_BATCH} x "
+                 f"{SERVE_PROMPT} prompt + {SERVE_TOKENS} greedy tokens: "
+                 f"prefill + decode logits == teacher-forced forward over "
+                 f"{seq.shape[1]} tokens, max |diff| {err:.3g} (max |logit| "
+                 f"{big:.3g}, max |diff|/max(1,|logit|) {rel:.3g}; tol atol="
+                 f"rtol={CAUSAL_TOL}), argmax agreement {agree:.4f}")
+    del m, sess, full, steps, diff
+    torch.cuda.empty_cache()
+    return err
+
+
+def serve_timed(dev, cfg):
+    """Full width in the config's bf16: one warm-up, then SERVE_REPEATS
+    timed sessions; returns the model, prompts and medians."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models.zamba import Zamba
+    from repro_torch.serve.engine import ServeSession
+    torch.cuda.reset_peak_memory_stats()
+    m = Zamba(cfg, device=dev, seed=0)
+    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    n_dec = SERVE_TOKENS - 1
+    rows = []
+    ssd_cuda.launches = 0
+    for r in range(1 + SERVE_REPEATS):
+        sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                            device=dev)
+        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda.synchronize()
+        before = ssd_cuda.launches
+        t0 = time.perf_counter()
+        e0.record()
+        first = sess.prefill(batch)
+        e1.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if ssd_cuda.launches - before != cfg.n_layers:
+            raise AssertionError(f"prefill launched ssd_scan "
+                                 f"{ssd_cuda.launches - before} times, not "
+                                 f"{cfg.n_layers}")
+        out = sess.decode(first, n_dec)
+        e2.record()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        logits = torch.stack(sess.logits, 1)
+        if out.shape != (SERVE_BATCH, n_dec) or not bool(
+                torch.isfinite(logits).all()) or not bool(
+                ((out >= 0) & (out < cfg.vocab_size)).all()):
+            raise AssertionError("bf16 serving: bad tokens or logits")
+        rows.append({"prefill_ms": (t1 - t0) * 1e3,
+                     "prefill_dev_ms": e0.elapsed_time(e1),
+                     "decode_ms": (t2 - t1) * 1e3 / n_dec,
+                     "decode_dev_ms": e1.elapsed_time(e2) / n_dec})
+        del sess
+    launches = ssd_cuda.launches
+    timed = rows[1:]
+    med = {k: statistics.median(r[k] for r in timed) for k in timed[0]}
+    med["tok_s"] = SERVE_BATCH / (med["decode_ms"] / 1e3)
+    med["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log("serve", f"full-width zamba2-1.2b in bf16 ({sum(p.numel() for p in m.parameters()):,} "
+                 f"params, f32 masters + bf16 copy), {SERVE_BATCH} x "
+                 f"{SERVE_PROMPT}-token prompts, {SERVE_TOKENS} greedy "
+                 f"tokens, median of {SERVE_REPEATS} after 1 warm-up: "
+                 f"prefill {med['prefill_ms']:.2f} ms (CUDA events "
+                 f"{med['prefill_dev_ms']:.2f}), decode "
+                 f"{med['decode_ms']:.3f} ms/token (events "
+                 f"{med['decode_dev_ms']:.3f}), {med['tok_s']:.1f} tok/s, "
+                 f"peak device memory {med['peak_mib']:.0f} MiB")
+    log("serve", "per run (prefill ms, decode ms/token): " + ", ".join(
+        f"{r['prefill_ms']:.2f}/{r['decode_ms']:.3f}" for r in rows)
+        + " (the first is the warm-up)")
+    log("serve", f"ssd_scan launches on the main path: {launches} "
+                 f"({launches // (1 + SERVE_REPEATS)} per prefill, 0 per "
+                 f"decode step)")
+    return m, batch, med, launches
+
+
+def _device_rows(prof):
+    """(device µs, calls, name) of every device-side op, largest first."""
+    from torch.autograd import DeviceType
+    rows = []
+    for evt in prof.key_averages():
+        us = next((float(getattr(evt, a)) for a in (
+            "self_device_time_total", "self_cuda_time_total")
+            if getattr(evt, a, None) is not None), 0.0)
+        if us > 0 and evt.device_type != DeviceType.CPU:
+            rows.append((us, evt.count, evt.key))
+    return sorted(rows, reverse=True)
+
+
+def serve_profile(dev, m, batch, med):
+    """torch.profiler over one prefill, then over 8 decode steps: top device
+    ops, and the device's busy share of the untraced median times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.engine import ServeSession
+    sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
+                        device=dev)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    n_dec = min(8, SERVE_TOKENS - 1)
+    torch.cuda.synchronize()
+    with profile(activities=acts) as p_pre:
+        first = sess.prefill(batch)
+        torch.cuda.synchronize()
+    with profile(activities=acts) as p_dec:
+        sess.decode(first, n_dec)
+        torch.cuda.synchronize()
+    shares = {}
+    for name, prof, untraced_ms in (
+            ("prefill", p_pre, med["prefill_ms"]),
+            (f"{n_dec} decode steps", p_dec, n_dec * med["decode_ms"])):
+        rows = _device_rows(prof)
+        busy_ms = sum(r[0] for r in rows) / 1e3
+        shares[name] = busy_ms / untraced_ms if busy_ms else None
+        log("profile", f"{name}: device busy {busy_ms:.3f} ms in "
+                       f"{sum(r[1] for r in rows)} device ops = " + (
+                           f"{100 * shares[name]:.1f} % of the untraced "
+                           f"median {untraced_ms:.3f} ms" if busy_ms else
+                           "not measured (the profiler saw no device time)"))
+        for us, cnt, key in rows[:8]:
+            log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+    return shares
+
+
+def time_ssd_scan(dev, flush):
+    """ssd_scan at the serving shape, L2 flushed before each launch: the
+    main path's bf16 x/y and, for the record, f32."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    b, T, H, P, N, Q = SSD_SHAPES[-1]
+    out = {}
+    for name in ("bfloat16", "float32"):
+        xdt = getattr(torch, name)
+        inp = _ssd_inputs(b, T, H, P, N, xdt, 7, dev)
+        for _ in range(3):
+            ssd_cuda(*inp, chunk=Q)
+        ms = _time_launches(lambda *a: ssd_cuda(*a, chunk=Q), inp, 20,
+                            flush)
+        plain_ms = _time_launches(lambda *a: ssd_ref(*a, chunk=Q), inp, 5,
+                                  flush)
+        nbytes, flops = ssd_bound(b, T, H, P, N, Q, xdt.itemsize)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOPS * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("timing", f"ssd_scan at b={b} T={T} H={H} P={P} N={N} Q={Q}, x/y "
+                      f"{name}: kernel {ms:.4f} ms/launch, plain "
+                      f"{plain_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} "
+                      f"ms ({nbytes} B at 3.35 TB/s = {t_bytes:.4f} ms; "
+                      f"{flops} flop at 67 TFLOP/s = {t_ops:.4f} ms), L2 "
+                      f"flushed before each launch")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    from repro_torch.configs.registry import get_config
     from repro_torch.core.calendar import extract_sorted
     from repro_torch.core.engine import ParsirEngine
     from repro_torch.core.ref_engine import run_sequential
     from repro_torch.kernels import build
     from repro_torch.kernels.event_apply import (event_apply_cuda,
                                                  event_apply_ref)
+    from repro_torch.kernels.ssd_scan import _lib as ssd_lib
     from repro_torch.testing import golden
     from repro_torch.testing.clean import assert_clean
     from repro_torch.testing.conformance import assert_vs_oracle, check_workload
     from repro_torch.workloads.phold import main_path
 
     dev = torch.device("cuda", 0)
+    # f32 products in full f32 (both are PyTorch's defaults for matmul; the
+    # cuDNN one is not, and is set too).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     # 1. device ---------------------------------------------------------------
     smi = nvidia_smi("name,power.limit")
@@ -198,20 +508,29 @@ def main() -> int:
                   f"python {sys.version.split()[0]} "
                   f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # 2. build ------------------------------------------------------------------
-    t0 = time.perf_counter()
-    path = build.build("event_apply")
-    log("build", f"event_apply.cu built in {time.perf_counter() - t0:.2f} s: "
-                 f"{path.name}")
-    logf = path.with_name(path.name + ".log")
-    if logf.exists():
-        for line in logf.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log("build", f"event_apply: {line.strip()}")
+    # 2. build: one nvcc per source, all started together -------------------------
+    def timed_build(name):
+        t0 = time.perf_counter()
+        return build.build(name), time.perf_counter() - t0
+
+    names = ("event_apply", "ssd_scan")
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        built = dict(zip(names, ex.map(timed_build, names)))
+    for name, (path, secs) in built.items():
+        log("build", f"{name}.cu built in {secs:.2f} s: {path.name}")
+        logf = path.with_name(path.name + ".log")
+        if logf.exists():
+            for line in logf.read_text().splitlines():
+                if "registers" in line or "spill" in line or "smem" in line:
+                    log("build", f"{name}: {line.strip()}")
+    log("build", f"ssd_scan: {ssd_lib().ssd_scan_smem_bytes(128, 64, 64)} B "
+                 f"of dynamic shared memory per block at Q=128, P=N=64")
 
     # 3. kernels vs plain versions ----------------------------------------------
     err = check_event_apply(dev)
     log("kernels", f"event_apply max |kernel - plain| over all outputs: {err}")
+    ssd_err = check_ssd_scan(dev)
+    log("kernels", f"ssd_scan max |kernel - plain| over all shapes: {ssd_err}")
 
     # 4. golden digests -----------------------------------------------------------
     for key, want in golden.PINNED.items():
@@ -220,7 +539,7 @@ def main() -> int:
             raise AssertionError(f"oracle digest {key} drifted: {got}")
         log("golden", f"{key} digest matches the pinned {want[:16]}")
 
-    # 5. main path ------------------------------------------------------------------
+    # 5. PHOLD's main path ------------------------------------------------------------------
     for cfg_name in ("batch-allgather", "batch-model"):
         rep = check_workload("phold", cfg_name, device=dev)
         log("main", f"phold conformance {cfg_name}: processed "
@@ -303,7 +622,17 @@ def main() -> int:
                   f"({nbytes} B at 3.35 TB/s; {flops} flop), L2 flushed "
                   f"before each launch")
 
-    # 7. result lines -------------------------------------------------------------
+    # 7. zamba2 serving ---------------------------------------------------------
+    cfg = get_config("zamba2-1.2b")
+    serve_reduced(dev)
+    serve_causal_check(dev, cfg)
+    model, batch, med, ssd_launches = serve_timed(dev, cfg)
+    serve_profile(dev, model, batch, med)
+    del model, batch
+    torch.cuda.empty_cache()
+    ssd_t = time_ssd_scan(dev, flush)["bfloat16"]
+
+    # 8. result lines -------------------------------------------------------------
     kernels = [{
         "name": "event_apply", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/event_apply.cu",
@@ -312,6 +641,13 @@ def main() -> int:
         "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+    }, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:74",
+        "launches": ssd_launches, "max_abs_err": ssd_err, "ms": ssd_t["ms"],
+        "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
+        "bound_by": ssd_t["bound_by"], "library_ms": None,
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

@@ -8,5 +8,7 @@ kernels are replaced by their plain PyTorch versions.
 
 Ported so far: one PHOLD simulation on one device under the conservative
 engine, through the ``batch`` rounds scheduler or the hand-written
-``event_apply`` kernel (``EngineConfig(batch_impl="model")``).
+``event_apply`` kernel (``EngineConfig(batch_impl="model")``); and
+zamba2-1.2b serving (``serve.engine.ServeSession``: greedy prefill + decode
+on one device), whose prefill runs the hand-written ``ssd_scan`` kernel.
 """

@@ -1,4 +1,4 @@
-"""Engine state carried between the JAX package and the port.
+"""State carried between the JAX package and the port.
 
 PHOLD has no weights: its "weights" are the object state and the calendar.
 :func:`engine_state_from_numpy` turns a JAX ``EngineState`` whose leaves
@@ -11,6 +11,10 @@ field name only, so this module imports nothing of the JAX package.
 Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
 on); every other leaf keeps its dtype.
+
+:func:`zamba_params_from_numpy` turns the JAX ``Zamba.init`` parameter tree,
+fetched to the host, into a state dict of the port's
+:class:`~repro_torch.models.zamba.Zamba`, keyed by the tree's paths.
 """
 from __future__ import annotations
 
@@ -61,3 +65,24 @@ def engine_state_to_numpy(state: EngineState) -> EngineState:
         epoch=np_(state.epoch),
         stats=Stats(*(np_(v) for v in state.stats)),
         bounds=np_(state.bounds), load=np_(state.load))
+
+
+def zamba_params_from_numpy(tree) -> dict:
+    """A host copy of the JAX zamba parameter tree (nested dicts and the
+    ``blocks`` list) → ``{"embed.tok": tensor, "blocks.0.win": ..., ...}``
+    on the CPU, for ``Zamba.load_state_dict`` (which copies to the model's
+    device)."""
+    out = {}
+
+    def walk(prefix, node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(f"{prefix}{k}.", v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(f"{prefix}{i}.", v)
+        else:
+            out[prefix[:-1]] = torch.from_numpy(np.array(node, copy=True))
+
+    walk("", tree)
+    return out

@@ -1,0 +1,70 @@
+"""Command-line serving of the port: prefill a batch of synthetic prompts,
+then decode greedily, and report the times.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --batch 4 --prompt-len 1024 --tokens 32            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+      --reduced --batch 2 --prompt-len 32 --tokens 8 --device cpu
+
+Times on a CUDA device wait for the card (``torch.cuda.synchronize``) and
+include the first call's warm-up; the first generated token comes from the
+prefill, the other ``--tokens - 1`` from decode steps.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    if args.tokens < 1:
+        ap.error("--tokens must be at least 1")
+
+    from ..configs.registry import get_config
+    from ..core.device import resolve_device
+    from ..data.synthetic import make_batch
+    from ..models.registry import build_model
+    from ..serve.engine import ServeSession
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch, reduced=args.reduced)
+    model = build_model(cfg, device=dev)
+    batch = make_batch(cfg, args.batch, args.prompt_len, device=dev)
+    sess = ServeSession(model, args.batch, args.prompt_len + args.tokens,
+                        device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    first = sess.prefill(batch)
+    _sync(dev)
+    t1 = time.perf_counter()
+    out = sess.decode(first, args.tokens - 1)
+    _sync(dev)
+    t2 = time.perf_counter()
+    steps = args.tokens - 1
+    print(f"[serve] arch={cfg.name} device={dev} batch={args.batch} "
+          f"prompt={args.prompt_len} prefill={1e3 * (t1 - t0):.2f}ms "
+          f"decode={1e3 * (t2 - t1) / max(steps, 1):.2f}ms/token "
+          f"({args.batch * steps / max(t2 - t1, 1e-9):,.1f} tok/s)")
+    toks = [first.cpu()] + ([out.cpu()] if steps else [])
+    import torch
+    toks = torch.cat([t.reshape(args.batch, -1) for t in toks], dim=1)
+    for b in range(min(args.batch, 4)):
+        print(f"[serve] req{b}: {toks[b].tolist()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,207 @@
+"""Zamba2 hybrid (arXiv:2411.15242), port of ``repro/models/zamba.py``: a
+Mamba-2 backbone plus one weight-SHARED attention block invoked every
+``attn_every`` layers on concat(hidden, embed0), at width 2*d_model.
+
+Weights are shared across invocations; caches are not: each invocation has
+its own KV slot.  The module's parameters are the f32 masters, named as the
+JAX parameter tree (``embed.tok``, ``blocks.3.win``, ...).
+:meth:`Zamba.weights` casts them once to the compute dtype where the JAX
+model casts at every use; a serving session keeps that copy.
+
+Caches are updated in place.  Prefill is causal (ROADMAP C3): it computes
+the same logits as the teacher-forced :meth:`Zamba.forward`, and the same
+caches as :meth:`Zamba.decode_step` called once per prompt token.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..core.device import resolve_device
+from .layers import (attention, dense_init, dt_of, embed, init_embed,
+                     init_norm, norm, rope, sdpa, unembed)
+from .mamba2 import init_mamba_block, mamba_apply
+
+#: parameters the JAX model uses in f32 (norm scales/biases, SSM scalars);
+#: every other one it casts to the compute dtype at use.
+F32_PARAMS = frozenset({"scale", "bias", "a_log", "dt_bias"})
+
+
+def init_shared_attn(cfg, gen: torch.Generator) -> dict:
+    da = 2 * cfg.d_model
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "ln1": init_norm(da, cfg.norm, gen.device),
+        "wq": dense_init(gen, (da, Hq * hd)),
+        "wk": dense_init(gen, (da, Hkv * hd)),
+        "wv": dense_init(gen, (da, Hkv * hd)),
+        "wo": dense_init(gen, (Hq * hd, da), scale=1.0 / math.sqrt(Hq * hd)),
+        "ln2": init_norm(da, cfg.norm, gen.device),
+        "wg": dense_init(gen, (da, cfg.d_ff)),
+        "wu": dense_init(gen, (da, cfg.d_ff)),
+        "wd": dense_init(gen, (cfg.d_ff, da), scale=1.0 / math.sqrt(cfg.d_ff)),
+        "wproj": dense_init(gen, (da, cfg.d_model), scale=1.0 / math.sqrt(da)),
+    }
+
+
+def shared_attn_apply(cfg, p, h, e0, positions, cache=None, cur_len=0):
+    """h: hidden [B,T,d]; e0: initial embeddings [B,T,d].  With a cache
+    ({"k","v": [B,Smax,Hkv,hd]}), k/v land in rows [cur_len, cur_len+T) and
+    the queries attend over rows [0, cur_len+T), causally by position."""
+    B, T, d = h.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    xa = torch.cat([h, e0], dim=-1)                            # [B,T,2d]
+    y = norm(p["ln1"], xa, cfg.norm, cfg.norm_eps)
+    q = (y @ p["wq"]).reshape(B, T, Hq, hd)
+    k = (y @ p["wk"]).reshape(B, T, Hkv, hd)
+    v = (y @ p["wv"]).reshape(B, T, Hkv, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    if cache is None:
+        o = sdpa(cfg, q, k, v)
+    else:
+        cache["k"][:, cur_len:cur_len + T] = k
+        cache["v"][:, cur_len:cur_len + T] = v
+        cdt = dt_of(cfg)
+        o = attention(q, cache["k"].to(cdt), cache["v"].to(cdt),
+                      q_offset=cur_len)
+    xa = xa + o.reshape(B, T, Hq * hd) @ p["wo"]
+    y = norm(p["ln2"], xa, cfg.norm, cfg.norm_eps)
+    ff = F.silu(y @ p["wg"]) * (y @ p["wu"])
+    xa = xa + ff @ p["wd"]
+    return h + xa @ p["wproj"]
+
+
+class _Tree(nn.Module):
+    """A nested dict/list of tensors as frozen parameters, so that the
+    state-dict keys are the JAX tree's paths (``blocks.0.ln.scale``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(_Tree(x) for x in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self, cdt: torch.dtype) -> dict:
+        out = {}
+        for k, v in self.named_parameters(recurse=False):
+            out[k] = v.detach() if k in F32_PARAMS else v.detach().to(cdt)
+        for k, m in self.named_children():
+            out[k] = ([x.tree(cdt) for x in m] if isinstance(m, nn.ModuleList)
+                      else m.tree(cdt))
+        return out
+
+
+class Zamba(_Tree):
+    """zamba2 for serving: ``init_cache``, ``prefill``, ``decode_step`` and
+    the teacher-forced ``forward``.  Parameters come from a seeded
+    ``torch.Generator`` on ``device`` (the card unless the caller asks for
+    the CPU); load the JAX model's with
+    ``load_state_dict(interop.zamba_params_from_numpy(tree))``."""
+
+    def __init__(self, cfg, *, device="cuda", seed: int = 0):
+        if cfg.family != "hybrid":
+            raise ValueError(f"Zamba needs a hybrid config, got {cfg.family}")
+        if cfg.tie_embeddings:
+            raise NotImplementedError(
+                "tied embeddings come with the dense slice of the port")
+        if cfg.param_dtype != "float32":
+            raise NotImplementedError(
+                f"param_dtype={cfg.param_dtype!r}: the port keeps f32 master "
+                f"weights only until the training slice")
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        super().__init__({
+            "embed": init_embed(cfg, gen),
+            "final_norm": init_norm(cfg.d_model, cfg.norm, dev),
+            "shared_attn": init_shared_attn(cfg, gen),
+            "blocks": [init_mamba_block(cfg, gen)
+                       for _ in range(cfg.n_layers)],
+        })
+        self.cfg = cfg
+        every = cfg.attn_every or 6
+        self.attn_at = [i for i in range(cfg.n_layers) if i % every == 0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.final_norm.scale.device
+
+    def weights(self) -> dict:
+        """The parameter tree in compute dtype (a copy when that differs
+        from f32; norms and SSM scalars stay f32, as the JAX model uses
+        them)."""
+        return self.tree(dt_of(self.cfg))
+
+    def _run(self, w, x, positions, mamba_states, attn_caches, cur_len,
+             decode):
+        cfg = self.cfg
+        e0 = x
+        inv = 0
+        for i, bp in enumerate(w["blocks"]):
+            if i in self.attn_at:
+                cache = None if attn_caches is None else attn_caches[inv]
+                x = shared_attn_apply(cfg, w["shared_attn"], x, e0, positions,
+                                      cache, cur_len)
+                inv += 1
+            st = None if mamba_states is None else mamba_states[i]
+            x = mamba_apply(cfg, bp, x, st, decode)
+        return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
+
+    @torch.no_grad()
+    def forward(self, tokens, w=None):
+        """Teacher-forced logits [B,T,V] (f32) of tokens [B,T], no cache."""
+        w = self.weights() if w is None else w
+        x = embed(w["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._run(w, x, positions, None, None, 0, False)
+        return unembed(self.cfg, w["embed"], x)
+
+    def init_cache(self, batch_size: int, max_len: int) -> dict:
+        """Per-layer SSM state (conv window in the compute dtype, ``h``
+        always f32) and per-invocation KV slots in the compute dtype."""
+        cfg = self.cfg
+        dtype = dt_of(cfg)
+        dev = self.device
+        B = batch_size
+        W, C = cfg.ssm_conv, cfg.d_inner + 2 * cfg.ssm_state
+        H, N, P = cfg.ssm_heads, cfg.ssm_state, cfg.ssm_head_dim
+        kv = (B, max_len, cfg.n_kv_heads, cfg.hd)
+        return {
+            "mamba": [{"conv": torch.zeros((B, W - 1, C), dtype=dtype,
+                                           device=dev),
+                       "h": torch.zeros((B, H, N, P), dtype=torch.float32,
+                                        device=dev)}
+                      for _ in range(cfg.n_layers)],
+            "attn": [{"k": torch.zeros(kv, dtype=dtype, device=dev),
+                      "v": torch.zeros(kv, dtype=dtype, device=dev)}
+                     for _ in self.attn_at],
+        }
+
+    @torch.no_grad()
+    def prefill(self, tokens, caches, w=None):
+        """Run prompts tokens [B,T] from empty caches (filled in place);
+        returns the last position's logits [B,1,V] f32."""
+        w = self.weights() if w is None else w
+        x = embed(w["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._run(w, x, positions, caches["mamba"], caches["attn"], 0,
+                      False)
+        return unembed(self.cfg, w["embed"], x[:, -1:]), caches
+
+    @torch.no_grad()
+    def decode_step(self, tokens, caches, cur_len: int, w=None):
+        """One token per row, tokens [B,1], at position ``cur_len``; caches
+        advance in place.  Returns logits [B,1,V] f32."""
+        w = self.weights() if w is None else w
+        x = embed(w["embed"], tokens)
+        positions = cur_len + torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._run(w, x, positions, caches["mamba"], caches["attn"],
+                      cur_len, True)
+        return unembed(self.cfg, w["embed"], x), caches
