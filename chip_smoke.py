@@ -14,7 +14,9 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 PHOLD shape, for all three draw distributions with hot
                 routing on and off; ssd_scan at the unit-test shapes, T=37
                 and T=160 with chunk 128, and the serving shape, in f32 and
-                with bf16 x/y;
+                with bf16 x/y; flash_attention at the unit-test shapes
+                (causal and not, Tq < Tk), a ragged T=1000 and the
+                full-width llama3.2-3b and zamba2-1.2b shapes, f32 and bf16;
   4. golden   — the port's numpy oracle reproduces the pinned digests;
   5. main     — the ``phold`` conformance recipe under ``batch_impl`` rounds
                 and model, then PHOLD's main path (``workloads.phold.
@@ -31,8 +33,18 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 and 32 greedy tokens, timed (prefill ms, decode ms/token,
                 tok/s, peak memory), with 38 ssd_scan launches per prefill,
                 a profile of where the device time goes, and ssd_scan's own
-                time per launch beside its bound;
-  8. a JSON line listing every ported kernel, the nvidia-smi line, and the
+                time per launch beside its bound; then one zamba2-1.2b bf16
+                forward (B=4, T=1024) through flash_attention (7 launches)
+                and its logits' spread against the plain attention and f32;
+  8. lm       — llama3.2-3b's teacher-forced forward and loss
+                (``DecoderLM.loss``): the reduced config on the card against
+                the CPU; the full width in f32 through the kernel against the
+                plain chunked attention (``attn_impl="jnp"``); then in bf16,
+                B=4 x 2048 tokens, timed (ms per forward and loss, tokens/s,
+                peak memory) with 28 flash launches per forward, a profile
+                and the bf16 logits' spread; flash_attention's own time per
+                launch beside its plain version, SDPA's and its bound;
+  9. a JSON line listing every ported kernel, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
 The script imports nothing of JAX or of the JAX package.
@@ -66,6 +78,17 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 #: the f32 decode-vs-teacher-forced check at full width: the JAX package's
 #: tolerance at the reduced size (tests/test_models_smoke.py).
 CAUSAL_TOL = 2e-3
+#: H100 SXM dense bf16 tensor-core rate, flop/s.
+BF16_FLOPS = 989e12
+#: flash_attention tolerances against the plain version: the JAX package's
+#: own (tests/test_kernels.py), f32 and bf16.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: llama3.2-3b forward and loss: batch, tokens per row, timed repeats after
+#: one warm-up.
+LM_BATCH, LM_T, LM_REPEATS = 4, 2048, 3
+#: the full-width f32 kernel-vs-plain-attention check: logits within atol =
+#: rtol = CAUSAL_TOL, the loss within LOSS_TOL.
+LOSS_TOL = 1e-3
 
 
 def log(phase: str, msg: str) -> None:
@@ -477,6 +500,323 @@ def time_ssd_scan(dev, flush):
     return out
 
 
+# -- flash_attention: kernel against its plain version, time, bound ----------------
+
+#: (B, Hq, Hkv, Tq, Tk, D, causal): the JAX tests' shapes, non-causal, Tq < Tk,
+#: a ragged T, then llama3.2-3b's and zamba2-1.2b's full-width shapes.
+FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
+                (1, 2, 2, 64, 64, 32, True), (1, 4, 1, 96, 96, 32, True),
+                (1, 2, 2, 128, 128, 32, False), (2, 8, 2, 256, 256, 64, False),
+                (1, 4, 2, 64, 128, 32, True), (2, 8, 2, 96, 160, 64, True),
+                (1, 8, 2, 1000, 1000, 128, True),
+                (4, 24, 8, 2048, 2048, 128, True),
+                (4, 32, 32, 1024, 1024, 128, True)]
+
+
+def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, device):
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(shape, generator=g).to(dtype).to(device)
+            for shape in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+def check_flash(device) -> float:
+    """flash_attention kernel vs attention_ref on the card; returns the
+    largest |kernel - plain| over every shape and dtype."""
+    import torch
+    from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
+    worst = 0.0
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal) in enumerate(FLASH_SHAPES):
+        errs = []
+        for name in ("float32", "bfloat16"):
+            q, k, v = _flash_inputs(B, Hq, Hkv, Tq, Tk, D,
+                                    getattr(torch, name), 3000 + i, device)
+            before = flash_cuda.launches
+            got = flash_cuda(q, k, v, causal=causal)
+            want = attention_ref(q, k, v, causal=causal)
+            torch.cuda.synchronize()
+            if flash_cuda.launches != before + 1 or got.dtype != want.dtype:
+                raise AssertionError("flash_attention: the wrapper did not "
+                                     "launch")
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= FLASH_TOL[name]:
+                raise AssertionError(
+                    f"flash_attention kernel != plain at B={B} Hq={Hq} "
+                    f"Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} causal={causal} "
+                    f"{name}: max |diff| {err} > {FLASH_TOL[name]}")
+            worst = max(worst, err)
+            errs.append(f"{name} {err:.3g}")
+            del q, k, v, got, want
+        log("kernels", f"flash_attention B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} "
+                     f"Tk={Tk} D={D} {'causal' if causal else 'non-causal'}: "
+                     f"max |kernel - plain| {', '.join(errs)} (tol 2e-5 f32, "
+                     f"2e-2 bf16)")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def flash_bound(B, Hq, Hkv, Tq, Tk, D, causal, itemsize):
+    """(bytes, flops) of one attention call: q, k, v read and o written
+    once; the two products, 2 flops a multiply-add, over the (row, key)
+    pairs the mask leaves visible."""
+    nbytes = (2 * B * Hq * Tq * D + 2 * B * Hkv * Tk * D) * itemsize
+    off = Tk - Tq
+    pairs = (sum(min(Tk, max(0, i + off + 1)) for i in range(Tq)) if causal
+             else Tq * Tk)
+    return nbytes, 4 * B * Hq * D * pairs
+
+
+def time_flash(dev, flush):
+    """flash_attention at llama3.2-3b's full-width shape, L2 flushed before
+    each launch: the main path's bf16 and, for the record, f32; beside the
+    plain version and one SDPA call (the yardstick; the port never calls
+    it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
+    B, Hq, Hkv, Tq, Tk, D, causal = FLASH_SHAPES[-2]
+    out = {}
+    for name in ("bfloat16", "float32"):
+        dt = getattr(torch, name)
+        inp = _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dt, 11, dev)
+        for _ in range(2):
+            flash_cuda(*inp)
+        ms = _time_launches(flash_cuda, inp, 20, flush)
+        plain_ms = _time_launches(attention_ref, inp, 5, flush)
+
+        def sdpa(q, k, v):
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                  enable_gqa=True)
+        lib_ms = _time_launches(sdpa, inp, 20, flush)
+        lib_err = float((sdpa(*inp).float() - flash_cuda(*inp).float())
+                        .abs().max())
+        nbytes, flops = flash_bound(B, Hq, Hkv, Tq, Tk, D, causal,
+                                    dt.itemsize)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
+        t_ops = flops / peak * 1e3
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=max(t_bytes, t_ops),
+                         bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("timing", f"flash_attention at B={B} Hq={Hq} Hkv={Hkv} T={Tq} "
+                      f"D={D} causal, {name}: kernel {ms:.4f} ms/launch, "
+                      f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max "
+                      f"|SDPA - kernel| {lib_err:.3g}), bound "
+                      f"{out[name]['bound_ms']:.4f} ms ({nbytes} B at 3.35 "
+                      f"TB/s = {t_bytes:.4f} ms; {flops} flop at "
+                      f"{peak / 1e12:g} TFLOP/s = {t_ops:.4f} ms), L2 flushed "
+                      f"before each launch")
+        del inp
+    return out
+
+
+# -- llama3.2-3b forward and loss ----------------------------------------------------
+
+def _with(model, **changes):
+    """The model with those fields of its config changed."""
+    model.cfg = dataclasses.replace(model.cfg, **changes)
+    return model
+
+
+def bf16_spread(name, model, tokens):
+    """bf16 logits through the kernel and through the plain attention, each
+    against the same model's f32 forward (plain attention): how far the
+    kernel moves the logits beside the model's own bf16 rounding.  Logged,
+    not gated; leaves the model's config as it found it."""
+    import torch
+    cfg = model.cfg
+    w16 = model.weights()
+    kern = _with(model, attn_impl="pallas")(tokens, w16)
+    plain = _with(model, attn_impl="jnp")(tokens, w16)
+    del w16
+    ref = _with(model, dtype="float32")(tokens, model.tree(torch.float32))
+    model.cfg = cfg
+
+    def cmp(a, b):
+        return (f"max |diff| {float((a - b).abs().max()):.3g}, argmax "
+                f"agreement {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.4f}")
+    log("lm", f"{name} bf16 logits, {tokens.shape[0]} x {tokens.shape[1]} "
+              f"tokens (max |logit| {float(ref.abs().max()):.3g} in f32): "
+              f"kernel vs plain attention {cmp(kern, plain)}; plain bf16 vs "
+              f"f32 {cmp(plain, ref)}; kernel bf16 vs f32 {cmp(kern, ref)} "
+              f"(logged, not gated)")
+    del kern, plain, ref
+    torch.cuda.empty_cache()
+
+
+def lm_reduced(dev) -> float:
+    """The reduced llama3.2 through the kernel on the card and through the
+    plain attention on the CPU, same weights and tokens: logits and loss
+    within 1e-4."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.flash_attention import flash_cuda
+    from repro_torch.models.transformer import DecoderLM
+    cfg = dataclasses.replace(get_config("llama3.2-3b", reduced=True),
+                              attn_impl="pallas")
+    cpu = DecoderLM(cfg, device="cpu", seed=0)
+    card = DecoderLM(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch(cfg, 2, 96, step=1, device="cpu")
+    before = flash_cuda.launches
+    got = (card(batch["tokens"].to(dev)).cpu(),
+           float(card.loss({"tokens": batch["tokens"].to(dev)})))
+    if flash_cuda.launches - before != 2 * cfg.n_layers:
+        raise AssertionError("reduced llama3.2: the card did not run the "
+                             "flash kernel once per layer")
+    want = (cpu(batch["tokens"]), float(cpu.loss(batch)))
+    err = float((got[0] - want[0]).abs().max())
+    lerr = abs(got[1] - want[1])
+    if not (err <= 1e-4 and lerr <= 1e-4):
+        raise AssertionError(f"reduced llama3.2: card and CPU disagree (max "
+                             f"|logit diff| {err}, |loss diff| {lerr})")
+    log("lm", f"reduced llama3.2 (2 layers, d_model 64), 2 x 96 tokens: card "
+              f"(flash kernel) == CPU (plain attention), max |logit diff| "
+              f"{err:.3g}, |loss diff| {lerr:.3g} (tol 1e-4)")
+    return err
+
+
+def lm_f32_check(dev, cfg):
+    """Full width in f32: logits and loss through the kernel against the
+    same model under the plain chunked attention."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.flash_attention import flash_cuda
+    from repro_torch.models.transformer import DecoderLM
+    m = DecoderLM(dataclasses.replace(cfg, dtype="float32"), device=dev,
+                  seed=0)
+    batch = make_batch(m.cfg, LM_BATCH, LM_T, device=dev)
+    w = m.weights()
+    out = {}
+    for impl in ("pallas", "jnp"):
+        before = flash_cuda.launches
+        logits = _with(m, attn_impl=impl)(batch["tokens"], w)
+        loss = float(m.loss(batch, w))
+        torch.cuda.synchronize()
+        launched = flash_cuda.launches - before
+        if launched != (2 * cfg.n_layers if impl == "pallas" else 0):
+            raise AssertionError(f"f32 {impl}: {launched} flash launches")
+        out[impl] = (logits, loss)
+    (lk, ls), (lp, lsp) = out["pallas"], out["jnp"]
+    diff = (lk - lp).abs()
+    err, big, lerr = float(diff.max()), float(lp.abs().max()), abs(ls - lsp)
+    ok = bool((diff <= CAUSAL_TOL + CAUSAL_TOL * lp.abs()).all())
+    if not (ok and lerr <= LOSS_TOL and bool(torch.isfinite(lk).all())):
+        raise AssertionError(f"full-width f32: kernel and plain attention "
+                             f"disagree (max |logit diff| {err}, max |logit| "
+                             f"{big}, |loss diff| {lerr})")
+    log("lm", f"full-width llama3.2-3b in f32 ({m.cfg.n_layers} layers, "
+              f"{sum(p.numel() for p in m.parameters()):,} params, seed 0), "
+              f"{LM_BATCH} x {LM_T} tokens: flash kernel vs plain chunked "
+              f"attention: max |logit diff| {err:.3g} (max |logit| "
+              f"{big:.3g}; tol atol=rtol={CAUSAL_TOL}), loss {ls:.6f} vs "
+              f"{lsp:.6f}, |diff| {lerr:.3g} (tol {LOSS_TOL})")
+    del m, w, out, lk, lp, diff
+    torch.cuda.empty_cache()
+    return err, lerr
+
+
+def lm_timed(dev, cfg):
+    """Full width in the config's bf16 through the kernel: one warm-up, then
+    LM_REPEATS timed calls of ``loss`` (which runs the forward), the compute
+    weights cast once beforehand; every kernel count set to 0 just before."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    from repro_torch.kernels.flash_attention import flash_cuda
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    from repro_torch.models.transformer import DecoderLM
+    torch.cuda.reset_peak_memory_stats()
+    m = DecoderLM(dataclasses.replace(cfg, attn_impl="pallas"), device=dev,
+                  seed=0)
+    batch = make_batch(cfg, LM_BATCH, LM_T, device=dev)
+    w = m.weights()
+    rows = []
+    flash_cuda.launches = ssd_cuda.launches = event_apply_cuda.launches = 0
+    for _ in range(1 + LM_REPEATS):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        before = flash_cuda.launches
+        t0 = time.perf_counter()
+        e0.record()
+        loss = m.loss(batch, w)
+        e1.record()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if flash_cuda.launches - before != cfg.n_layers:
+            raise AssertionError(f"forward launched flash_attention "
+                                 f"{flash_cuda.launches - before} times, not "
+                                 f"{cfg.n_layers}")
+        if not bool(torch.isfinite(loss)):
+            raise AssertionError(f"bf16 loss is not finite: {loss}")
+        rows.append({"ms": (t1 - t0) * 1e3, "dev_ms": e0.elapsed_time(e1),
+                     "loss": float(loss)})
+    launches = (flash_cuda.launches, ssd_cuda.launches,
+                event_apply_cuda.launches)
+    if launches[1:] != (0, 0):
+        raise AssertionError(f"the dense forward launched other kernels: "
+                             f"{launches}")
+    timed = rows[1:]
+    med = {k: statistics.median(r[k] for r in timed) for k in ("ms", "dev_ms")}
+    med["tok_s"] = LM_BATCH * LM_T / (med["ms"] / 1e3)
+    med["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    log("lm", f"full-width llama3.2-3b in bf16 (f32 masters + bf16 copy), "
+              f"{LM_BATCH} x {LM_T} tokens, forward + loss, median of "
+              f"{LM_REPEATS} after 1 warm-up: {med['ms']:.2f} ms (CUDA events "
+              f"{med['dev_ms']:.2f}), {med['tok_s']:.0f} tokens/s, peak device "
+              f"memory {med['peak_mib']:.0f} MiB, loss {timed[-1]['loss']:.4f}")
+    log("lm", "per run (ms): " + ", ".join(f"{r['ms']:.2f}" for r in rows)
+        + " (the first is the warm-up)")
+    log("lm", f"flash_attention launches on the main path: {launches[0]} "
+              f"({launches[0] // (1 + LM_REPEATS)} per forward); ssd_scan "
+              f"{launches[1]}, event_apply {launches[2]}")
+    return m, w, batch, med, launches[0]
+
+
+def lm_profile(m, w, batch, med):
+    """torch.profiler over one forward + loss: top device ops and the
+    device's busy share of the untraced median."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.loss(batch, w)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log("profile", f"llama3.2-3b forward + loss: device busy {busy_ms:.3f} ms "
+                   f"in {sum(r[1] for r in rows)} device ops = " + (
+                       f"{100 * busy_ms / med['ms']:.1f} % of the untraced "
+                       f"median {med['ms']:.3f} ms" if busy_ms else
+                       "not measured (the profiler saw no device time)"))
+    for us, cnt, key in rows[:10]:
+        log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+
+
+def zamba_pallas_forward(dev, model):
+    """One zamba2-1.2b bf16 forward (B=4, T=1024) through the kernel: one
+    launch per shared-attention invocation; then the logits' spread."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.flash_attention import flash_cuda
+    tokens = make_batch(model.cfg, SERVE_BATCH, SERVE_PROMPT,
+                        device=dev)["tokens"]
+    before = flash_cuda.launches
+    got = _with(model, attn_impl="pallas")(tokens)
+    torch.cuda.synchronize()
+    launched = flash_cuda.launches - before
+    if launched != len(model.attn_at) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"zamba2 forward: {launched} flash launches, "
+                             f"finite {bool(torch.isfinite(got).all())}")
+    log("lm", f"full-width zamba2-1.2b bf16 forward, {SERVE_BATCH} x "
+              f"{SERVE_PROMPT} tokens, attn_impl='pallas': {launched} "
+              f"flash_attention launches, finite logits")
+    del got
+    bf16_spread("zamba2-1.2b", model, tokens)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -489,6 +829,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.event_apply import (event_apply_cuda,
                                                  event_apply_ref)
+    from repro_torch.kernels.flash_attention import _lib as flash_lib
     from repro_torch.kernels.ssd_scan import _lib as ssd_lib
     from repro_torch.testing import golden
     from repro_torch.testing.clean import assert_clean
@@ -513,7 +854,7 @@ def main() -> int:
         t0 = time.perf_counter()
         return build.build(name), time.perf_counter() - t0
 
-    names = ("event_apply", "ssd_scan")
+    names = ("event_apply", "ssd_scan", "flash_attention")
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         built = dict(zip(names, ex.map(timed_build, names)))
     for name, (path, secs) in built.items():
@@ -525,12 +866,17 @@ def main() -> int:
                     log("build", f"{name}: {line.strip()}")
     log("build", f"ssd_scan: {ssd_lib().ssd_scan_smem_bytes(128, 64, 64)} B "
                  f"of dynamic shared memory per block at Q=128, P=N=64")
+    log("build", f"flash_attention: {flash_lib().flash_attention_smem_bytes(128)}"
+                 f" B of dynamic shared memory per block at D=128")
 
     # 3. kernels vs plain versions ----------------------------------------------
     err = check_event_apply(dev)
     log("kernels", f"event_apply max |kernel - plain| over all outputs: {err}")
     ssd_err = check_ssd_scan(dev)
     log("kernels", f"ssd_scan max |kernel - plain| over all shapes: {ssd_err}")
+    flash_err = check_flash(dev)
+    log("kernels", f"flash_attention max |kernel - plain| over all shapes: "
+                   f"{flash_err}")
 
     # 4. golden digests -----------------------------------------------------------
     for key, want in golden.PINNED.items():
@@ -628,11 +974,24 @@ def main() -> int:
     serve_causal_check(dev, cfg)
     model, batch, med, ssd_launches = serve_timed(dev, cfg)
     serve_profile(dev, model, batch, med)
+    zamba_pallas_forward(dev, model)
     del model, batch
     torch.cuda.empty_cache()
     ssd_t = time_ssd_scan(dev, flush)["bfloat16"]
 
-    # 8. result lines -------------------------------------------------------------
+    # 8. llama3.2-3b forward and loss ------------------------------------------------
+    cfg = get_config("llama3.2-3b")
+    lm_reduced(dev)
+    lm_f32_check(dev, cfg)
+    m, w, batch, lm_med, flash_launches = lm_timed(dev, cfg)
+    lm_profile(m, w, batch, lm_med)
+    del w
+    bf16_spread("llama3.2-3b", m, batch["tokens"])
+    del m, batch
+    torch.cuda.empty_cache()
+    flash_t = time_flash(dev, flush)["bfloat16"]
+
+    # 9. result lines --------------------------------------------------------------
     kernels = [{
         "name": "event_apply", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/event_apply.cu",
@@ -648,6 +1007,14 @@ def main() -> int:
         "launches": ssd_launches, "max_abs_err": ssd_err, "ms": ssd_t["ms"],
         "plain_ms": ssd_t["plain_ms"], "bound_ms": ssd_t["bound_ms"],
         "bound_by": ssd_t["bound_by"], "library_ms": None,
+    }, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:107",
+        "launches": flash_launches, "max_abs_err": flash_err,
+        "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
+        "bound_ms": flash_t["bound_ms"], "bound_by": flash_t["bound_by"],
+        "library_ms": flash_t["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

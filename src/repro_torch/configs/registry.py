@@ -13,7 +13,7 @@ ARCHS = {
     "granite-3-2b": None,
     "stablelm-12b": None,
     "starcoder2-7b": None,
-    "llama3.2-3b": None,
+    "llama3.2-3b": "llama3_2_3b",
     "kimi-k2-1t-a32b": None,
     "deepseek-v2-lite-16b": None,
     "musicgen-medium": None,
@@ -22,9 +22,7 @@ ARCHS = {
     "zamba2-1.2b": "zamba2_1_2b",
 }
 
-_NEXT = "the no-cache forward slice (flash_attention, ROADMAP B2)"
 _LATER = "a later slice of the LM substrate (ROADMAP A15)"
-_SLICE = {"llama3.2-3b": _NEXT}
 
 
 def get_config(arch: str, reduced: bool = False):
@@ -33,7 +31,7 @@ def get_config(arch: str, reduced: bool = False):
     if ARCHS[arch] is None:
         raise NotImplementedError(
             f"{arch} is not in the PyTorch port yet; it comes with "
-            f"{_SLICE.get(arch, _LATER)}")
+            f"{_LATER}")
     mod = import_module(f"repro_torch.configs.{ARCHS[arch]}")
     return mod.reduced() if reduced else mod.CONFIG
 

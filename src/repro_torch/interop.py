@@ -12,9 +12,9 @@ Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
 on); every other leaf keeps its dtype.
 
-:func:`zamba_params_from_numpy` turns the JAX ``Zamba.init`` parameter tree,
-fetched to the host, into a state dict of the port's
-:class:`~repro_torch.models.zamba.Zamba`, keyed by the tree's paths.
+:func:`zamba_params_from_numpy` and :func:`decoder_params_from_numpy` turn
+the JAX ``Zamba.init`` and ``DecoderLM.init`` parameter trees, fetched to
+the host, into state dicts of the port's models, keyed by the tree's paths.
 """
 from __future__ import annotations
 
@@ -67,11 +67,8 @@ def engine_state_to_numpy(state: EngineState) -> EngineState:
         bounds=np_(state.bounds), load=np_(state.load))
 
 
-def zamba_params_from_numpy(tree) -> dict:
-    """A host copy of the JAX zamba parameter tree (nested dicts and the
-    ``blocks`` list) → ``{"embed.tok": tensor, "blocks.0.win": ..., ...}``
-    on the CPU, for ``Zamba.load_state_dict`` (which copies to the model's
-    device)."""
+def _flatten(tree) -> dict:
+    """Nested dicts and lists of arrays → ``{"a.0.b": tensor}`` on the CPU."""
     out = {}
 
     def walk(prefix, node):
@@ -86,3 +83,27 @@ def zamba_params_from_numpy(tree) -> dict:
 
     walk("", tree)
     return out
+
+
+def zamba_params_from_numpy(tree) -> dict:
+    """A host copy of the JAX zamba parameter tree (nested dicts and the
+    ``blocks`` list) → ``{"embed.tok": tensor, "blocks.0.win": ..., ...}``
+    on the CPU, for ``Zamba.load_state_dict`` (which copies to the model's
+    device)."""
+    return _flatten(tree)
+
+
+def decoder_params_from_numpy(tree, cfg) -> dict:
+    """A host copy of the JAX ``DecoderLM`` parameter tree → a state dict of
+    the port's :class:`~repro_torch.models.transformer.DecoderLM`
+    (``blocks.3.attn.wq``, ...).  Under ``cfg.scan_layers`` the JAX blocks
+    are one tree whose leaves carry a leading layer axis; it is unstacked
+    into one entry per layer."""
+    def layer(node, i):
+        return ({k: layer(v, i) for k, v in node.items()}
+                if isinstance(node, dict) else node[i])
+
+    blocks = tree["blocks"]
+    if cfg.scan_layers:
+        blocks = [layer(blocks, i) for i in range(cfg.n_layers)]
+    return _flatten({**tree, "blocks": blocks})

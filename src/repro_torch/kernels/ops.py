@@ -8,7 +8,12 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from .event_apply import event_apply_cuda, event_apply_ref
+from .flash_attention import attention_ref, flash_cuda
 from .ssd_scan import ssd_cuda, ssd_ref
+
+#: the key block of the JAX package's ``ops.mha``; its non-causal rule
+#: (Tk a multiple of the block) is kept, though the kernel masks the edge.
+KEY_BLOCK = 128
 
 
 def _route(name, t, cuda_fn, cpu_fn):
@@ -29,6 +34,29 @@ def event_apply(payload, addresses, top, ts, seed, cnt, *, n_objects: int,
     return fn(payload, addresses, top, ts, seed, cnt, n_objects=n_objects,
               lookahead=lookahead, K=K, KR=KR, dist=dist, mean=mean,
               hot_objects=hot_objects, hot_prob=hot_prob)
+
+
+def mha(q, k, v, *, causal: bool = True):
+    """GQA attention.  q: [B,Hq,Tq,D]; k, v: [B,Hkv,Tk,D] → [B,Hq,Tq,D] in
+    q's dtype; the causal mask is aligned bottom-right (see
+    :mod:`repro_torch.kernels.flash_attention`).
+
+    Takes what the JAX package's ``ops.mha`` takes: non-causal attention
+    needs Tk to be a multiple of the key block ``min(128, max(8, Tk))``.
+    Nothing is padded: the kernel masks the ragged edges itself."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
+            or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"mha: needs q [B,Hq,Tq,D] and k, v [B,Hkv,Tk,D], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.shape[1] == 0 or q.shape[1] % k.shape[1]:
+        raise ValueError(f"mha: Hq={q.shape[1]} is not a multiple of "
+                         f"Hkv={k.shape[1]}")
+    Tk = k.shape[2]
+    if Tk % min(KEY_BLOCK, max(8, Tk)) and not causal:
+        raise ValueError("non-causal attention requires Tk % bk == 0")
+    fn = _route("mha", q, flash_cuda, attention_ref)
+    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
 
 
 def ssd_pad(x, dt, B, C, *, chunk: int):

@@ -2,9 +2,11 @@
 
 Conventions, as in the JAX package: parameters are kept in
 ``cfg.param_dtype`` (f32) and activations run in ``cfg.dtype``; norms,
-softmax statistics and logits are f32.  This slice ports what the zamba2
-serving path needs: ``dt_of``, ``dense_init``, ``norm``, ``rope``,
-``embed``/``unembed`` and the chunked online-softmax attention.
+softmax statistics and logits are f32.  Ported so far: ``dt_of``,
+``dense_init``, ``norm``, ``rope``, ``embed``/``unembed`` (tied or not), the
+chunked online-softmax attention, ``sdpa`` (the plain attention or, under
+``attn_impl="pallas"``, the flash_attention kernel through ``ops.mha``),
+the GQA attention block in its no-cache form and the MLP.
 
 The attention is causal by position everywhere: query row ``i`` sits at
 absolute position ``q_offset + i`` and sees key columns ``<= q_offset + i``.
@@ -19,6 +21,10 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -70,8 +76,8 @@ def rope(x, positions, theta: float):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
-def attention(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
-              compute_dtype=torch.float32):
+def attn_chunked(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
+                 compute_dtype=torch.float32):
     """Causal attention with an online softmax over key chunks.
 
     q: [B,T,Hq,hd]; k, v: [B,S,Hkv,hd] (GQA: query head h reads key head
@@ -110,24 +116,78 @@ def attention(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
 
 def sdpa(cfg, q, k, v):
     """The no-cache causal attention of the teacher-forced forward.
-    q: [B,T,Hq,hd]; k,v: [B,T,Hkv,hd]."""
+    q: [B,T,Hq,hd]; k,v: [B,T,Hkv,hd].  ``attn_impl="pallas"`` goes to
+    ``ops.mha`` in [B,H,T,hd] (the flash_attention kernel on a CUDA tensor)
+    and, as in the JAX package, ignores ``attn_f32``."""
     if cfg.attn_impl == "pallas":
-        raise NotImplementedError(
-            "attn_impl='pallas' (the flash_attention kernel) is not in the "
-            "PyTorch port yet; it comes with the no-cache forward slice "
-            "(ROADMAP B2)")
+        o = ops.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    causal=True)
+        return o.transpose(1, 2)
     cdt = torch.float32 if cfg.attn_f32 else dt_of(cfg)
     S = k.shape[1]
     base = cfg.attn_chunk
-    return attention(q, k, v, chunk=S if S <= 2 * base else base,
-                     compute_dtype=cdt)
+    return attn_chunked(q, k, v, chunk=S if S <= 2 * base else base,
+                        compute_dtype=cdt)
 
+
+# -- GQA attention block ----------------------------------------------------------
+
+def init_attn(cfg, gen: torch.Generator) -> dict:
+    d, hd, Hq, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {
+        "wq": dense_init(gen, (d, Hq * hd)),
+        "wk": dense_init(gen, (d, Hkv * hd)),
+        "wv": dense_init(gen, (d, Hkv * hd)),
+        "wo": dense_init(gen, (Hq * hd, d), scale=1.0 / math.sqrt(Hq * hd)),
+    }
+
+
+def qkv(cfg, p, x, positions):
+    """x [B,T,d] → rotated q [B,T,Hq,hd] and k, v [B,T,Hkv,hd]."""
+    B, T, _ = x.shape
+    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, T, Hq, hd)
+    k = (x @ p["wk"]).reshape(B, T, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, T, Hkv, hd)
+    return (rope(q, positions, cfg.rope_theta),
+            rope(k, positions, cfg.rope_theta), v)
+
+
+def attention(cfg, p, x, positions):
+    """The attention block without a cache (train / teacher-forced
+    forward).  x: [B,T,d] → [B,T,d]."""
+    B, T, _ = x.shape
+    o = sdpa(cfg, *qkv(cfg, p, x, positions))
+    return o.reshape(B, T, -1) @ p["wo"]
+
+
+# -- MLP ---------------------------------------------------------------------------
+
+def init_mlp(cfg, gen: torch.Generator) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    if cfg.activation == "swiglu":
+        return {"wg": dense_init(gen, (d, ff)), "wu": dense_init(gen, (d, ff)),
+                "wd": dense_init(gen, (ff, d), scale=1.0 / math.sqrt(ff))}
+    return {"wu": dense_init(gen, (d, ff)),
+            "wd": dense_init(gen, (ff, d), scale=1.0 / math.sqrt(ff))}
+
+
+def mlp(cfg, p, x):
+    if cfg.activation == "swiglu":
+        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    else:
+        h = F.gelu(x @ p["wu"], approximate="tanh")  # jax.nn.gelu's default
+    return h @ p["wd"]
+
+
+# -- embeddings ---------------------------------------------------------------------
 
 def init_embed(cfg, gen: torch.Generator) -> dict:
-    """Token table and output head (untied, as zamba2; tied embeddings come
-    with the dense slice)."""
-    return {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02),
-            "head": dense_init(gen, (cfg.d_model, cfg.vocab_size))}
+    """Token table, and the output head unless the embeddings are tied."""
+    e = {"tok": dense_init(gen, (cfg.vocab_size, cfg.d_model), scale=0.02)}
+    if not cfg.tie_embeddings:
+        e["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size))
+    return e
 
 
 def embed(p, tokens):
@@ -136,5 +196,44 @@ def embed(p, tokens):
 
 
 def unembed(cfg, p, x):
-    out = x @ p["head"]
+    out = x @ (p["tok"].T if cfg.tie_embeddings else p["head"])
     return out.float() if cfg.logits_fp32 else out
+
+
+def target_logprobs(logits, tokens):
+    """log p(tokens[:, t+1] | ..t) [B, T-1] from logits [B,T,V] (f32)."""
+    lp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(lp[:, :-1], -1, tokens[:, 1:, None])[..., 0]
+
+
+# -- parameters ---------------------------------------------------------------------
+
+#: parameters the JAX models use in f32 (norm scales/biases, SSM scalars);
+#: every other one they cast to the compute dtype at use.
+F32_PARAMS = frozenset({"scale", "bias", "a_log", "dt_bias"})
+
+
+class ParamTree(nn.Module):
+    """A nested dict/list of tensors as frozen parameters, so that the
+    state-dict keys are the JAX tree's paths (``blocks.0.ln.scale``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            elif isinstance(v, list):
+                self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
+            else:
+                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self, cdt: torch.dtype) -> dict:
+        """The parameters as a nested dict, cast to ``cdt`` except
+        :data:`F32_PARAMS` (no copy where the dtype is already right)."""
+        out = {}
+        for k, v in self.named_parameters(recurse=False):
+            out[k] = v.detach() if k in F32_PARAMS else v.detach().to(cdt)
+        for k, m in self.named_children():
+            out[k] = ([x.tree(cdt) for x in m] if isinstance(m, nn.ModuleList)
+                      else m.tree(cdt))
+        return out

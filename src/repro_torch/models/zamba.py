@@ -18,16 +18,12 @@ import math
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..core.device import resolve_device
-from .layers import (attention, dense_init, dt_of, embed, init_embed,
-                     init_norm, norm, rope, sdpa, unembed)
+from .layers import (ParamTree, attention, attn_chunked, dense_init, dt_of,
+                     embed, init_embed, init_norm, norm, qkv,
+                     target_logprobs, unembed)
 from .mamba2 import init_mamba_block, mamba_apply
-
-#: parameters the JAX model uses in f32 (norm scales/biases, SSM scalars);
-#: every other one it casts to the compute dtype at use.
-F32_PARAMS = frozenset({"scale", "bias", "a_log", "dt_bias"})
 
 
 def init_shared_attn(cfg, gen: torch.Generator) -> dict:
@@ -51,57 +47,28 @@ def shared_attn_apply(cfg, p, h, e0, positions, cache=None, cur_len=0):
     """h: hidden [B,T,d]; e0: initial embeddings [B,T,d].  With a cache
     ({"k","v": [B,Smax,Hkv,hd]}), k/v land in rows [cur_len, cur_len+T) and
     the queries attend over rows [0, cur_len+T), causally by position."""
-    B, T, d = h.shape
-    hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    B, T, _ = h.shape
     xa = torch.cat([h, e0], dim=-1)                            # [B,T,2d]
     y = norm(p["ln1"], xa, cfg.norm, cfg.norm_eps)
-    q = (y @ p["wq"]).reshape(B, T, Hq, hd)
-    k = (y @ p["wk"]).reshape(B, T, Hkv, hd)
-    v = (y @ p["wv"]).reshape(B, T, Hkv, hd)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
     if cache is None:
-        o = sdpa(cfg, q, k, v)
+        xa = xa + attention(cfg, p, y, positions)
     else:
+        q, k, v = qkv(cfg, p, y, positions)
         cache["k"][:, cur_len:cur_len + T] = k
         cache["v"][:, cur_len:cur_len + T] = v
         cdt = dt_of(cfg)
-        o = attention(q, cache["k"].to(cdt), cache["v"].to(cdt),
-                      q_offset=cur_len)
-    xa = xa + o.reshape(B, T, Hq * hd) @ p["wo"]
+        o = attn_chunked(q, cache["k"].to(cdt), cache["v"].to(cdt),
+                         q_offset=cur_len)
+        xa = xa + o.reshape(B, T, -1) @ p["wo"]
     y = norm(p["ln2"], xa, cfg.norm, cfg.norm_eps)
     ff = F.silu(y @ p["wg"]) * (y @ p["wu"])
     xa = xa + ff @ p["wd"]
     return h + xa @ p["wproj"]
 
 
-class _Tree(nn.Module):
-    """A nested dict/list of tensors as frozen parameters, so that the
-    state-dict keys are the JAX tree's paths (``blocks.0.ln.scale``)."""
-
-    def __init__(self, tree: dict):
-        super().__init__()
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                self.add_module(k, _Tree(v))
-            elif isinstance(v, list):
-                self.add_module(k, nn.ModuleList(_Tree(x) for x in v))
-            else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
-
-    def tree(self, cdt: torch.dtype) -> dict:
-        out = {}
-        for k, v in self.named_parameters(recurse=False):
-            out[k] = v.detach() if k in F32_PARAMS else v.detach().to(cdt)
-        for k, m in self.named_children():
-            out[k] = ([x.tree(cdt) for x in m] if isinstance(m, nn.ModuleList)
-                      else m.tree(cdt))
-        return out
-
-
-class Zamba(_Tree):
-    """zamba2 for serving: ``init_cache``, ``prefill``, ``decode_step`` and
-    the teacher-forced ``forward``.  Parameters come from a seeded
+class Zamba(ParamTree):
+    """zamba2 for serving: ``init_cache``, ``prefill``, ``decode_step``, the
+    teacher-forced ``forward`` and its ``loss``.  Parameters come from a seeded
     ``torch.Generator`` on ``device`` (the card unless the caller asks for
     the CPU); load the JAX model's with
     ``load_state_dict(interop.zamba_params_from_numpy(tree))``."""
@@ -109,9 +76,6 @@ class Zamba(_Tree):
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         if cfg.family != "hybrid":
             raise ValueError(f"Zamba needs a hybrid config, got {cfg.family}")
-        if cfg.tie_embeddings:
-            raise NotImplementedError(
-                "tied embeddings come with the dense slice of the port")
         if cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={cfg.param_dtype!r}: the port keeps f32 master "
@@ -162,6 +126,13 @@ class Zamba(_Tree):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, None, None, 0, False)
         return unembed(self.cfg, w["embed"], x)
+
+    @torch.no_grad()
+    def loss(self, batch, w=None):
+        """Next-token cross-entropy of batch["tokens"] [B,T], the unmasked
+        mean over the B x (T-1) predictions (``repro/models/zamba.py``)."""
+        tokens = batch["tokens"]
+        return -target_logprobs(self(tokens, w), tokens).mean()
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """Per-layer SSM state (conv window in the compute dtype, ``h``

@@ -25,8 +25,8 @@ class ServeSession:
         self.model = model
         self.device = dev
         self.max_len = max_len
-        self.weights = model.weights()
         self.caches = model.init_cache(batch_size, max_len)
+        self.weights = model.weights()
         self.cur_len = 0
         self.logits = []
 

@@ -265,7 +265,8 @@ def test_zamba_config_is_the_jax_config(reduced):
         (want.hd, want.d_inner, want.ssm_heads, want.param_count())
 
 
-@pytest.mark.parametrize("arch", [a for a in treg.ARCHS if a != ARCH])
+@pytest.mark.parametrize("arch", [a for a, mod in treg.ARCHS.items()
+                                  if mod is None])
 def test_other_archs_name_their_slice(arch):
     with pytest.raises(NotImplementedError, match="slice"):
         treg.get_config(arch)
@@ -273,7 +274,7 @@ def test_other_archs_name_their_slice(arch):
         treg.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", ["dense", "moe", "xlstm"])
+@pytest.mark.parametrize("family", ["moe", "xlstm"])
 def test_other_families_name_their_slice(family):
     from repro_torch.models.registry import build_model
     cfg = dataclasses.replace(treg.get_config(ARCH, reduced=True),
@@ -282,13 +283,24 @@ def test_other_families_name_their_slice(family):
         build_model(cfg, device="cpu")
 
 
-def test_pallas_attention_names_its_slice():
+def test_pallas_attention_names_its_slice(monkeypatch):
+    """The slice that brings ``attn_impl="pallas"`` (ROADMAP B2) is in:
+    ``sdpa`` hands q, k, v to ``ops.mha`` as [B, H, T, hd] and gets the
+    plain attention's result back."""
+    from repro_torch.kernels import ops
     from repro_torch.models.layers import sdpa
-    cfg = dataclasses.replace(treg.get_config(ARCH, reduced=True),
-                              attn_impl="pallas")
-    q = torch.zeros((1, 4, 2, 8))
-    with pytest.raises(NotImplementedError, match="B2"):
-        sdpa(cfg, q, q, q)
+    cfg = treg.get_config(ARCH, reduced=True)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 6, 4, 8))
+                                .astype(np.float32)) for _ in range(3))
+    seen = []
+    real = ops.mha
+    monkeypatch.setattr(ops, "mha", lambda *a, **kw: seen.append(
+        (a[0].shape, kw)) or real(*a, **kw))
+    got = sdpa(dataclasses.replace(cfg, attn_impl="pallas"), q, k, v)
+    assert seen == [((1, 4, 6, 8), {"causal": True})]
+    np.testing.assert_allclose(got.numpy(), sdpa(cfg, q, k, v).numpy(),
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize("step,seed", [(0, 0), (2, 0), (5, 3)])
