@@ -9,6 +9,7 @@ Phases, each reported on its own lines; any failure exits nonzero:
 
   1. device   — the card's name and power limit, torch/CUDA versions;
   2. build    — the port's CUDA sources, one nvcc each, all started together;
+                each kernel's registers, spills and shared memory;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 event_apply at the unit-test shapes and the full default
                 PHOLD shape, for all three draw distributions with hot
@@ -16,7 +17,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 and T=160 with chunk 128, and the serving shape, in f32 and
                 with bf16 x/y; flash_attention at the unit-test shapes
                 (causal and not, Tq < Tk), a ragged T=1000 and the
-                full-width llama3.2-3b and zamba2-1.2b shapes, f32 and bf16;
+                full-width llama3.2-3b and zamba2-1.2b shapes, f32 (the
+                CUDA-core kernel) and bf16 (the tensor-core kernel), each on
+                contiguous inputs and on the [B, H, T, D] views of
+                [B, T, H, D] tensors that the models pass;
   4. golden   — the port's numpy oracle reproduces the pinned digests;
   5. main     — the ``phold`` conformance recipe under ``batch_impl`` rounds
                 and model, then PHOLD's main path (``workloads.phold.
@@ -42,8 +46,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 plain chunked attention (``attn_impl="jnp"``); then in bf16,
                 B=4 x 2048 tokens, timed (ms per forward and loss, tokens/s,
                 peak memory) with 28 flash launches per forward, a profile
-                and the bf16 logits' spread; flash_attention's own time per
-                launch beside its plain version, SDPA's and its bound;
+                (with the count and time of its layout copies) and the bf16
+                logits' spread; flash_attention's own time per launch at
+                llama3.2-3b's and zamba2-1.2b's shapes on the views the
+                models pass, beside its plain version, SDPA's and its bound;
   9. a JSON line listing every ported kernel, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -100,6 +107,37 @@ def nvidia_smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_facts(text: str):
+    """(kernel, "N registers, spills ..., stack ...") for each entry function
+    in an ``nvcc -Xptxas -v`` log, names demangled where ``c++filt`` is
+    installed."""
+    import re
+    import shutil
+    facts, fn, spill = [], None, ""
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            spill = (f"stack {m.group(1)} B, spill stores {m.group(2)} B, "
+                     f"spill loads {m.group(3)} B")
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and fn:
+            facts.append([fn, f"{m.group(1)} registers, {spill}"
+                              f"{m.group(2).rstrip()}"])
+            fn, spill = None, ""
+    cxxfilt = shutil.which("c++filt")
+    if facts and cxxfilt:
+        names = subprocess.run([cxxfilt], input="\n".join(f for f, _ in facts),
+                               capture_output=True, text=True, timeout=60)
+        for row, name in zip(facts, names.stdout.splitlines()):
+            row[0] = name.replace("(anonymous namespace)::", "") \
+                .split("(")[0].removeprefix("void ")
+    return facts
 
 
 # -- phase 3: kernels against their plain versions -----------------------------
@@ -513,39 +551,51 @@ FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                 (4, 32, 32, 1024, 1024, 128, True)]
 
 
-def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, device):
+def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, device,
+                  view=False):
+    """q [B, Hq, Tq, D], k and v [B, Hkv, Tk, D]; with ``view``, the same
+    values as [B, H, T, D] views of [B, T, H, D] tensors, the layout in
+    which ``layers.sdpa`` hands them to the kernel."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
-    return [torch.randn(shape, generator=g).to(dtype).to(device)
-            for shape in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+    ts = [torch.randn(shape, generator=g).to(dtype).to(device)
+          for shape in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+    if view:
+        ts = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
+    return ts
 
 
 def check_flash(device) -> float:
-    """flash_attention kernel vs attention_ref on the card; returns the
-    largest |kernel - plain| over every shape and dtype."""
+    """flash_attention kernels vs attention_ref on the card, on contiguous
+    inputs and on the models' views; returns the largest |kernel - plain|
+    over every shape, dtype and layout."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
     worst = 0.0
     for i, (B, Hq, Hkv, Tq, Tk, D, causal) in enumerate(FLASH_SHAPES):
         errs = []
-        for name in ("float32", "bfloat16"):
+        for name, view in itertools.product(("float32", "bfloat16"),
+                                            (False, True)):
             q, k, v = _flash_inputs(B, Hq, Hkv, Tq, Tk, D,
-                                    getattr(torch, name), 3000 + i, device)
+                                    getattr(torch, name), 3000 + i, device,
+                                    view)
             before = flash_cuda.launches
             got = flash_cuda(q, k, v, causal=causal)
             want = attention_ref(q, k, v, causal=causal)
             torch.cuda.synchronize()
-            if flash_cuda.launches != before + 1 or got.dtype != want.dtype:
+            if flash_cuda.launches != before + 1 or got.dtype != want.dtype \
+                    or got.stride() != q.stride():
                 raise AssertionError("flash_attention: the wrapper did not "
-                                     "launch")
+                                     "launch, or o lost q's layout")
             err = float((got.float() - want.float()).abs().max())
+            layout = "view" if view else "contiguous"
             if not err <= FLASH_TOL[name]:
                 raise AssertionError(
                     f"flash_attention kernel != plain at B={B} Hq={Hq} "
                     f"Hkv={Hkv} Tq={Tq} Tk={Tk} D={D} causal={causal} "
-                    f"{name}: max |diff| {err} > {FLASH_TOL[name]}")
+                    f"{name} {layout}: max |diff| {err} > {FLASH_TOL[name]}")
             worst = max(worst, err)
-            errs.append(f"{name} {err:.3g}")
+            errs.append(f"{name} {layout} {err:.3g}")
             del q, k, v, got, want
         log("kernels", f"flash_attention B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} "
                      f"Tk={Tk} D={D} {'causal' if causal else 'non-causal'}: "
@@ -567,26 +617,30 @@ def flash_bound(B, Hq, Hkv, Tq, Tk, D, causal, itemsize):
 
 
 def time_flash(dev, flush):
-    """flash_attention at llama3.2-3b's full-width shape, L2 flushed before
-    each launch: the main path's bf16 and, for the record, f32; beside the
-    plain version and one SDPA call (the yardstick; the port never calls
-    it)."""
+    """flash_attention as the models call it (the [B, H, T, D] views of
+    their [B, T, H, D] activations), L2 flushed before each launch: the main
+    path's bf16 at llama3.2-3b's and zamba2-1.2b's full-width shapes and, for
+    the record, f32 at llama3.2-3b's; beside the plain version and one SDPA
+    call on the same views (the yardstick; the port never calls it).
+    Returns {(model, dtype): numbers}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
-    B, Hq, Hkv, Tq, Tk, D, causal = FLASH_SHAPES[-2]
+
+    def sdpa(q, k, v):
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
     out = {}
-    for name in ("bfloat16", "float32"):
+    for model, shape, name in (("llama3.2-3b", FLASH_SHAPES[-2], "bfloat16"),
+                               ("zamba2-1.2b", FLASH_SHAPES[-1], "bfloat16"),
+                               ("llama3.2-3b", FLASH_SHAPES[-2], "float32")):
+        B, Hq, Hkv, Tq, Tk, D, causal = shape
         dt = getattr(torch, name)
-        inp = _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dt, 11, dev)
+        inp = _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dt, 11, dev, view=True)
         for _ in range(2):
             flash_cuda(*inp)
         ms = _time_launches(flash_cuda, inp, 20, flush)
         plain_ms = _time_launches(attention_ref, inp, 5, flush)
-
-        def sdpa(q, k, v):
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
         lib_ms = _time_launches(sdpa, inp, 20, flush)
         lib_err = float((sdpa(*inp).float() - flash_cuda(*inp).float())
                         .abs().max())
@@ -595,15 +649,18 @@ def time_flash(dev, flush):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         peak = BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS
         t_ops = flops / peak * 1e3
-        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=max(t_bytes, t_ops),
-                         bound_by="bytes" if t_bytes >= t_ops else "operations")
-        log("timing", f"flash_attention at B={B} Hq={Hq} Hkv={Hkv} T={Tq} "
-                      f"D={D} causal, {name}: kernel {ms:.4f} ms/launch, "
+        out[model, name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log("timing", f"flash_attention at {model}'s B={B} Hq={Hq} Hkv={Hkv} "
+                      f"T={Tq} D={D} causal, {name}, [B,T,H,D] views: kernel "
+                      f"{ms:.4f} ms/launch ({flops / ms / 1e9:.1f} TFLOP/s), "
                       f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms (max "
-                      f"|SDPA - kernel| {lib_err:.3g}), bound "
-                      f"{out[name]['bound_ms']:.4f} ms ({nbytes} B at 3.35 "
-                      f"TB/s = {t_bytes:.4f} ms; {flops} flop at "
+                      f"|SDPA - kernel| {lib_err:.3g}; kernel/SDPA "
+                      f"{ms / lib_ms:.2f}x), bound "
+                      f"{out[model, name]['bound_ms']:.4f} ms ({nbytes} B at "
+                      f"3.35 TB/s = {t_bytes:.4f} ms; {flops} flop at "
                       f"{peak / 1e12:g} TFLOP/s = {t_ops:.4f} ms), L2 flushed "
                       f"before each launch")
         del inp
@@ -793,6 +850,19 @@ def lm_profile(m, w, batch, med):
                        "not measured (the profiler saw no device time)"))
     for us, cnt, key in rows[:10]:
         log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+    # direct_copy runs both the dtype casts (contiguous: the unrolled or
+    # vectorized kernel) and the copies of strided tensors (the plain
+    # elementwise_kernel), which are the layout copies.
+    copies = [(us, cnt, key) for us, cnt, key in rows if "direct_copy" in key]
+    layout = [(us, cnt) for us, cnt, key in copies
+              if key.startswith("void at::native::elementwise_kernel<")]
+    log("profile", f"llama3.2-3b forward + loss: {sum(r[1] for r in copies)} "
+                   f"direct_copy launches, "
+                   f"{sum(r[0] for r in copies) / 1e3:.3f} ms; of them "
+                   f"{sum(c for _, c in layout)} strided (layout) copies, "
+                   f"{sum(us for us, _ in layout) / 1e3:.3f} ms")
+    for us, cnt, key in copies:
+        log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
 
 
 def zamba_pallas_forward(dev, model):
@@ -861,13 +931,15 @@ def main() -> int:
         log("build", f"{name}.cu built in {secs:.2f} s: {path.name}")
         logf = path.with_name(path.name + ".log")
         if logf.exists():
-            for line in logf.read_text().splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
-                    log("build", f"{name}: {line.strip()}")
+            for fn, facts in ptxas_facts(logf.read_text()):
+                log("build", f"{name}: {fn}: {facts}")
     log("build", f"ssd_scan: {ssd_lib().ssd_scan_smem_bytes(128, 64, 64)} B "
                  f"of dynamic shared memory per block at Q=128, P=N=64")
-    log("build", f"flash_attention: {flash_lib().flash_attention_smem_bytes(128)}"
-                 f" B of dynamic shared memory per block at D=128")
+    for bf16, kind in ((1, "bf16 tensor-core"), (0, "f32 CUDA-core")):
+        log("build", f"flash_attention: "
+                     f"{flash_lib().flash_attention_smem_bytes(128, bf16)} B "
+                     f"of dynamic shared memory per block at D=128 "
+                     f"({kind} kernel)")
 
     # 3. kernels vs plain versions ----------------------------------------------
     err = check_event_apply(dev)
@@ -989,7 +1061,7 @@ def main() -> int:
     bf16_spread("llama3.2-3b", m, batch["tokens"])
     del m, batch
     torch.cuda.empty_cache()
-    flash_t = time_flash(dev, flush)["bfloat16"]
+    flash_t = time_flash(dev, flush)["llama3.2-3b", "bfloat16"]
 
     # 9. result lines --------------------------------------------------------------
     kernels = [{

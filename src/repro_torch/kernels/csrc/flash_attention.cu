@@ -1,10 +1,11 @@
 // flash_attention: GQA forward attention with an online softmax, hand-written
-// for Hopper (sm_90a).
+// for Hopper (sm_90a): a bf16 kernel on the tensor cores and an f32 kernel
+// on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel `flash_attention` / `_kernel` in
-// src/repro/kernels/flash_attention.py.  It computes what the plain PyTorch
-// version `attention_ref` (src/repro_torch/kernels/flash_attention.py)
-// computes, for q [B, Hq, Tq, D] and k, v [B, Hkv, Tk, D] (float or bf16):
+// src/repro/kernels/flash_attention.py.  Both kernels compute what the plain
+// PyTorch version `attention_ref` (src/repro_torch/kernels/flash_attention.py)
+// computes, for q [B, Hq, Tq, D] and k, v [B, Hkv, Tk, D]:
 //
 //   S = (q kᵀ) · D^-½ in f32;  causal: row i sees columns <= i + (Tk - Tq)
 //   o = softmax(S) v, written in q's type
@@ -13,34 +14,66 @@
 // memory.  The causal mask is aligned bottom-right, as the JAX package's
 // oracle `ref.attention_ref` aligns it (its Pallas kernel aligns top-left;
 // the two agree when Tq == Tk, the teacher-forced case).  Masked scores are
-// -1e30, not -inf, so exp(m_prev - m_new) never sees -inf - -inf.  The
+// -1e30, not -inf, so the running-max update never sees -inf - -inf.  The
 // ragged edges are masked, not padded: rows >= Tq are neither read nor
 // written, and columns >= Tk never read.
 //
-// Grid and block: one CTA of 256 threads per (b·Hq, 64-row query block); a
-// loop over the 64-column KV blocks inside the CTA takes the place of the
-// TPU's sequential grid axis, with the running max m, normalizer l and the
-// accumulator in f32 registers.  Under the causal mask the loop stops at
-// the last block the block's last row can see, and the query blocks are
-// launched longest first (blockIdx.y counts down the rows), so the short
-// ones fill the tail.  The tiles sit in dynamic shared memory as f32:
-//   Qᵀ [D][68], Kᵀ [D][68] (its space holds Pᵀ [64][68] once S is formed),
-//   V [64][D]
-// = 100 KB at D = 128, so two CTAs fit on an SM.  Thread t owns rows
-// 4(t/16) .. +3 of the block: a 4 x 4 tile of S (columns 4(t%16) .. +3)
-// and a 4 x D/16 tile of o; the 16 threads of a row group reduce the row
-// statistics with warp shuffles.  Every product is plain f32 FMAs on the
-// CUDA cores, fed by float4 loads from shared memory (no wgmma, no TMA).
+// Layout: q, k, v and o are read and written through their own strides (in
+// elements) for B, H and T; the last dimension is contiguous.  So the
+// model's [B, T, H, D] activations, seen as [B, H, T, D] by a transpose, are
+// read in place and o comes back in the same layout.  Every row must start
+// on 16 bytes (the wrapper checks the base and the strides).
+//
+// Grid: one CTA per (b·Hq, query block); a loop over the KV blocks inside
+// the CTA takes the place of the TPU's sequential grid axis, with the running
+// max m, normalizer l and the accumulator in f32 registers.  Under the causal
+// mask the loop stops at the last block the block's last row can see, and
+// the query blocks are launched longest first (blockIdx.y counts down the
+// rows), so the short ones fill the tail.
 //
 // What bounds it on this card, at llama3.2-3b's shape (B=4, Hq=24, Hkv=8,
 // T=2048, D=128, bf16): the two products are 2·2·T²·D flops per (b, h),
 // halved by the mask, 103 GFLOP: 0.104 ms at the 989 TFLOP/s bf16 tensor
 // rate; q, k, v and o are 134 MB, 0.040 ms at 3.35 TB/s.  So operations
-// bound it, and a kernel that computes on the CUDA cores in f32 (67 TFLOP/s
-// at best) stays far from that bound; tensor-core products (mma / wgmma)
-// and TMA loads are the redesign.
+// bound it, and the products have to run on the tensor cores.
 //
-// The kernel allocates nothing and runs on the caller's stream; the C entry
+// bf16 kernel (`flash_wgmma`), FlashAttention-2's loop on Hopper's
+// warpgroup products: 256 threads = 2 warpgroups, 128 query rows per CTA
+// (64 per warpgroup), KV blocks of 64.
+//   - Both products are `wgmma.mma_async` bf16 × bf16 → f32: S = Q Kᵀ as
+//     m64n64k16 with Q and K read from shared memory (both K-major), o += P V
+//     as m64nDk16 with P from registers and V read from shared memory as the
+//     MN-major (transposed) B operand.  No `ldmatrix`, no transposed copy.
+//   - P never leaves registers: wgmma's accumulator fragment of S, after
+//     the softmax update, is rounded to bf16 and is the register A operand
+//     of P·V.  l is summed from the f32 P; only the P·V operand is rounded.
+//   - Softmax in exp2: scale·log2(e) is folded into S once, and 2^x is the
+//     SFU's `ex2.approx`.  The mask is applied only on the diagonal and
+//     ragged blocks.
+//   - K and V go through a ring of two stages filled by `cp.async.cg`
+//     16-byte copies: block j+1 loads while block j computes.  Q is loaded
+//     once.  Rows past Tq or Tk are zero-filled by the copy itself.  A proxy
+//     fence makes the copies visible to wgmma, which reads shared memory
+//     through the async proxy.
+//   - Shared memory holds Q [128][D] and two stages of K, V [64][D] in bf16
+//     (96 KB at D = 128, so two CTAs, four warpgroups, share an SM and one
+//     computes while another waits), each tile in wgmma's canonical layout:
+//     column blocks of min(D, 64) elements whose 16-byte chunks are XOR-
+//     swizzled (128-, 64- or 32-byte swizzle), so the copies and wgmma's
+//     reads fall in distinct banks.
+//   - Two CTAs per SM cap a thread at 128 registers: at D = 128 the
+//     accumulator o (64), S (32) and the descriptors leave ~120 B of spills.
+//     One CTA per SM without spills was slower (PERF.md).
+//   - o is normalized in registers, staged through the warp's own rows of
+//     Q's tile and written as 16-byte stores.
+//
+// f32 kernel (`flash_f32`): one 256-thread CTA per (b·Hq, 64-row query
+// block); Qᵀ, Kᵀ (reused for Pᵀ) and V staged in f32 in 100 KB of shared
+// memory; 4 x 4 register tiles of plain f32 FMAs; `expf`.  It keeps the
+// checks at 2e-5, which bf16 tensor-core products cannot meet; f32 is off
+// the main path.
+//
+// The kernels allocate nothing and run on the caller's stream; the C entry
 // point returns the first CUDA error of the attribute call or the launch.
 
 #include <cuda_bf16.h>
@@ -50,28 +83,28 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Strides in elements of one tensor's B, H and T dimensions.
+struct Strides {
+  long long b, h, t;
+};
+struct Layout {
+  Strides q, k, v, o;
+};
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+// ---------------------------------------------------------------------------
+
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;         // query rows per CTA
 constexpr int kBK = 64;         // key columns per loop step
 constexpr int kLd = kBQ + 4;    // row stride of Qᵀ, Kᵀ and Pᵀ (kBQ == kBK)
-constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-// Four consecutive elements of a row of q, k or v, as f32.
-__device__ __forceinline__ float4 load4(const float* p) { return ld4(p); }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
 }
 
 // Shared-memory plan, in floats: Qᵀ, then Kᵀ (reused for Pᵀ), then V.
@@ -83,14 +116,16 @@ __host__ __device__ constexpr int smem_floats(int D) {
   return v_offset(D) + kBK * D;
 }
 
-// rows [r0, r0 + 64) of a [len, D] matrix into dst[d][r] (transposed), zero
-// past len.  Thread t moves row t % 64, four columns at a time.
-template <typename T, int D>
-__device__ __forceinline__ void load_transposed(float* dst, const T* src,
-                                                int r0, int len) {
+// rows [r0, r0 + 64) of a [len, D] matrix with row stride st into dst[d][r]
+// (transposed), zero past len.  Thread t moves row t % 64, four columns at a
+// time.
+template <int D>
+__device__ __forceinline__ void load_transposed(float* dst, const float* src,
+                                                long long st, int r0,
+                                                int len) {
   for (int i = threadIdx.x; i < kBQ * (D / 4); i += kThreads) {
     const int r = i % kBQ, d = (i / kBQ) * 4;
-    const float4 x = r0 + r < len ? load4(src + (size_t)(r0 + r) * D + d)
+    const float4 x = r0 + r < len ? ld4(src + (r0 + r) * st + d)
                                   : make_float4(0.f, 0.f, 0.f, 0.f);
     dst[(d + 0) * kLd + r] = x.x;
     dst[(d + 1) * kLd + r] = x.y;
@@ -99,11 +134,11 @@ __device__ __forceinline__ void load_transposed(float* dst, const T* src,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o, int Hq,
-                           int Hkv, int Tq, int Tk, float scale, int causal) {
+    flash_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Layout L,
+              int Hq, int Hkv, int Tq, int Tk, float scale, int causal) {
   constexpr int CD = D / 16;  // o columns per thread
   extern __shared__ __align__(16) float smem[];
   float* qt = smem;                  // Qᵀ [D][kLd]
@@ -111,15 +146,14 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* vs = smem + v_offset(D);    // V  [kBK][D]
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / Hq, h = bh % Hq;
-  const int kvh = b * Hkv + h / (Hq / Hkv);
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
   const int nqb = gridDim.y;
   const int q0 = (causal ? nqb - 1 - (int)blockIdx.y : (int)blockIdx.y) * kBQ;
   const int off = Tk - Tq;           // bottom-right alignment of the mask
-  const T* qb = q + (size_t)bh * Tq * D;
-  const T* kb = k + (size_t)kvh * Tk * D;
-  const T* vb = v + (size_t)kvh * Tk * D;
+  const float* qb = q + b * L.q.b + h * L.q.h;
+  const float* kb = k + b * L.k.b + hk * L.k.h;
+  const float* vb = v + b * L.v.b + hk * L.v.h;
 
   const int rg = tid / 16, cs = tid % 16;  // row group, column slot
   const int i0 = rg * 4;                    // first of this thread's rows
@@ -142,15 +176,15 @@ __global__ void __launch_bounds__(kThreads, 2)
     for (int c = 0; c < CD; ++c) acc[r][c] = 0.f;
   }
 
-  load_transposed<T, D>(qt, qb, q0, Tq);
+  load_transposed<D>(qt, qb, L.q.t, q0, Tq);
 
   for (int kbi = 0; kbi < nkb; ++kbi) {
     const int k0 = kbi * kBK;
     __syncthreads();  // the previous step is done with Pᵀ and V
-    load_transposed<T, D>(kt, kb, k0, Tk);
+    load_transposed<D>(kt, kb, L.k.t, k0, Tk);
     for (int i = tid; i < kBK * (D / 4); i += kThreads) {
       const int r = i / (D / 4), d = (i % (D / 4)) * 4;
-      const float4 x = k0 + r < Tk ? load4(vb + (size_t)(k0 + r) * D + d)
+      const float4 x = k0 + r < Tk ? ld4(vb + (k0 + r) * L.v.t + d)
                                    : make_float4(0.f, 0.f, 0.f, 0.f);
       *reinterpret_cast<float4*>(vs + r * D + d) = x;
     }
@@ -234,64 +268,522 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   }
 
+  float* ob = o + b * L.o.b + h * L.o.h;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = q0 + i0 + r;
     if (row >= Tq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
-    T* out = o + ((size_t)bh * Tq + row) * D + d0;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) store(out + c, acc[r][c] / denom);
+    for (int c = 0; c < CD; ++c) ob[row * L.o.t + d0 + c] = acc[r][c] / denom;
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Hq, int Hkv, int Tq, int Tk, float scale, int causal,
-           cudaStream_t stream) {
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kWgThreads = 256;   // 2 warpgroups
+constexpr int kWBQ = 128;         // query rows per CTA, 64 per warpgroup
+constexpr int kWBK = 64;          // key columns per loop step
+constexpr int kStages = 2;        // K/V ring depth
+
+// Tiles in the layout wgmma reads: a [R][D] bf16 tile is D / W column
+// blocks of [R][W], W = min(D, 64), so a row of a block is RB = 2W bytes
+// (128, 64 or 32) and the block is wgmma's canonical K-major (Q, K) or
+// MN-major (V) layout under its RB-byte swizzle: the 16-byte chunks of row
+// r are XORed with bits 7.. of the row's byte offset.
+template <int D>
+struct Tile {
+  static constexpr int W = D < 64 ? D : 64;
+  static constexpr int RB = 2 * W;
+  static constexpr int CPB = W / 8;  // chunks per row of a block
+  // wgmma's layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte.
+  static constexpr uint64_t kMode = RB == 128 ? 1 : RB == 64 ? 2 : 3;
+  // element offset of chunk c (of D / 8) of row r in a tile of R rows.
+  template <int R>
+  __device__ static __forceinline__ int off(int r, int c) {
+    const int blk = c / CPB, cc = c % CPB;
+    return blk * R * W + r * W + ((cc ^ ((r * RB >> 7) & (CPB - 1))) << 3);
+  }
+};
+
+__host__ __device__ constexpr int wg_smem_bytes(int D) {
+  // Q, the K/V ring, and 1 KB to align the tiles to the swizzle's 1024 B.
+  return (kWBQ + 2 * kStages * kWBK) * D * (int)sizeof(bf16) + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global → shared, bypassing L1; zero-fills when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+// The copies above are writes of the generic proxy; wgmma reads through
+// the async proxy.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of r across the asynchronous
+// wgmma that reads or writes it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma shared-memory matrix descriptor: start address, leading and stride
+// byte offsets (16-byte units), layout type.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo, uint64_t mode) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (mode << 62);
+}
+
+// d (+)= A·B for m64n64k16, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A·B for m64n16k16, A from registers, B from shared memory
+// (MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B for m64n32k16, A from registers, B from shared memory
+// (MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B for m64n64k16, A from registers, B from shared memory
+// (MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B for m64n128k16, A from registers, B from shared memory
+// (MN-major: transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                          const uint32_t (&a)[4],
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{" 
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(o, a, db);
+  else wgmma_rs_n16(o, a, db);
+}
+
+// Two f32 as a bf16 pair: lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x by the SFU's ex2 (relative error ~2^-22, far below bf16's 2^-9;
+// results below 2^-126 flush to 0, which a softmax weight may).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Rows [r0, r0 + R) of a [len, D] matrix with row stride st into a tile by
+// cp.async; rows past len are zero-filled.
+template <int D, int R>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long st, int r0, int len) {
+  constexpr int kChunks = D / 8, kCopies = R * kChunks;
+#pragma unroll
+  for (int it = 0; it < (kCopies + kWgThreads - 1) / kWgThreads; ++it) {
+    const int i = it * kWgThreads + threadIdx.x;
+    if (kCopies % kWgThreads && i >= kCopies) break;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r0 + r < len;
+    cp_async16(dst + Tile<D>::template off<R>(r, c),
+               ok ? src + (r0 + r) * st + c * 8 : src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 2)
+    flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, bf16* __restrict__ o, Layout L,
+                int Hq, int Hkv, int Tq, int Tk, float scale_log2,
+                int causal) {
+  using TL = Tile<D>;
+  constexpr int W = TL::W, RB = TL::RB;
+  constexpr int NT = kWBK / 8;   // 8-column tiles of S
+  constexpr int DT = D / 8;      // 8-column tiles of o
+  extern __shared__ unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~(uintptr_t)1023);
+  bf16* sk = sq + kWBQ * D;                       // K [kStages][kWBK][D]
+  bf16* sv = sk + kStages * kWBK * D;             // V [kStages][kWBK][D]
+
+  const int wg = threadIdx.x >> 7;                // warpgroup: rows wg*64..
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int b = blockIdx.x / Hq, h = blockIdx.x % Hq;
+  const int hk = h / (Hq / Hkv);
+  const int nqb = gridDim.y;
+  const int q0 = (causal ? nqb - 1 - (int)blockIdx.y : (int)blockIdx.y) * kWBQ;
+  const int off = Tk - Tq;           // bottom-right alignment of the mask
+  const bf16* qb = q + b * L.q.b + h * L.q.h;
+  const bf16* kb = k + b * L.k.b + hk * L.k.h;
+  const bf16* vb = v + b * L.v.b + hk * L.v.h;
+
+  int nkb = (Tk + kWBK - 1) / kWBK;
+  if (causal) {
+    const int last_col = min(q0 + kWBQ, Tq) - 1 + off;
+    nkb = last_col < 0 ? 0 : min(nkb, last_col / kWBK + 1);
+  }
+
+  // group 0: Q and the first K/V block.
+  load_tile<D, kWBQ>(sq, qb, L.q.t, q0, Tq);
+  if (nkb > 0) {
+    load_tile<D, kWBK>(sk, kb, L.k.t, 0, Tk);
+    load_tile<D, kWBK>(sv, vb, L.v.t, 0, Tk);
+  }
+  cp_async_commit();
+
+  // This thread's rows: wg*64 + warp*16 + g + 8*half (statistic `half`);
+  // its columns of each 8-wide tile: 2*t4, +1.
+  const int wr = wg * 64 + warp * 16;
+  const int g = lane >> 2, t4 = lane & 3;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  // Q's descriptor for this warpgroup's 64 rows; K-major, LBO unused.
+  const uint32_t sbo = 8 * RB;
+  for (int j = 0; j < nkb; ++j) {
+    const int stage = j % kStages;
+    if (j + 1 < nkb) {
+      const int nxt = (j + 1) % kStages;
+      load_tile<D, kWBK>(sk + nxt * kWBK * D, kb, L.k.t, (j + 1) * kWBK, Tk);
+      load_tile<D, kWBK>(sv + nxt * kWBK * D, vb, L.v.t, (j + 1) * kWBK, Tk);
+      cp_async_commit();
+      cp_async_wait<1>();  // block j (and Q) have landed
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const bf16* skj = sk + stage * kWBK * D;
+    const bf16* svj = sv + stage * kWBK * D;
+
+    // S = Q Kᵀ: [64 rows of this warpgroup] x [64 keys], D / 16 k-steps.
+    float s[NT * 4];
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const int blk = ks * 16 / W, kin = ks * 16 % W;
+      const uint64_t da = gmma_desc(sq + blk * kWBQ * W + wg * 64 * W + kin,
+                                    16, sbo, TL::kMode);
+      const uint64_t db = gmma_desc(skj + blk * kWBK * W + kin, 16, sbo,
+                                    TL::kMode);
+      wgmma_ss_n64(s, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // scale into the log2 domain; mask only the diagonal and ragged blocks.
+    const int k0 = j * kWBK;
+    const bool masked = k0 + kWBK > Tk || (causal && k0 + kWBK - 1 > q0 + off);
+#pragma unroll
+    for (int i = 0; i < NT * 4; ++i) {
+      float x = s[i] * scale_log2;
+      if (masked) {
+        const int row = q0 + wr + g + ((i >> 1) & 1) * 8;
+        const int col = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+        if (col >= Tk || (causal && col > row + off)) x = kNegInf;
+      }
+      s[i] = x;
+    }
+
+    // online softmax: the four lanes of a quad share a row.
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mx = fmaxf(mx, fmaxf(s[nt * 4 + 2 * half], s[nt * 4 + 2 * half + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[half], mx);
+      const float alpha = ex2(m[half] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = ex2(s[nt * 4 + 2 * half + e] - m_new);
+          s[nt * 4 + 2 * half + e] = p;
+          sum += p;
+        }
+      l[half] = l[half] * alpha + sum;
+      m[half] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        acc[dt * 4 + 2 * half] *= alpha;
+        acc[dt * 4 + 2 * half + 1] *= alpha;
+      }
+    }
+
+    // o += P V: the accumulator fragments of S, rounded to bf16, are P's A
+    // fragments; V is the MN-major B operand.
+    uint32_t a[kWBK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWBK / 16; ++kk)
+      wgmma_pv<D>(acc, a[kk],
+                  gmma_desc(svj + kk * 16 * W, kWBK * RB, sbo, TL::kMode));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncthreads();  // stage j is free for block j + 2
+  }
+
+  // o = acc / l, through this warp's own 16 rows of Q's tile, then 16-byte
+  // stores.
+  cp_async_wait<0>();  // Q's copy, when no block was visited
+  __syncthreads();     // every warpgroup's wgmma is done with Q's tile
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float sum = l[half];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const float inv = 1.f / fmaxf(sum, 1e-30f);
+    const int row = wr + g + 8 * half;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(sq + TL::template off<kWBQ>(row, dt) +
+                                   2 * t4) =
+          pack_bf16(acc[dt * 4 + 2 * half] * inv,
+                    acc[dt * 4 + 2 * half + 1] * inv);
+  }
+  __syncwarp();
+  bf16* ob = o + b * L.o.b + h * L.o.h;
+#pragma unroll
+  for (int it = 0; it < DT / 2; ++it) {  // 16 rows x DT chunks, 32 per step
+    const int i = it * 32 + lane;
+    const int rr = i / DT, c = i % DT;
+    const int row = q0 + wr + rr;
+    if (row < Tq)
+      *reinterpret_cast<uint4*>(ob + row * L.o.t + c * 8) =
+          *reinterpret_cast<const uint4*>(
+              sq + TL::template off<kWBQ>(wr + rr, c));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               const Layout& L, int B, int Hq, int Hkv, int Tq, int Tk,
+               float scale, int causal, cudaStream_t stream) {
   const size_t smem = (size_t)smem_floats(D) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * Hq, (Tq + kBQ - 1) / kBQ);
-  flash_attention_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, Hq, Hkv, Tq, Tk, scale,
-      causal);
+  flash_f32<D><<<grid, kThreads, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, L, Hq,
+      Hkv, Tq, Tk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_d(const void* q, const void* k, const void* v, void* o, int B,
-             int Hq, int Hkv, int Tq, int Tk, int D, float scale, int causal,
-             cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Tq, Tk, scale, causal, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 const Layout& L, int B, int Hq, int Hkv, int Tq, int Tk,
+                 float scale, int causal, cudaStream_t stream) {
+  const int smem = wg_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * Hq, (Tq + kWBQ - 1) / kWBQ);
+  flash_wgmma<D><<<grid, kWgThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, L, Hq, Hkv,
+      Tq, Tk, scale * kLog2e, causal);
+  return (int)cudaGetLastError();
 }
+
+#define FLASH_DISPATCH(fn, ...)                 \
+  switch (D) {                                  \
+    case 16: return fn<16>(__VA_ARGS__);        \
+    case 32: return fn<32>(__VA_ARGS__);        \
+    case 64: return fn<64>(__VA_ARGS__);        \
+    case 128: return fn<128>(__VA_ARGS__);      \
+    default: return (int)cudaErrorInvalidValue; \
+  }
 
 }  // namespace
 
 // Dynamic shared memory, in bytes, that a launch with head dim D needs.
-extern "C" int flash_attention_smem_bytes(int D) {
-  return smem_floats(D) * (int)sizeof(float);
+extern "C" int flash_attention_smem_bytes(int D, int bf16) {
+  return bf16 ? wg_smem_bytes(D) : smem_floats(D) * (int)sizeof(float);
 }
 
 // q, o: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D]; all float (bf16 = 0) or all
-// __nv_bfloat16 (bf16 = 1), contiguous.  Needs D in {16, 32, 64, 128} and
-// Hq % Hkv == 0 (checked by the Python wrapper; another D returns
-// cudaErrorInvalidValue).
+// __nv_bfloat16 (bf16 = 1).  strides: 12 element strides, (B, H, T) of q, k,
+// v and o in that order; the last dimension is contiguous, every row starts
+// on 16 bytes.  Needs D in {16, 32, 64, 128} and Hq % Hkv == 0 (checked by
+// the Python wrapper; another D returns cudaErrorInvalidValue).
 extern "C" int flash_attention_launch(void* q, void* k, void* v, void* o,
                                       int B, int Hq, int Hkv, int Tq, int Tk,
-                                      int D, float scale, int causal, int bf16,
+                                      int D, const long long* strides,
+                                      float scale, int causal, int bf16,
                                       void* stream) {
+  const Layout L = {{strides[0], strides[1], strides[2]},
+                    {strides[3], strides[4], strides[5]},
+                    {strides[6], strides[7], strides[8]},
+                    {strides[9], strides[10], strides[11]}};
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale,
-                                   causal, s);
-  return launch_d<float>(q, k, v, o, B, Hq, Hkv, Tq, Tk, D, scale, causal, s);
+  if (bf16) {
+    FLASH_DISPATCH(launch_wgmma, q, k, v, o, L, B, Hq, Hkv, Tq, Tk, scale,
+                   causal, s)
+  }
+  FLASH_DISPATCH(launch_f32, q, k, v, o, L, B, Hq, Hkv, Tq, Tk, scale, causal,
+                 s)
 }

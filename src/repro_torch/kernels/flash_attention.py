@@ -52,29 +52,57 @@ def _lib():
     lib = build.load("flash_attention")
     lib.flash_attention_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+           ctypes.c_int, ctypes.c_void_p])
     lib.flash_attention_launch.restype = ctypes.c_int
-    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int]
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.flash_attention_smem_bytes.restype = ctypes.c_int
     return lib
 
 
+def kernel_strides(name, t):
+    """The (B, H, T) strides, in elements, by which the kernels read or
+    write the 4-D tensor ``t``; raises ``ValueError`` naming the fault when
+    they cannot: the last dimension must be contiguous, the base 16-byte
+    aligned and every other stride a multiple of 16 bytes, so that each row
+    starts on 16 bytes (the kernels move rows in 16-byte copies).  A
+    dimension of size 1 is never stepped, so its stride is not checked."""
+    if t.dim() != 4:
+        raise ValueError(f"flash_attention: {name} must be 4-D, got "
+                         f"{tuple(t.shape)}")
+    if t.stride(3) != 1:
+        raise ValueError(f"flash_attention: the last dimension of {name} is "
+                         f"not contiguous (strides {t.stride()})")
+    if t.data_ptr() % 16:
+        raise ValueError(f"flash_attention: {name}'s base address is not "
+                         f"16-byte aligned")
+    for dim in range(3):
+        if t.shape[dim] > 1 and t.stride(dim) * t.element_size() % 16:
+            raise ValueError(
+                f"flash_attention: stride {t.stride(dim)} of {name}'s "
+                f"{'BHT'[dim]} dimension is not a multiple of 16 bytes "
+                f"(strides {t.stride()}, {t.element_size()}-byte elements)")
+    return tuple(t.stride(dim) for dim in range(3))
+
+
 def _check(name, t, dtype, shape, device):
-    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape \
-            or not t.is_contiguous() or t.data_ptr() % 16:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
-            f"flash_attention: {name} must be a contiguous, 16-byte aligned "
-            f"tensor of shape {shape} and dtype {dtype} on {device}, got "
-            f"{t.dtype} {tuple(t.shape)} on {t.device} (contiguous="
-            f"{t.is_contiguous()})")
+            f"flash_attention: {name} must be a tensor of shape {shape} and "
+            f"dtype {dtype} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device}")
+    return kernel_strides(name, t)
 
 
 def flash_cuda(q, k, v, *, causal: bool = True):
-    """Launch ``csrc/flash_attention.cu`` on torch's current stream.
+    """Launch ``csrc/flash_attention.cu`` on torch's current stream: bf16
+    inputs go to the tensor-core kernel, f32 ones to the CUDA-core kernel.
 
-    Raises if the inputs are not what the kernel takes or if the launch
-    fails; there is no fall-back.  Each launch adds one to
-    ``flash_cuda.launches``.
+    q, k and v are read through their strides (:func:`kernel_strides`), so a
+    [B, H, T, D] view of a [B, T, H, D] tensor needs no copy; o is allocated
+    like q and so keeps q's layout.  Raises if the inputs are not what the
+    kernel takes or if the launch fails; there is no fall-back.  Each launch
+    adds one to ``flash_cuda.launches``.
     """
     dev = q.device
     if dev.type != "cuda":
@@ -86,23 +114,25 @@ def flash_cuda(q, k, v, *, causal: bool = True):
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: dtype {q.dtype} is not float32 "
                          f"or bfloat16")
-    _check("q", q, q.dtype, (B, Hq, Tq, D), dev)
-    _check("k", k, q.dtype, (B, Hkv, Tk, D), dev)
-    _check("v", v, q.dtype, (B, Hkv, Tk, D), dev)
+    strides = [*_check("q", q, q.dtype, (B, Hq, Tq, D), dev),
+               *_check("k", k, q.dtype, (B, Hkv, Tk, D), dev),
+               *_check("v", v, q.dtype, (B, Hkv, Tk, D), dev)]
     if D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: needs D in {HEAD_DIMS} and Hq a "
                          f"multiple of Hkv (D={D}, Hq={Hq}, Hkv={Hkv})")
-    smem = _lib().flash_attention_smem_bytes(D)
+    bf16 = int(q.dtype == torch.bfloat16)
+    smem = _lib().flash_attention_smem_bytes(D, bf16)
     if smem > MAX_SMEM:
         raise ValueError(f"flash_attention: D={D} needs {smem} B of shared "
                          f"memory, above {MAX_SMEM}")
     o = torch.empty_like(q)
+    strides += kernel_strides("o", o)
     if B * Hq and Tq and Tk:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-            Hkv, Tq, Tk, D, 1.0 / math.sqrt(D), int(causal),
-            int(q.dtype == torch.bfloat16), stream)
+            Hkv, Tq, Tk, D, (ctypes.c_longlong * 12)(*strides),
+            1.0 / math.sqrt(D), int(causal), bf16, stream)
         if err:
             raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                                f"error {err}")

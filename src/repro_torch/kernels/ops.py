@@ -43,7 +43,10 @@ def mha(q, k, v, *, causal: bool = True):
 
     Takes what the JAX package's ``ops.mha`` takes: non-causal attention
     needs Tk to be a multiple of the key block ``min(128, max(8, Tk))``.
-    Nothing is padded: the kernel masks the ragged edges itself."""
+    Nothing is padded: the kernel masks the ragged edges itself.  Nothing is
+    copied either: the kernel reads q, k and v through their strides, so a
+    [B, H, T, D] view of the model's [B, T, H, D] activations goes in as it
+    is, and on the card the output has q's layout."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"mha: needs q [B,Hq,Tq,D] and k, v [B,Hkv,Tk,D], "
@@ -56,7 +59,7 @@ def mha(q, k, v, *, causal: bool = True):
     if Tk % min(KEY_BLOCK, max(8, Tk)) and not causal:
         raise ValueError("non-causal attention requires Tk % bk == 0")
     fn = _route("mha", q, flash_cuda, attention_ref)
-    return fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    return fn(q, k, v, causal=causal)
 
 
 def ssd_pad(x, dt, B, C, *, chunk: int):

@@ -117,8 +117,10 @@ def attn_chunked(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
 def sdpa(cfg, q, k, v):
     """The no-cache causal attention of the teacher-forced forward.
     q: [B,T,Hq,hd]; k,v: [B,T,Hkv,hd].  ``attn_impl="pallas"`` goes to
-    ``ops.mha`` in [B,H,T,hd] (the flash_attention kernel on a CUDA tensor)
-    and, as in the JAX package, ignores ``attn_f32``."""
+    ``ops.mha`` with [B,H,T,hd] views of them (the flash_attention kernel
+    on a CUDA tensor, which reads the views in place and returns o in q's
+    layout, so the transpose back is contiguous) and, as in the JAX
+    package, ignores ``attn_f32``."""
     if cfg.attn_impl == "pallas":
         o = ops.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     causal=True)

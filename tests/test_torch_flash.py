@@ -1,7 +1,10 @@
 """flash_attention: the port's ``ops.mha`` on the CPU (the plain
 ``attention_ref``) against the JAX package's Pallas kernel in interpret mode
 and its oracle ``ref.attention_ref``, the wrapper's refusals, and the
-hand-written CUDA kernel against the plain version on the card.
+hand-written CUDA kernels against the plain version on the card, on
+contiguous inputs and on the [B, H, T, D] views of [B, T, H, D] tensors that
+``layers.sdpa`` passes; the strides the kernels take; a model of the bf16
+kernel's rounding.
 
 Tolerances are the JAX package's own (tests/test_kernels.py): atol 2e-5 in
 f32, 2e-2 in bf16.  The port's causal mask is aligned bottom-right, as the
@@ -9,6 +12,8 @@ oracle's; the reference's Pallas kernel aligns it top-left (ROADMAP C2), so
 the port is held against the kernel at Tq == Tk only and against the oracle
 at Tq < Tk as well.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -16,7 +21,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
-                                                 flash_cuda)
+                                                 flash_cuda, kernel_strides)
 
 # (B, Hq, Hkv, Tq, Tk, D): the JAX tests' shapes (GQA group 2, group 4, MHA,
 # ragged 96), then Tq < Tk.
@@ -47,6 +52,12 @@ def _inputs(B, Hq, Hkv, Tq, Tk, D, seed):
 def _torch(arrs, dtype="float32", device="cpu"):
     return [torch.from_numpy(a).to(getattr(torch, dtype)).to(device)
             for a in arrs]
+
+
+def _views(ts):
+    """The same values as [B, H, T, D] views of [B, T, H, D] tensors: the
+    layout in which ``layers.sdpa`` hands q, k and v to ``ops.mha``."""
+    return [t.transpose(1, 2).contiguous().transpose(1, 2) for t in ts]
 
 
 def _jax(arrs, dtype):
@@ -142,6 +153,133 @@ def test_noncausal_ragged_keys_below_one_block_are_taken():
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", _cases(SHAPES))
+def test_mha_on_views_equals_mha_on_contiguous_copies(shape, causal, dtype):
+    ts = _torch(_inputs(*shape, seed=sum(shape) + 2), dtype)
+    views = _views(ts)
+    assert not views[0].is_contiguous()  # (k, v are when Hkv == 1)
+    got = ops.mha(*views, causal=causal)
+    want = ops.mha(*[t.contiguous() for t in views], causal=causal)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,causal", _cases(SHAPES))
+def test_mha_on_views_matches_jax_pallas_kernel(shape, causal, dtype):
+    from repro.kernels import ops as jops
+    arrs = _inputs(*shape, seed=sum(shape))
+    got = ops.mha(*_views(_torch(arrs, dtype)), causal=causal)
+    blocks = dict(bq=64, bk=64) if causal else {}
+    want = jops.mha(*_jax(arrs, dtype), causal=causal, use_pallas=True,
+                    **blocks)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype])
+
+
+def test_kernel_strides_take_a_view_of_the_model_layout():
+    B, T, H, D = 2, 24, 3, 32
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((B, T, H, D), dtype=dtype).transpose(1, 2)
+        assert not q.is_contiguous()
+        assert kernel_strides("q", q) == (T * H * D, D, H * D)
+        assert kernel_strides("q", q.contiguous()) == (H * T * D, T * D, D)
+
+
+def _odd_t_stride():
+    # bf16 rows 17 elements (34 bytes) apart; the B and H strides are
+    # multiples of 16 bytes, so only T's is at fault.
+    return torch.zeros((1, 2, 8, 17), dtype=torch.bfloat16)[..., :16]
+
+
+def _misaligned():
+    flat = torch.zeros(2 * 8 * 16 + 1, dtype=torch.bfloat16)
+    return flat[1:].view(1, 2, 8, 16)
+
+
+@pytest.mark.parametrize("make,match", [
+    (lambda: torch.zeros((1, 2, 8, 32), dtype=torch.bfloat16)[..., ::2],
+     "last dimension of q is not contiguous"),
+    (_odd_t_stride, "T dimension is not a multiple of 16 bytes"),
+    (_misaligned, "base address is not 16-byte aligned"),
+], ids=["last-stride", "odd-t-stride", "misaligned-base"])
+def test_kernel_strides_refuse_what_the_kernel_cannot_read(make, match):
+    t = make()
+    assert t.shape == (1, 2, 8, 16)
+    with pytest.raises(ValueError, match=match):
+        kernel_strides("q", t)
+
+
+def _kernel_rounding_model(q, k, v, *, causal, bk=64):
+    """The bf16 kernel's arithmetic in torch, block by block: S in f32 from
+    the bf16 q and k, scaled into the log2 domain; the running max m; P =
+    exp2(S - m) in f32, summed into l, then rounded to bf16 for P·V with the
+    bf16 v; o = acc / l rounded to bf16.  GQA by reshape, as attention_ref."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, Tq, D)
+    c = (1.0 / math.sqrt(D)) * math.log2(math.e)
+    rows = torch.arange(Tq)[:, None]
+    m = torch.full((B, Hkv, Hq // Hkv, Tq, 1), -1e30)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, Hkv, Hq // Hkv, Tq, D))
+    for k0 in range(0, Tk, bk):
+        kb, vb = k[:, :, k0:k0 + bk].float(), v[:, :, k0:k0 + bk]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kb) * c
+        cols = k0 + torch.arange(kb.shape[2])[None, :]
+        if causal:
+            s = torch.where(cols <= rows + Tk - Tq, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = torch.einsum("bhgqk,bhkd->bhgqd",
+                          p.to(torch.bfloat16).float(), vb.float())
+        acc = acc * alpha + pv
+        m = m_new
+    o = acc / l.clamp(min=1e-30)
+    return o.reshape(B, Hq, Tq, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_kernel_rounding_model_stays_within_bf16_tolerance(causal):
+    """Rounding P to bf16 for the P·V product (l from the f32 P) keeps the
+    bf16 kernel within 2e-2 of attention_ref at llama3.2-3b's T and D."""
+    q, k, v = _torch(_inputs(1, 3, 1, 2048, 2048, 128, seed=7), "bfloat16")
+    got = _kernel_rounding_model(q, k, v, causal=causal)
+    want = attention_ref(q, k, v, causal=causal)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= TOL["bfloat16"], err
+
+
+def test_sdpa_hands_views_of_the_model_tensors_to_mha(monkeypatch):
+    """``layers.sdpa`` under ``attn_impl="pallas"`` copies nothing: ops.mha
+    receives [B, H, T, D] views of the [B, T, H, D] q, k, v, and the output
+    comes back through a transpose."""
+    from types import SimpleNamespace
+
+    from repro_torch.models import layers
+    B, T, Hq, Hkv, hd = 2, 16, 4, 2, 16
+    q, k, v = (torch.randn((B, T, H, hd)) for H in (Hq, Hkv, Hkv))
+    seen = []
+
+    def spy(qv, kv, vv, *, causal):
+        seen.append((qv, kv, vv, causal))
+        return attention_ref(qv, kv, vv, causal=causal)
+    monkeypatch.setattr(layers.ops, "mha", spy)
+    out = layers.sdpa(SimpleNamespace(attn_impl="pallas"), q, k, v)
+    (qv, kv, vv, causal), = seen
+    assert causal
+    for view, base, H in ((qv, q, Hq), (kv, k, Hkv), (vv, v, Hkv)):
+        assert view.shape == (B, H, T, hd) and not view.is_contiguous()
+        assert view.data_ptr() == base.data_ptr()
+        assert view.stride() == (T * H * hd, hd, H * hd, 1)
+    want = attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                         v.transpose(1, 2)).transpose(1, 2)
+    assert out.shape == (B, T, Hq, hd) and torch.equal(out, want)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     before = flash_cuda.launches
     with pytest.raises(ValueError, match="CUDA"):
@@ -165,16 +303,20 @@ def _card():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "view"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,causal", _cases(
     SHAPES + SHORT_Q + FULL + [(1, 8, 2, 1000, 1000, 128)]))
-def test_kernel_matches_plain_on_card(shape, causal, dtype):
+def test_kernel_matches_plain_on_card(shape, causal, dtype, layout):
     _card()
     q, k, v = _torch(_inputs(*shape, seed=sum(shape)), dtype, "cuda")
+    if layout == "view":
+        q, k, v = _views((q, k, v))
     before = flash_cuda.launches
     got = ops.mha(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_cuda.launches == before + 1 and got.dtype == q.dtype
+    assert got.stride() == q.stride()
     want = attention_ref(q, k, v, causal=causal)
     err = float((got.float() - want.float()).abs().max())
     assert err <= TOL[dtype], err
@@ -187,8 +329,8 @@ def test_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="D in"):
         flash_cuda(q, k, v)
     q, k, v = _torch(_inputs(1, 2, 2, 64, 64, 32, seed=0), device="cuda")
-    with pytest.raises(ValueError, match="contiguous"):
-        flash_cuda(q.transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="not contiguous"):
+        flash_cuda(torch.cat([q, q], dim=-1)[..., ::2], k, v)
     with pytest.raises(ValueError, match="dtype"):
         flash_cuda(q, k.bfloat16(), v)
     before = flash_cuda.launches
