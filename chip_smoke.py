@@ -9,13 +9,18 @@ Phases, each reported on its own lines; any failure exits nonzero:
 
   1. device   — the card's name and power limit, torch/CUDA versions;
   2. build    — the port's CUDA sources, one nvcc each, all started together;
-                each kernel's registers, spills and shared memory;
+                each kernel's registers, spills and shared memory, and
+                ssd_scan's CTAs per SM;
   3. kernels  — each kernel against its plain PyTorch version on the card:
                 event_apply at the unit-test shapes and the full default
                 PHOLD shape, for all three draw distributions with hot
                 routing on and off; ssd_scan at the unit-test shapes, T=37
-                and T=160 with chunk 128, and the serving shape, in f32 and
-                with bf16 x/y; flash_attention at the unit-test shapes
+                and T=160 with chunk 128, and the serving shape, in f32 (the
+                CUDA-core kernel) and bf16 (the tensor-core kernel), each on
+                contiguous x and on the [b, T, H, P] view of a wider
+                activation that ``mamba_apply`` passes, with the final
+                state against ``ssd_final_state``; flash_attention at the
+                unit-test shapes
                 (causal and not, Tq < Tk), a ragged T=1000 and the
                 full-width llama3.2-3b and zamba2-1.2b shapes, f32 (the
                 CUDA-core kernel) and bf16 (the tensor-core kernel), each on
@@ -36,8 +41,10 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 forward; then in its own bf16, B=4 prompts of 1024 tokens
                 and 32 greedy tokens, timed (prefill ms, decode ms/token,
                 tok/s, peak memory), with 38 ssd_scan launches per prefill,
-                a profile of where the device time goes, and ssd_scan's own
-                time per launch beside its bound; then one zamba2-1.2b bf16
+                a profile of where the device time goes (with the ssd_scan,
+                cumsum and strided-copy launches of a prefill), and
+                ssd_scan's own time per launch on the model's view beside
+                its bound; then one zamba2-1.2b bf16
                 forward (B=4, T=1024) through flash_attention (7 launches)
                 and its logits' spread against the plain attention and f32;
   8. lm       — llama3.2-3b's teacher-forced forward and loss
@@ -266,7 +273,15 @@ SSD_SHAPES = [(1, 64, 2, 32, 16, 32), (2, 160, 4, 64, 32, 32),
               (2, 160, 2, 16, 8, 128), (4, 1024, 64, 64, 64, 128)]
 
 
-def _ssd_inputs(b, T, H, P, N, xdtype, seed, device):
+#: the final state against ``ssd_final_state``: f32, and bf16 x (h carried
+#: in f32, its products on bf16 operands).
+SSD_STATE_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _ssd_inputs(b, T, H, P, N, xdtype, seed, device, view=False):
+    """x [b, T, H, P], dt, A, B, C; with ``view``, x holds the same values
+    as a [b, T, H, P] view of a wider [b, T, H·P + 2N] tensor, the layout in
+    which ``mamba_apply`` hands it to the kernel."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     x = (torch.randn((b, T, H, P), generator=g) * 0.5).to(xdtype)
@@ -274,47 +289,72 @@ def _ssd_inputs(b, T, H, P, N, xdtype, seed, device):
     A = -torch.rand((H,), generator=g)
     B = torch.randn((b, T, N), generator=g) * 0.3
     C = torch.randn((b, T, N), generator=g) * 0.3
+    if view:
+        wide = torch.randn((b, T, H * P + 2 * N), generator=g).to(xdtype)
+        wide[..., :H * P] = x.reshape(b, T, H * P)
+        x = _ssd_view(wide.to(device), H, P)
     return [t.to(device) for t in (x, dt, A, B, C)]
 
 
+def _ssd_view(wide, H, P):
+    """The [b, T, H, P] view of the first H·P columns of ``wide``."""
+    b, T, _ = wide.shape
+    return wide[..., :H * P].view(b, T, H, P)
+
+
 def check_ssd_scan(device) -> float:
-    """ssd_scan kernel vs ssd_ref on the card, both on the inputs padded by
-    ``ops.ssd``'s chunk rule; returns the largest |kernel - plain|."""
+    """ssd_scan kernels vs ssd_ref on the card, both on the inputs padded by
+    ``ops.ssd``'s chunk rule, x contiguous and as the model's view; the
+    final state against ``ssd_final_state``.  Returns the largest
+    |kernel - plain| of y."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
+    from repro_torch.models.mamba2 import ssd_final_state
     worst = 0.0
     for i, (b, T, H, P, N, chunk) in enumerate(SSD_SHAPES):
         errs = []
-        for name in ("float32", "bfloat16"):
-            x, dt, A, B, C = _ssd_inputs(b, T, H, P, N, getattr(torch, name),
-                                         2000 + i, device)
-            x, dt, B, C, ch = ops.ssd_pad(x, dt, B, C, chunk=chunk)
+        for name, view in itertools.product(("float32", "bfloat16"),
+                                            (False, True)):
+            x0, dt0, A, B0, C0 = _ssd_inputs(b, T, H, P, N,
+                                             getattr(torch, name), 2000 + i,
+                                             device, view)
+            x, dt, B, C, ch = ops.ssd_pad(x0, dt0, B0, C0, chunk=chunk)
+            if view and x.shape[1] == T and x.data_ptr() != x0.data_ptr():
+                raise AssertionError("ssd_pad copied an unpadded x")
+            hT = torch.empty((b, H, N, P), dtype=torch.float32, device=device)
             before = ssd_cuda.launches
-            got = ssd_cuda(x, dt, A, B, C, chunk=ch)[:, :T]
+            got = ssd_cuda(x, dt, A, B, C, chunk=ch, final_state=hT)[:, :T]
             want = ssd_ref(x, dt, A, B, C, chunk=ch)[:, :T]
+            h_want = ssd_final_state(x0, dt0, A, B0)
             torch.cuda.synchronize()
             if ssd_cuda.launches != before + 1 or got.dtype != want.dtype:
                 raise AssertionError("ssd_scan: the wrapper did not launch")
             err = float((got.float() - want.float()).abs().max())
-            if not err <= SSD_TOL[name]:
+            herr = float((hT - h_want).abs().max())
+            layout = "view" if view else "contiguous"
+            if not (err <= SSD_TOL[name] and herr <= SSD_STATE_TOL[name]):
                 raise AssertionError(
                     f"ssd_scan kernel != plain at b={b} T={T} H={H} P={P} "
-                    f"N={N} chunk={chunk} x {name}: max |diff| {err} > "
-                    f"{SSD_TOL[name]}")
+                    f"N={N} chunk={chunk} x {name} {layout}: max |diff| "
+                    f"{err} (tol {SSD_TOL[name]}), final state {herr} (tol "
+                    f"{SSD_STATE_TOL[name]})")
             worst = max(worst, err)
-            errs.append(f"{name} {err:.3g}")
+            errs.append(f"{name} {layout} {err:.3g} (h {herr:.3g})")
         log("kernels", f"ssd_scan b={b} T={T} H={H} P={P} N={N} chunk="
                        f"{chunk} (runs Q={ch}): max |kernel - plain| "
-                       f"{', '.join(errs)} (tol 1e-4 f32, 5e-2 bf16)")
+                       f"{', '.join(errs)} (tol 1e-4 f32, 5e-2 bf16; final "
+                       f"state vs ssd_final_state 1e-4 f32, 1e-2 bf16)")
     return worst
 
 
 def ssd_bound(b, T, H, P, N, Q, x_bytes):
-    """(bytes, flops) of one ssd_scan call: x and y once, dt, A, B, C once;
-    per (batch, head) and chunk the lower-triangle C Bᵀ and G x products
-    (Q(Q+1)/2 entries) plus C h and the state update, 2 flops a multiply-add."""
-    nbytes = 2 * b * T * H * P * x_bytes + (b * T * H + H + 2 * b * T * N) * 4
+    """(bytes, flops) of one ssd_scan call as the model makes it: x and y
+    once, dt, A, B, C once, the f32 final state written once; per (batch,
+    head) and chunk the lower-triangle C Bᵀ and G x products (Q(Q+1)/2
+    entries) plus C h and the state update, 2 flops a multiply-add."""
+    nbytes = (2 * b * T * H * P * x_bytes + (b * T * H + H + 2 * b * T * N) * 4
+              + b * H * N * P * 4)
     tri = Q * (Q + 1) // 2
     flops = b * H * (T // Q) * (2 * tri * N + 2 * tri * P + 4 * Q * N * P)
     return nbytes, flops
@@ -505,36 +545,66 @@ def serve_profile(dev, m, batch, med):
                            "not measured (the profiler saw no device time)"))
         for us, cnt, key in rows[:8]:
             log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+        if prof is p_pre:
+            log("profile", "prefill: " + "; ".join(
+                f"{what} {sum(r[1] for r in sel)} launches, "
+                f"{sum(r[0] for r in sel) / 1e3:.3f} ms" for what, sel in (
+                    ("ssd_scan", [r for r in rows if "ssd_" in r[2]]),
+                    ("cumsum (ssd_final_state's, gone since the kernel "
+                     "writes the state)",
+                     [r for r in rows if "cumsum" in r[2].lower()
+                      or "scan" in r[2].lower() and "ssd_" not in r[2]]),
+                    ("direct_copy of strided inputs (casts and copies of "
+                     "views)", [
+                        r for r in rows if "direct_copy" in r[2]
+                        and r[2].startswith(
+                            "void at::native::elementwise_kernel<")]))))
     return shares
 
 
 def time_ssd_scan(dev, flush):
-    """ssd_scan at the serving shape, L2 flushed before each launch: the
-    main path's bf16 x/y and, for the record, f32."""
+    """ssd_scan at the serving shape as ``mamba_apply`` calls it (x a view
+    of the wider activation, the final state written), L2 flushed before
+    each launch: the main path's bf16 x/y and, for the record, f32.  The
+    bound counts the products at the rate of the kernel's operands: bf16
+    tensor cores for bf16, the f32 CUDA-core rate for f32."""
     import torch
     from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
     b, T, H, P, N, Q = SSD_SHAPES[-1]
     out = {}
     for name in ("bfloat16", "float32"):
         xdt = getattr(torch, name)
-        inp = _ssd_inputs(b, T, H, P, N, xdt, 7, dev)
+        x, dt, A, B, C = _ssd_inputs(b, T, H, P, N, xdt, 7, dev, view=True)
+        # the whole [b, T, H*P+2N] activation that x is a view of.
+        wide = x.as_strided((b, T, x.stride(1)), (x.stride(0), x.stride(1),
+                                                  1))
+        inp = [wide, dt, A, B, C]
+        hT = torch.empty((b, H, N, P), dtype=torch.float32, device=dev)
+
+        def kern(w, *r):
+            return ssd_cuda(_ssd_view(w, H, P), *r, chunk=Q, final_state=hT)
+
+        def plain(w, *r):
+            return ssd_ref(_ssd_view(w, H, P), *r, chunk=Q, final_state=hT)
         for _ in range(3):
-            ssd_cuda(*inp, chunk=Q)
-        ms = _time_launches(lambda *a: ssd_cuda(*a, chunk=Q), inp, 20,
-                            flush)
-        plain_ms = _time_launches(lambda *a: ssd_ref(*a, chunk=Q), inp, 5,
-                                  flush)
+            kern(*inp)
+        ms = _time_launches(kern, inp, 20, flush)
+        plain_ms = _time_launches(plain, inp, 5, flush)
         nbytes, flops = ssd_bound(b, T, H, P, N, Q, xdt.itemsize)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / F32_FLOPS * 1e3
+        peak = BF16_FLOPS if xdt == torch.bfloat16 else F32_FLOPS
+        t_ops = flops / peak * 1e3
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                          bound_by="bytes" if t_bytes >= t_ops else "operations")
         log("timing", f"ssd_scan at b={b} T={T} H={H} P={P} N={N} Q={Q}, x/y "
-                      f"{name}: kernel {ms:.4f} ms/launch, plain "
+                      f"{name}, x a view of the [b, T, H*P+2N] activation, "
+                      f"final state written: kernel {ms:.4f} ms/launch, plain "
                       f"{plain_ms:.4f} ms, bound {out[name]['bound_ms']:.4f} "
                       f"ms ({nbytes} B at 3.35 TB/s = {t_bytes:.4f} ms; "
-                      f"{flops} flop at 67 TFLOP/s = {t_ops:.4f} ms), L2 "
-                      f"flushed before each launch")
+                      f"{flops} flop at {peak / 1e12:g} TFLOP/s = "
+                      f"{t_ops:.4f} ms; {100 * out[name]['bound_ms'] / ms:.1f}"
+                      f" % of the bound), L2 flushed before each launch")
+        del x, wide, inp
     return out
 
 
@@ -900,7 +970,8 @@ def main() -> int:
     from repro_torch.kernels.event_apply import (event_apply_cuda,
                                                  event_apply_ref)
     from repro_torch.kernels.flash_attention import _lib as flash_lib
-    from repro_torch.kernels.ssd_scan import _lib as ssd_lib
+    from repro_torch.kernels.ssd_scan import ctas_per_sm as ssd_ctas
+    from repro_torch.kernels.ssd_scan import smem_bytes as ssd_smem
     from repro_torch.testing import golden
     from repro_torch.testing.clean import assert_clean
     from repro_torch.testing.conformance import assert_vs_oracle, check_workload
@@ -933,8 +1004,13 @@ def main() -> int:
         if logf.exists():
             for fn, facts in ptxas_facts(logf.read_text()):
                 log("build", f"{name}: {fn}: {facts}")
-    log("build", f"ssd_scan: {ssd_lib().ssd_scan_smem_bytes(128, 64, 64)} B "
-                 f"of dynamic shared memory per block at Q=128, P=N=64")
+    for bf16, kind in ((1, "bf16 tensor-core"), (0, "f32 CUDA-core")):
+        log("build", f"ssd_scan: {ssd_smem(128, 64, 64, bf16)} B of dynamic "
+                     f"shared memory per block, {ssd_ctas(128, 64, 64, bf16)}"
+                     f" CTAs per SM at Q=128, P=N=64 ({kind} kernel; "
+                     f"{4 * 64} CTAs at the serving shape on "
+                     f"{torch.cuda.get_device_properties(0).multi_processor_count}"
+                     f" SMs)")
     for bf16, kind in ((1, "bf16 tensor-core"), (0, "f32 CUDA-core")):
         log("build", f"flash_attention: "
                      f"{flash_lib().flash_attention_smem_bytes(128, bf16)} B "

@@ -2,8 +2,9 @@
 
 Every ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use into ``build/repro_torch/lib<name>-<hash>.so`` at the repository
-root (a directory ``.gitignore`` lists).  The hash covers the source and the
-compiler flags, so an edited source is rebuilt and a built one is reused.
+root (a directory ``.gitignore`` lists).  The hash covers the source, the
+shared headers ``csrc/*.cuh`` and the compiler flags, so an edited source or
+header is rebuilt and a built one is reused.
 ``nvcc`` exists only where the card is; nothing here runs at import time.
 """
 from __future__ import annotations
@@ -45,6 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(flags(name)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 

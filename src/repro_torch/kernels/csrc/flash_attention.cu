@@ -81,6 +81,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -283,235 +285,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 // bf16: tensor cores (wgmma)
 // ---------------------------------------------------------------------------
 
-using bf16 = __nv_bfloat16;
-
 constexpr int kWgThreads = 256;   // 2 warpgroups
 constexpr int kWBQ = 128;         // query rows per CTA, 64 per warpgroup
 constexpr int kWBK = 64;          // key columns per loop step
 constexpr int kStages = 2;        // K/V ring depth
 
-// Tiles in the layout wgmma reads: a [R][D] bf16 tile is D / W column
-// blocks of [R][W], W = min(D, 64), so a row of a block is RB = 2W bytes
-// (128, 64 or 32) and the block is wgmma's canonical K-major (Q, K) or
-// MN-major (V) layout under its RB-byte swizzle: the 16-byte chunks of row
-// r are XORed with bits 7.. of the row's byte offset.
+// A [R][D] tile is D / W column blocks of [R][W], W = min(D, 64).
 template <int D>
-struct Tile {
-  static constexpr int W = D < 64 ? D : 64;
-  static constexpr int RB = 2 * W;
-  static constexpr int CPB = W / 8;  // chunks per row of a block
-  // wgmma's layout type: 1 = 128-byte swizzle, 2 = 64-byte, 3 = 32-byte.
-  static constexpr uint64_t kMode = RB == 128 ? 1 : RB == 64 ? 2 : 3;
-  // element offset of chunk c (of D / 8) of row r in a tile of R rows.
-  template <int R>
-  __device__ static __forceinline__ int off(int r, int c) {
-    const int blk = c / CPB, cc = c % CPB;
-    return blk * R * W + r * W + ((cc ^ ((r * RB >> 7) & (CPB - 1))) << 3);
-  }
-};
+using TileD = Tile<(D < 64 ? D : 64)>;
 
 __host__ __device__ constexpr int wg_smem_bytes(int D) {
   // Q, the K/V ring, and 1 KB to align the tiles to the swizzle's 1024 B.
   return (kWBQ + 2 * kStages * kWBK) * D * (int)sizeof(bf16) + 1024;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global → shared, bypassing L1; zero-fills when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-// The copies above are writes of the generic proxy; wgmma reads through
-// the async proxy.
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of r across the asynchronous
-// wgmma that reads or writes it.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units), layout type.
-__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo, uint64_t mode) {
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
-         (mode << 62);
-}
-
-// d (+)= A·B for m64n64k16, A and B from shared memory (K-major).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                          uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-// d += A·B for m64n16k16, A from registers, B from shared memory
-// (MN-major: transposed).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A·B for m64n32k16, A from registers, B from shared memory
-// (MN-major: transposed).
-__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A·B for m64n64k16, A from registers, B from shared memory
-// (MN-major: transposed).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d += A·B for m64n128k16, A from registers, B from shared memory
-// (MN-major: transposed).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                          const uint32_t (&a)[4],
-                                          uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{" 
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 128) wgmma_rs_n128(o, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(o, a, db);
-  else if constexpr (D == 32) wgmma_rs_n32(o, a, db);
-  else wgmma_rs_n16(o, a, db);
-}
-
-// Two f32 as a bf16 pair: lo in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// 2^x by the SFU's ex2 (relative error ~2^-22, far below bf16's 2^-9;
-// results below 2^-126 flush to 0, which a softmax weight may).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Rows [r0, r0 + R) of a [len, D] matrix with row stride st into a tile by
@@ -526,7 +311,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
     if (kCopies % kWgThreads && i >= kCopies) break;
     const int r = i / kChunks, c = i % kChunks;
     const bool ok = r0 + r < len;
-    cp_async16(dst + Tile<D>::template off<R>(r, c),
+    cp_async16(dst + TileD<D>::off(R, r, c),
                ok ? src + (r0 + r) * st + c * 8 : src, ok);
   }
 }
@@ -537,7 +322,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
                 const bf16* __restrict__ v, bf16* __restrict__ o, Layout L,
                 int Hq, int Hkv, int Tq, int Tk, float scale_log2,
                 int causal) {
-  using TL = Tile<D>;
+  using TL = TileD<D>;
   constexpr int W = TL::W, RB = TL::RB;
   constexpr int NT = kWBK / 8;   // 8-column tiles of S
   constexpr int DT = D / 8;      // 8-column tiles of o
@@ -612,7 +397,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
                                     16, sbo, TL::kMode);
       const uint64_t db = gmma_desc(skj + blk * kWBK * W + kin, 16, sbo,
                                     TL::kMode);
-      wgmma_ss_n64(s, da, db, 1);
+      wgmma_ss_n64<0>(s, da, db, 1);
     }
     wgmma_commit();
     wgmma_wait0();
@@ -675,7 +460,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kWBK / 16; ++kk)
-      wgmma_pv<D>(acc, a[kk],
+      wgmma_rs<D>(acc, a[kk],
                   gmma_desc(svj + kk * 16 * W, kWBK * RB, sbo, TL::kMode));
     wgmma_commit();
     wgmma_wait0();
@@ -696,7 +481,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     const int row = wr + g + 8 * half;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(sq + TL::template off<kWBQ>(row, dt) +
+      *reinterpret_cast<uint32_t*>(sq + TL::off(kWBQ, row, dt) +
                                    2 * t4) =
           pack_bf16(acc[dt * 4 + 2 * half] * inv,
                     acc[dt * 4 + 2 * half + 1] * inv);
@@ -711,7 +496,7 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     if (row < Tq)
       *reinterpret_cast<uint4*>(ob + row * L.o.t + c * 8) =
           *reinterpret_cast<const uint4*>(
-              sq + TL::template off<kWBQ>(wr + rr, c));
+              sq + TL::off(kWBQ, wr + rr, c));
   }
 }
 

@@ -65,11 +65,13 @@ def mha(q, k, v, *, causal: bool = True):
 def ssd_pad(x, dt, B, C, *, chunk: int):
     """The inputs of :func:`ssd` under its chunk rule: ``(x, dt, B, C, ch)``
     padded with ``dt = 0`` steps (an identity update) to a multiple of the
-    chunk length ``ch``, contiguous.
+    chunk length ``ch``; dt, B and C contiguous.
 
     The rule is the JAX package's: a T that ``min(chunk, T)`` divides runs
     chunks of that length (T < chunk: one chunk of T); any other T is padded
-    to a multiple of ``chunk``."""
+    to a multiple of ``chunk``.  x is copied only when T is padded: the
+    kernels read it through its strides, so a view of a wider activation
+    goes in as it is."""
     T = x.shape[1]
     ch = min(chunk, T) if T % min(chunk, T) == 0 else chunk
     pad = (-T) % ch
@@ -78,12 +80,15 @@ def ssd_pad(x, dt, B, C, *, chunk: int):
         dt = F.pad(dt, (0, 0, 0, pad))
         B = F.pad(B, (0, 0, 0, pad))
         C = F.pad(C, (0, 0, 0, pad))
-    return x.contiguous(), dt.contiguous(), B.contiguous(), C.contiguous(), ch
+    return x, dt.contiguous(), B.contiguous(), C.contiguous(), ch
 
 
-def ssd(x, dt, A, B, C, *, chunk: int = 128):
+def ssd(x, dt, A, B, C, *, chunk: int = 128, final_state=None):
     """Mamba-2 SSD.  x: [b,T,H,P]; dt: [b,T,H]; A: [H]; B,C: [b,T,N] →
-    y like x.  T is padded and the output sliced back (:func:`ssd_pad`)."""
+    y [b,T,H,P] like x.  T is padded and the output sliced back
+    (:func:`ssd_pad`).  ``final_state`` (f32 [b,H,N,P]), if given, receives
+    the SSM state after step T (the padded steps leave it unchanged)."""
     fn = _route("ssd", x, ssd_cuda, ssd_ref)
     x_, dt_, B_, C_, ch = ssd_pad(x, dt, B, C, chunk=chunk)
-    return fn(x_, dt_, A.contiguous(), B_, C_, chunk=ch)[:, :x.shape[1]]
+    return fn(x_, dt_, A.contiguous(), B_, C_, chunk=ch,
+              final_state=final_state)[:, :x.shape[1]]

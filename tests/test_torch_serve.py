@@ -247,6 +247,24 @@ def test_ssd_final_state_matches_jax():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+def test_prefill_takes_the_state_from_the_scan(ref, monkeypatch):
+    """The prefill's SSM state is the one ``ops.ssd`` carries out of the
+    scan: with ``ssd_final_state`` made to raise, a prefill still runs and
+    leaves the same caches and logits."""
+    from repro_torch.models import mamba2
+    m = ref["model"]
+    want_logits, want = m.prefill(ref["ttoks"], m.init_cache(B, MAX_LEN))
+
+    def boom(*args, **kwargs):
+        raise AssertionError("prefill called ssd_final_state")
+    monkeypatch.setattr(mamba2, "ssd_final_state", boom)
+    logits, caches = m.prefill(ref["ttoks"], m.init_cache(B, MAX_LEN))
+    torch.testing.assert_close(logits, want_logits, rtol=0, atol=0)
+    for got, exp in zip(caches["mamba"], want["mamba"]):
+        torch.testing.assert_close(got["h"], exp["h"], rtol=0, atol=0)
+        assert got["h"].abs().max() > 0
+
+
 # -- configs, registry, data ------------------------------------------------------
 
 def test_registry_names_are_the_jax_packages():
