@@ -12,10 +12,12 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 each kernel's registers, spills and shared memory, and
                 ssd_scan's CTAs per SM;
   3. kernels  — each kernel against its plain PyTorch version on the card:
-                event_apply at the unit-test shapes and the full default
-                PHOLD shape, for all three draw distributions with hot
-                routing on and off; ssd_scan at the unit-test shapes, T=37
-                and T=160 with chunk 128, and the serving shape, in f32 (the
+                event_apply at the unit-test shapes, a heavy-overlap batch,
+                an init range wider than the window, 13 lanes, the full
+                default PHOLD shape and the skewed batch, for all three
+                draw distributions with hot routing on and off; ssd_scan at
+                the unit-test shapes, T=37 and T=160 with chunk 128, and
+                the serving shape, in f32 (the
                 CUDA-core kernel) and bf16 (the tensor-core kernel), each on
                 contiguous x and on the [b, T, H, P] view of a wider
                 activation that ``mamba_apply`` passes, with the final
@@ -34,7 +36,9 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 against the oracle (clean counters, processed count, pending
                 multiset, bit-exact state), then 256 timed epochs;
   6. timing   — ms/epoch, events/s, host syncs per epoch, event_apply's time
-                per launch at the main path's shapes beside its bound;
+                per launch beside its bound at the main path's shapes, on
+                one real epoch's batch and on a skewed batch (4 objects
+                with full buckets, the rest at 0-10 events);
   7. serve    — zamba2 serving (``ServeSession``): the reduced config on the
                 card against the CPU; the full-width zamba2-1.2b in f32,
                 every decode step's logits against the teacher-forced
@@ -149,7 +153,9 @@ def ptxas_facts(text: str):
 
 # -- phase 3: kernels against their plain versions -----------------------------
 
-def _event_apply_inputs(n, S, LANES, C, cnt_hi, seed, device):
+def _event_apply_inputs(n, S, LANES, C, cnt_hi, seed, device, heavy=0):
+    """Random event_apply inputs: cnt uniform in [0, cnt_hi], except the
+    first ``heavy`` objects, whose buckets are full (cnt = C)."""
     import torch
     g = torch.Generator(device="cpu").manual_seed(seed)
     payload = torch.rand((n, S, LANES), generator=g, dtype=torch.float32)
@@ -158,7 +164,13 @@ def _event_apply_inputs(n, S, LANES, C, cnt_hi, seed, device):
     ts = torch.sort(torch.rand((n, C), generator=g), dim=1).values
     sd = torch.randint(0, 2**32, (n, C), generator=g, dtype=torch.int64)
     cnt = torch.randint(0, cnt_hi + 1, (n,), generator=g, dtype=torch.int32)
+    cnt[:heavy] = C
     return [t.to(device) for t in (payload, addresses, top, ts, sd, cnt)]
+
+
+#: event_apply's skewed batch at the main path's shapes: 4 objects (the hot
+#: objects of phold-hotspot) with full buckets, the rest at 0-10 events.
+SKEWED_HEAVY, SKEWED_CNT_HI = 4, 10
 
 
 def _max_abs_err(a, b) -> float:
@@ -177,17 +189,27 @@ def check_event_apply(device) -> float:
                                                  event_apply_ref)
     names = ("payload", "addresses", "top", "dst", "ts", "seed", "pay",
              "valid")
-    cases = [(n, S, 6, C, max(1, S // 32), 3, 64, C, (4, 128))
+    cases = [(n, S, 6, C, max(1, S // 32), 3, 64, C, 0, (4, 128))
              for n, S, C in [(2, 128, 4), (4, 256, 8), (1, 512, 16),
                              (8, 160, 5)]]
-    # the main path's shape: default PholdParams with bucket_cap=128.
-    cases.append((1024, 4000, 6, 128, 125, 4, 1024, 128, (8, 64)))
+    # windows of S/4 with every bucket full (several CTAs per object), an
+    # init range wider than the window that the S - KR clamp moves ahead of
+    # it, and more lanes than a kernel thread holds at once.
+    cases += [(4, 256, 6, 96, 64, 3, 64, 96, 4, (4, 128)),
+              (4, 64, 6, 16, 4, 40, 64, 16, 0, (4, 128)),
+              (3, 96, 13, 12, 8, 3, 64, 12, 0, (4, 128))]
+    # the main path's shape: default PholdParams with bucket_cap=128, then
+    # the skewed batch.
+    cases += [(1024, 4000, 6, 128, 125, 4, 1024, 128, 0, (8, 64)),
+              (1024, 4000, 6, 128, 125, 4, 1024, SKEWED_CNT_HI, SKEWED_HEAVY,
+               (4, 128))]
     worst = 0.0
-    for ci, (n, S, LANES, C, K, KR, n_obj, cnt_hi, hot) in enumerate(cases):
+    for ci, (n, S, LANES, C, K, KR, n_obj, cnt_hi, heavy,
+             hot) in enumerate(cases):
         for dist in ("dyadic", "uniform24", "exponential"):
             for hot_objects, hot_prob in ((0, 0), hot):
                 inp = _event_apply_inputs(n, S, LANES, C, cnt_hi,
-                                          1000 + ci, device)
+                                          1000 + ci, device, heavy)
                 kw = dict(n_objects=n_obj, lookahead=0.5, K=K, KR=KR,
                           dist=dist, mean=1.0, hot_objects=hot_objects,
                           hot_prob=hot_prob)
@@ -207,8 +229,10 @@ def check_event_apply(device) -> float:
                             f"C={C} dist={dist} hot={hot_objects}: output "
                             f"{name} max |diff| {err}")
         log("kernels", f"event_apply n={n} S={S} LANES={LANES} C={C} K={K} "
-                       f"KR={KR}: kernel == plain for dyadic, uniform24, "
-                       f"exponential (ts rtol 1e-6), hot routing on/off")
+                       f"KR={KR} cnt 0-{cnt_hi}"
+                       f"{f' ({heavy} at {C})' if heavy else ''}: kernel == "
+                       f"plain for dyadic, uniform24, exponential (ts rtol "
+                       f"1e-6), hot routing on/off")
     return worst
 
 
@@ -262,6 +286,27 @@ def event_apply_bound(seed_s, cnt_b, S, K, KR, LANES, C):
               + n * C * (4 + 4 + 8 + 4 + 4))           # five emission outputs
     flops = events * K * LANES * 2
     return nbytes, flops
+
+
+def time_event_apply(inputs, kw, flush, plain_reps=5):
+    """event_apply's kernel and plain ms per call on ``inputs`` (L2 flushed
+    before each) beside the bound of the same work."""
+    from repro_torch.kernels.event_apply import (event_apply_cuda,
+                                                 event_apply_ref)
+    for _ in range(3):
+        event_apply_cuda(*[t.clone() for t in inputs], **kw)
+    ms = _time_launches(lambda *a: event_apply_cuda(*a, **kw), inputs, 20,
+                        flush)
+    plain_ms = _time_launches(lambda *a: event_apply_ref(*a, **kw), inputs,
+                              plain_reps, flush)
+    _, S, LANES = inputs[0].shape
+    nbytes, flops = event_apply_bound(inputs[4], inputs[5], S, kw["K"],
+                                      kw["KR"], LANES, inputs[3].shape[1])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                nbytes=nbytes, flops=flops, events=int(inputs[5].sum()))
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -967,8 +1012,9 @@ def main() -> int:
     from repro_torch.core.engine import ParsirEngine
     from repro_torch.core.ref_engine import run_sequential
     from repro_torch.kernels import build
-    from repro_torch.kernels.event_apply import (event_apply_cuda,
-                                                 event_apply_ref)
+    from repro_torch.kernels.event_apply import ctas_per_sm as ea_ctas
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    from repro_torch.kernels.event_apply import smem_bytes as ea_smem
     from repro_torch.kernels.flash_attention import _lib as flash_lib
     from repro_torch.kernels.ssd_scan import ctas_per_sm as ssd_ctas
     from repro_torch.kernels.ssd_scan import smem_bytes as ssd_smem
@@ -1004,6 +1050,11 @@ def main() -> int:
         if logf.exists():
             for fn, facts in ptxas_facts(logf.read_text()):
                 log("build", f"{name}: {fn}: {facts}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log("build", f"event_apply: {ea_smem(4000, 128)} B of dynamic shared "
+                 f"memory per block at S=4000, C=128, {ea_ctas(4000, 128)} "
+                 f"CTAs per SM ({ea_ctas(4000, 128) * sms} resident on {sms} "
+                 f"SMs)")
     for bf16, kind in ((1, "bf16 tensor-core"), (0, "f32 CUDA-core")):
         log("build", f"ssd_scan: {ssd_smem(128, 64, 64, bf16)} B of dynamic "
                      f"shared memory per block, {ssd_ctas(128, 64, 64, bf16)}"
@@ -1098,23 +1149,24 @@ def main() -> int:
     kw = dict(n_objects=p.n_objects, lookahead=p.lookahead, K=p.touch,
               KR=p.realloc_k, dist=p.dist, mean=p.mean_increment)
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device=dev)
-    for _ in range(3):
-        event_apply_cuda(*[t.clone() for t in inputs], **kw)
-    ms = _time_launches(lambda *a: event_apply_cuda(*a, **kw), inputs, 20,
-                        flush)
-    plain_ms = _time_launches(lambda *a: event_apply_ref(*a, **kw), inputs,
-                              5, flush)
-    nbytes, flops = event_apply_bound(seed_s, cnt_b, p.state_nodes, p.touch,
-                                      p.realloc_k, p.lanes, cfg.bucket_cap)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    ea = time_event_apply(inputs, kw, flush)
     log("timing", f"event_apply at n={p.n_objects} S={p.state_nodes} "
-                  f"LANES={p.lanes} C={cfg.bucket_cap} ({int(cnt_b.sum())} "
-                  f"events): kernel {ms:.4f} ms/launch, plain "
-                  f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms "
-                  f"({nbytes} B at 3.35 TB/s; {flops} flop), L2 flushed "
+                  f"LANES={p.lanes} C={cfg.bucket_cap} ({ea['events']} "
+                  f"events): kernel {ea['ms']:.4f} ms/launch, plain "
+                  f"{ea['plain_ms']:.4f} ms, bound {ea['bound_ms']:.5f} ms "
+                  f"({ea['nbytes']} B at 3.35 TB/s; {ea['flops']} flop), "
+                  f"{ea['bound_ms'] / ea['ms']:.1%} of the bound, L2 flushed "
                   f"before each launch")
+    skewed = _event_apply_inputs(p.n_objects, p.state_nodes, p.lanes,
+                                 cfg.bucket_cap, SKEWED_CNT_HI, 7, dev,
+                                 SKEWED_HEAVY)
+    sk = time_event_apply(skewed, kw, flush, plain_reps=3)
+    log("timing", f"event_apply on the skewed batch ({SKEWED_HEAVY} objects "
+                  f"at cnt={cfg.bucket_cap}, the rest at 0-{SKEWED_CNT_HI}; "
+                  f"{sk['events']} events): kernel {sk['ms']:.4f} ms/launch, "
+                  f"plain {sk['plain_ms']:.4f} ms, bound {sk['bound_ms']:.5f}"
+                  f" ms ({sk['nbytes']} B; {sk['flops']} flop), "
+                  f"{sk['bound_ms'] / sk['ms']:.1%} of the bound")
 
     # 7. zamba2 serving ---------------------------------------------------------
     cfg = get_config("zamba2-1.2b")
@@ -1144,10 +1196,9 @@ def main() -> int:
         "name": "event_apply", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/event_apply.cu",
         "replaces": "src/repro/kernels/event_apply.py:176",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None,
+        "launches": launches, "max_abs_err": err, "ms": ea["ms"],
+        "plain_ms": ea["plain_ms"], "bound_ms": ea["bound_ms"],
+        "bound_by": ea["bound_by"], "library_ms": None,
     }, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",

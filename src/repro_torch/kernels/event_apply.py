@@ -4,14 +4,25 @@ version and the launch wrapper of the hand-written CUDA kernel.
 Port of the Pallas kernel ``repro/kernels/event_apply.py`` and its oracle
 ``repro/kernels/ref.py:event_apply_ref``.  Layout differs from the JAX
 package: the port keeps the model's ``payload [n, S, LANES]`` (node-major),
-so a touch window is one contiguous run of ``K * LANES`` floats and no
-transpose surrounds the call.
+so a run of nodes is one contiguous run of floats and no transpose surrounds
+the call.
 
 Both versions update ``payload`` and ``addresses`` **in place** (``top`` is
 unchanged: every event frees KR nodes and allocates them back) and return
 them together with freshly allocated emission buffers, each ``[n, C]``:
 ``dst`` i32, ``ts`` f32 (+inf in unused slots), ``seed`` u32-in-i64,
 ``payload`` f32, ``valid`` i32.
+
+The plain version applies the events round by round, as the reference
+does.  The kernel (``csrc/event_apply.cu``) needs no order between events:
+an event's window, touch increment, init value and emission follow from its
+seed alone, so it first computes every event's parameters in parallel, then
+reads each node that some event's window or init range covers once, applies
+to it in order the events that cover it (``x * 0.5 + delta``, then the init
+value) and writes it once; the arena slots, the same for every event since
+``top`` does not move, keep the last event's values.  Each node sees the
+same f32 operations in the same order as in the plain version, so the two
+agree bit for bit.
 """
 from __future__ import annotations
 
@@ -25,6 +36,8 @@ from . import build
 
 #: draw-distribution codes shared with csrc/event_apply.cu.
 DISTS = {"dyadic": 0, "uniform24": 1, "exponential": 2}
+#: shared memory a block can use on Hopper (bytes).
+MAX_SMEM = 232448
 
 
 def _outputs(n: int, C: int, device):
@@ -77,14 +90,40 @@ def event_apply_ref(payload, addresses, top, ts, seed, cnt, *,
     return payload, addresses, top, odst, ots, oseed, opay, ovalid
 
 
-@functools.cache
-def _launcher():
-    fn = build.load("event_apply").event_apply_launch
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument types of ``event_apply_launch`` in a built library."""
+    fn = lib.event_apply_launch
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn
+    return lib
+
+
+@functools.cache
+def _lib():
+    lib = bind(build.load("event_apply"))
+    for fn in (lib.event_apply_smem_bytes, lib.event_apply_ctas_per_sm):
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launcher():
+    """The launch entry point ``event_apply_cuda`` calls."""
+    return _lib().event_apply_launch
+
+
+def smem_bytes(S: int, C: int) -> int:
+    """Dynamic shared memory of one kernel CTA with ``C`` event slots over
+    ``S`` nodes: 16 B of parameters per slot and a coverage bit per node."""
+    return _lib().event_apply_smem_bytes(S, C)
+
+
+def ctas_per_sm(S: int, C: int) -> int:
+    """CTAs of the kernel that fit on one SM with ``C`` event slots over
+    ``S`` nodes, as the CUDA occupancy calculator counts them."""
+    return _lib().event_apply_ctas_per_sm(S, C)
 
 
 def _check(name, t, dtype, shape, device):
@@ -125,6 +164,10 @@ def event_apply_cuda(payload, addresses, top, ts, seed, cnt, *,
                          f"n_objects={n_objects})")
     if hot_objects and hot_prob and hot_objects < 1:
         raise ValueError(f"hot_objects must be >= 1, got {hot_objects}")
+    if smem_bytes(S, C) > MAX_SMEM:
+        raise ValueError(f"event_apply: C={C} event slots over S={S} nodes "
+                         f"need {smem_bytes(S, C)} B of shared memory, above "
+                         f"{MAX_SMEM}")
     outs = tuple(torch.empty((n, C), dtype=d, device=dev)
                  for d in (torch.int32, torch.float32, torch.int64,
                            torch.float32, torch.int32))
@@ -132,9 +175,10 @@ def event_apply_cuda(payload, addresses, top, ts, seed, cnt, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in (payload, addresses, top, ts, seed,
                                        cnt, *outs)]
-        err = _launcher()(*ptrs, n, S, LANES, C, K, KR, n_objects,
-                          to_f32(lookahead), DISTS[dist], to_f32(mean),
-                          int(hot_objects), int(hot_prob), stream)
+        err = _launcher()(
+            *ptrs, n, S, LANES, C, K, KR, n_objects, to_f32(lookahead),
+            DISTS[dist], to_f32(mean), int(hot_objects), int(hot_prob),
+            stream)
         if err:
             raise RuntimeError(f"event_apply kernel launch failed: CUDA "
                                f"error {err}")
