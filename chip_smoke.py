@@ -32,13 +32,30 @@ Phases, each reported on its own lines; any failure exits nonzero:
   5. main     — the ``phold`` conformance recipe under ``batch_impl`` rounds
                 and model, then PHOLD's main path (``workloads.phold.
                 main_path``: full-width PHOLD, 1024 objects x 4000 nodes x 6
-                lanes) through the event_apply kernel: init + 32 epochs held
-                against the oracle (clean counters, processed count, pending
-                multiset, bit-exact state), then 256 timed epochs;
-  6. timing   — ms/epoch, events/s, host syncs per epoch, event_apply's time
-                per launch beside its bound at the main path's shapes, on
-                one real epoch's batch and on a skewed batch (4 objects
-                with full buckets, the rest at 0-10 events);
+                lanes) through the event_apply kernel as replayed CUDA
+                graphs of the step: init + 32 epochs of the graphed ``run``
+                held against the oracle (clean counters, processed count,
+                pending multiset, bit-exact state), 256 timed epochs, the
+                kernel's launches (1 per epoch, counted under replay);
+                64 epochs of the graphed ``run`` against a loop of eager
+                ``step``s, leaf by leaf; ``run_until_drained(64)`` against
+                ``run(64)`` with one host read per 16 epochs; a drained
+                state a fixpoint of the drain.  Then ``hotspot_main_path``
+                (phold-hotspot at the same width, buckets of 1024) the same
+                way: 32 graphed epochs against the oracle, graphed against
+                eager, the drain; then phold-hotspot, queueing and cluster
+                through ``check_workload`` under every SWEEP config each
+                supports;
+  6. timing   — for both full-width configurations, graphed and eager:
+                ms/epoch (CUDA events and host clock), events/s, host syncs
+                per epoch, graph replays and captures, event_apply launches
+                per epoch, peak memory; a profile of 16 graphed epochs of
+                each (device busy time and ops per epoch, event_apply
+                launches seen against the counter); event_apply's time per
+                launch beside its bound at the main path's shapes, on one
+                real epoch's batch and on a skewed batch (4 objects with
+                full buckets, the rest at 0-10 events), and on one real
+                phold-hotspot epoch's batch at its C;
   7. serve    — zamba2 serving (``ServeSession``): the reduced config on the
                 card against the CPU; the full-width zamba2-1.2b in f32,
                 every decode step's logits against the teacher-forced
@@ -87,6 +104,10 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 MAIN_EPOCHS_CHECKED = 32
 MAIN_EPOCHS_TIMED = 256
+#: epochs of the graphed-against-eager and drain checks; eager epochs timed.
+GRAPH_EPOCHS = 64
+#: phold-hotspot at full width: epochs held against the oracle, then timed.
+HOTSPOT_EPOCHS_CHECKED, HOTSPOT_EPOCHS_TIMED = 32, 128
 #: zamba2 serving: prompts, prompt length, generated tokens (the first from
 #: the prefill), timed repeats after one warm-up.
 SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, SERVE_REPEATS = 4, 1024, 32, 3
@@ -307,6 +328,153 @@ def time_event_apply(inputs, kw, flush, plain_reps=5):
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 nbytes=nbytes, flops=flops, events=int(inputs[5].sum()))
+
+
+# -- PHOLD: graphed loops against eager steps, timing, profile --------------------
+
+def _same(a, b, ctx):
+    """Raise unless two engine states are equal leaf by leaf."""
+    import torch
+    from repro_torch.core.graphs import leaves
+    la, lb = leaves(a), leaves(b)
+    if len(la) != len(lb):
+        raise AssertionError(f"{ctx}: {len(la)} leaves != {len(lb)}")
+    for i, (x, y) in enumerate(zip(la, lb)):
+        if x.shape != y.shape or x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{ctx}: state leaf {i} differs "
+                                 f"({tuple(x.shape)} {x.dtype})")
+
+
+def _cleared(state):
+    """``state`` with an empty calendar and fallback: a drained state."""
+    import torch
+    from repro_torch.core.events import empty_batch
+    cal = state.cal._replace(cnt=torch.zeros_like(state.cal.cnt),
+                             ts=torch.full_like(state.cal.ts, float("inf")))
+    fb = state.fb._replace(events=empty_batch(state.fb.cap,
+                                              device=state.epoch.device))
+    return state._replace(cal=cal, fb=fb)
+
+
+def check_graphs(eng, st, name, n=GRAPH_EPOCHS):
+    """From a copy of ``st``: ``n`` epochs of the graphed ``run`` against a
+    loop of eager ``step``s, leaf by leaf; ``run_until_drained(n)`` against
+    ``run(n)`` (the workload conserves events) with one flag read per
+    chunk; a drained state a fixpoint of the drain, epoch unchanged.
+    Returns the engine's static state holding ``st``'s values again."""
+    import torch
+    from repro_torch.core.engine import DRAIN_CHUNK
+    from repro_torch.core.graphs import clone_state
+    s0 = clone_state(st)
+    graphed = clone_state(eng.run(clone_state(s0), n))
+    eager = clone_state(s0)
+    for _ in range(n):
+        eager = eng.step(eager)
+    _same(graphed, eager, f"{name}: graphed run vs eager steps")
+    del eager
+    syncs = eng.syncs
+    drained = eng.run_until_drained(clone_state(s0), n)
+    if eng.syncs - syncs != -(-n // DRAIN_CHUNK):
+        raise AssertionError(f"{name}: drain of {n} epochs made "
+                             f"{eng.syncs - syncs} host reads")
+    _same(drained, graphed, f"{name}: run_until_drained vs run")
+    if eng.in_flight(drained) == 0:
+        raise AssertionError(f"{name}: the workload drained")
+    del graphed
+    cleared = _cleared(clone_state(s0))
+    syncs = eng.syncs
+    fixed = eng.run_until_drained(clone_state(cleared), n)
+    _same(fixed, cleared, f"{name}: drained state under the drain")
+    if eng.syncs - syncs != 1 or int(fixed.epoch[0]) != int(s0.epoch[0]):
+        raise AssertionError(f"{name}: the drain of a drained state moved")
+    torch.cuda.synchronize()
+    log("main", f"{name}: graphed run == {n} eager steps leaf by leaf "
+                f"(state, Stats, epoch); run_until_drained({n}) == run({n}) "
+                f"with {-(-n // DRAIN_CHUNK)} host reads; a drained state is "
+                f"a fixpoint of the drain (epoch {int(fixed.epoch[0])} "
+                f"unchanged, 1 host read)")
+    del cleared, fixed
+    return eng.run(s0, 0)
+
+
+def time_epochs(eng, st, n, graphed=True):
+    """Run ``n`` epochs (the graphed ``run``, or a loop of eager ``step``s)
+    and time them by CUDA events and the host clock."""
+    import torch
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    g = eng.graphs
+    syncs, p0 = eng.syncs, eng.totals(st)["processed"]
+    replays, captures = g.replays, g.captures
+    launches = event_apply_cuda.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    if graphed:
+        st = eng.run(st, n)
+    else:
+        for _ in range(n):
+            st = eng.step(st)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = eng.totals(st)["processed"] - p0
+    return dict(state=st, dev_ms=e0.elapsed_time(e1) / n,
+                wall_ms=wall * 1e3 / n, events=events,
+                events_per_s=events / wall, syncs=(eng.syncs - syncs) / n,
+                replays=g.replays - replays, captures=g.captures - captures,
+                launches=(event_apply_cuda.launches - launches) / n,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def log_timing(name, mode, n, t):
+    log("timing", f"{name} {mode}, {n} epochs: {t['dev_ms']:.4f} ms/epoch "
+                  f"(CUDA events), {t['wall_ms']:.4f} ms/epoch (host "
+                  f"clock), {t['events']} events, {t['events_per_s']:.0f} "
+                  f"events/s, host syncs/epoch {t['syncs']:g}, graph "
+                  f"replays {t['replays']}, captures {t['captures']}, "
+                  f"event_apply launches/epoch {t['launches']:g}, peak "
+                  f"device memory {t['peak_mib']:.0f} MiB")
+
+
+def profile_graphed(eng, st, name, n=16):
+    """torch.profiler over ``n`` epochs of the graphed ``run``: device busy
+    time and ops per epoch, and the event_apply launches it saw against the
+    launch counter."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    st = eng.run(st, n)                  # the graphs exist before the trace
+    torch.cuda.synchronize()
+    before = event_apply_cuda.launches
+    p0 = eng.totals(st)["processed"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = eng.run(st, n)
+        torch.cuda.synchronize()
+    counted = event_apply_cuda.launches - before
+    events = eng.totals(st)["processed"] - p0
+    rows = _device_rows(prof)
+    busy_us = sum(r[0] for r in rows) / n
+    seen = sum(r[1] for r in rows if "event_apply" in r[2])
+    if not rows:
+        log("profile", f"{name} graphed: device time not measured (the "
+                       f"profiler saw no device op inside the graphs)")
+        return st, None
+    if seen != counted or counted != n:
+        raise AssertionError(f"{name}: the profiler saw {seen} event_apply "
+                             f"launches in {n} graphed epochs, the counter "
+                             f"{counted}")
+    log("profile", f"{name} graphed, {n} epochs: device busy {busy_us:.1f} "
+                   f"us/epoch in {sum(r[1] for r in rows) / n:.1f} device "
+                   f"ops/epoch, {events / n:.0f} events/epoch; event_apply "
+                   f"launches seen {seen} == counted {counted}")
+    for us, cnt, key in rows[:8]:
+        log("profile", f"  {us / n:9.2f} us/epoch {cnt / n:6.1f}x  "
+                       f"{key[:90]}")
+    return st, busy_us
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -1010,8 +1178,10 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.core.calendar import extract_sorted
     from repro_torch.core.engine import ParsirEngine
+    from repro_torch.core.graphs import clone_state
     from repro_torch.core.ref_engine import run_sequential
     from repro_torch.kernels import build
+    from repro_torch.kernels.event_apply import MAX_SMEM as EA_MAX_SMEM
     from repro_torch.kernels.event_apply import ctas_per_sm as ea_ctas
     from repro_torch.kernels.event_apply import event_apply_cuda
     from repro_torch.kernels.event_apply import smem_bytes as ea_smem
@@ -1020,8 +1190,11 @@ def main() -> int:
     from repro_torch.kernels.ssd_scan import smem_bytes as ssd_smem
     from repro_torch.testing import golden
     from repro_torch.testing.clean import assert_clean
-    from repro_torch.testing.conformance import assert_vs_oracle, check_workload
-    from repro_torch.workloads.phold import main_path
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.testing.conformance import (assert_vs_oracle,
+                                                 check_workload,
+                                                 supported_configs)
+    from repro_torch.workloads.phold import hotspot_main_path, main_path
 
     dev = torch.device("cuda", 0)
     # f32 products in full f32 (both are PyTorch's defaults for matmul; the
@@ -1091,11 +1264,16 @@ def main() -> int:
                     f"{rep['totals']['processed']}, pending {rep['pending']},"
                     f" clean, bit-exact vs oracle")
 
+    # the main path: init + MAIN_EPOCHS_CHECKED epochs of the graphed run
+    # held against the oracle, then MAIN_EPOCHS_TIMED graphed epochs timed.
     model, cfg = main_path()
     p = model.params
-    event_apply_cuda.launches = 0
+    for fn in KERNELS:
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     eng = ParsirEngine(model, cfg, device=dev)
+    if eng.graphs is None:
+        raise AssertionError("the main path does not run as CUDA graphs")
     t0 = time.perf_counter()
     st = eng.run(eng.init(), MAIN_EPOCHS_CHECKED)
     torch.cuda.synchronize()
@@ -1108,38 +1286,87 @@ def main() -> int:
     assert_vs_oracle(eng, st, tot, ref, True, "[full-width phold]")
     log("main", f"full-width PHOLD O={p.n_objects} S={p.state_nodes} "
                 f"LANES={p.lanes} K={p.touch} KR={p.realloc_k}: init + "
-                f"{MAIN_EPOCHS_CHECKED} epochs, processed {tot['processed']}, "
-                f"clean, bit-exact vs oracle (engine {t_run:.2f} s incl. "
-                f"warm-up, oracle {t_ref:.1f} s)")
-
-    syncs0, proc0 = eng.syncs, tot["processed"]
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    e0.record()
-    st = eng.run(st, MAIN_EPOCHS_TIMED)
-    e1.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+                f"{MAIN_EPOCHS_CHECKED} epochs of the graphed run, processed "
+                f"{tot['processed']}, clean, bit-exact vs oracle (engine "
+                f"{t_run:.2f} s incl. warm-up and capture, oracle "
+                f"{t_ref:.1f} s)")
+    main_t = time_epochs(eng, st, MAIN_EPOCHS_TIMED)
+    st = main_t.pop("state")
     launches = event_apply_cuda.launches
-    tot = eng.totals(st)
-    assert_clean(tot, context="full-width phold (timed)")
-    if launches == 0:
-        raise AssertionError("the main path never launched event_apply")
-    events = tot["processed"] - proc0
-    dev_ms = e0.elapsed_time(e1)
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    assert_clean(eng.totals(st), context="full-width phold (timed)")
+    epochs = MAIN_EPOCHS_CHECKED + MAIN_EPOCHS_TIMED
+    if launches != epochs + eng.graphs.warmup_steps or main_t["launches"] != 1:
+        raise AssertionError(
+            f"the main path launched event_apply {launches} times in "
+            f"{epochs} epochs and {eng.graphs.warmup_steps} warm-up steps")
+    if main_t["syncs"] != 0 or main_t["captures"] != 0:
+        raise AssertionError(f"the timed graphed run read the host "
+                             f"{main_t['syncs']} times per epoch or "
+                             f"captured {main_t['captures']} graphs")
+    log("main", f"kernel launches on the main path: {counts}; event_apply "
+                f"{launches} = {epochs} epochs + {eng.graphs.warmup_steps} "
+                f"warm-up steps before the captures; graphs captured "
+                f"{eng.graphs.captures}, replayed {eng.graphs.replays}")
+
+    # graphed against eager, the drain, the drained fixpoint.
+    st = check_graphs(eng, st, "full-width PHOLD")
+    main_e = time_epochs(eng, clone_state(st), GRAPH_EPOCHS, graphed=False)
+    del main_e["state"]
+
+    # phold-hotspot at the main path's width: the kernel under skew at a
+    # larger C, through the graphed run, held against the oracle.
+    hmodel, hcfg = hotspot_main_path()
+    hp = hmodel.params
+    log("build", f"event_apply at hotspot's C={hcfg.bucket_cap}: "
+                 f"{ea_smem(hp.state_nodes, hcfg.bucket_cap)} B of dynamic "
+                 f"shared memory per block (limit {EA_MAX_SMEM}), "
+                 f"{ea_ctas(hp.state_nodes, hcfg.bucket_cap)} CTAs per SM")
+    heng = ParsirEngine(hmodel, hcfg, device=dev)
+    t0 = time.perf_counter()
+    hst = heng.run(heng.init(), HOTSPOT_EPOCHS_CHECKED)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    htot = heng.totals(hst)
+    assert_clean(htot, context="full-width phold-hotspot")
+    occupancy = int(hst.cal.cnt.max())
+    t0 = time.perf_counter()
+    href = run_sequential(hmodel, HOTSPOT_EPOCHS_CHECKED, hcfg.epoch_len)
+    t_ref = time.perf_counter() - t0
+    assert_vs_oracle(heng, hst, htot, href, True, "[full-width hotspot]")
+    log("main", f"full-width phold-hotspot O={hp.n_objects} "
+                f"S={hp.state_nodes} hot {hp.hot_objects} objects at "
+                f"{hp.hot_prob}/256, boost {hp.hot_boost}, C="
+                f"{hcfg.bucket_cap}: init + {HOTSPOT_EPOCHS_CHECKED} epochs "
+                f"of the graphed run, processed {htot['processed']}, clean, "
+                f"bit-exact vs oracle, fullest bucket at the end "
+                f"{occupancy} (engine {t_run:.2f} s, oracle {t_ref:.1f} s)")
+    hst = check_graphs(heng, hst, "full-width phold-hotspot")
+    hot_e = time_epochs(heng, clone_state(hst), GRAPH_EPOCHS, graphed=False)
+    del hot_e["state"]
+    hot_t = time_epochs(heng, hst, HOTSPOT_EPOCHS_TIMED)
+    hst = hot_t.pop("state")
+    assert_clean(heng.totals(hst), context="full-width phold-hotspot (timed)")
+    if hot_t["launches"] != 1 or hot_t["syncs"] != 0:
+        raise AssertionError("phold-hotspot's graphed run: "
+                             f"{hot_t['launches']} launches and "
+                             f"{hot_t['syncs']} host reads per epoch")
+
+    for name in ("phold-hotspot", "queueing", "cluster"):
+        for cfg_name in supported_configs(name):
+            rep = check_workload(name, cfg_name, device=dev)
+            log("main", f"{name} conformance {cfg_name}: processed "
+                        f"{rep['totals']['processed']}, pending "
+                        f"{rep['pending']}, clean, bit-exact vs oracle")
 
     # 6. timing -----------------------------------------------------------------
-    log("timing", f"full-width PHOLD, {MAIN_EPOCHS_TIMED} epochs: "
-                  f"{dev_ms / MAIN_EPOCHS_TIMED:.4f} ms/epoch (CUDA events), "
-                  f"{wall * 1e3 / MAIN_EPOCHS_TIMED:.4f} ms/epoch (host "
-                  f"clock), {events} events, {events / wall:.0f} events/s, "
-                  f"host syncs/epoch "
-                  f"{(eng.syncs - syncs0) / MAIN_EPOCHS_TIMED:g}, peak device "
-                  f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    log("timing", f"event_apply launches on the main path: {launches} "
-                  f"({launches / (MAIN_EPOCHS_CHECKED + MAIN_EPOCHS_TIMED):g}"
-                  f" per epoch)")
+    log_timing("full-width PHOLD", "graphed", MAIN_EPOCHS_TIMED, main_t)
+    log_timing("full-width PHOLD", "eager", GRAPH_EPOCHS, main_e)
+    log_timing("full-width phold-hotspot", "graphed", HOTSPOT_EPOCHS_TIMED,
+               hot_t)
+    log_timing("full-width phold-hotspot", "eager", GRAPH_EPOCHS, hot_e)
+    st, _ = profile_graphed(eng, st, "full-width PHOLD")
+    hst, _ = profile_graphed(heng, hst, "full-width phold-hotspot")
 
     # one real epoch's inputs at the main path's shapes.
     _, ts_s, seed_s, _, cnt_b = extract_sorted(st.cal, st.epoch[0])
@@ -1167,6 +1394,21 @@ def main() -> int:
                   f"plain {sk['plain_ms']:.4f} ms, bound {sk['bound_ms']:.5f}"
                   f" ms ({sk['nbytes']} B; {sk['flops']} flop), "
                   f"{sk['bound_ms'] / sk['ms']:.1%} of the bound")
+    # one real phold-hotspot epoch's batch at its C.
+    _, ts_s, seed_s, _, cnt_b = extract_sorted(hst.cal, hst.epoch[0])
+    hinputs = [hst.obj["payload"], hst.obj["addresses"], hst.obj["top"],
+               ts_s, seed_s, cnt_b]
+    hkw = dict(kw, hot_objects=hp.hot_objects, hot_prob=hp.hot_prob)
+    hea = time_event_apply(hinputs, hkw, flush, plain_reps=3)
+    log("timing", f"event_apply on a phold-hotspot epoch at C="
+                  f"{hcfg.bucket_cap} ({hea['events']} events, the fullest "
+                  f"object at {int(cnt_b.max())}): kernel {hea['ms']:.4f} "
+                  f"ms/launch, plain {hea['plain_ms']:.4f} ms, bound "
+                  f"{hea['bound_ms']:.5f} ms ({hea['nbytes']} B; "
+                  f"{hea['flops']} flop), "
+                  f"{hea['bound_ms'] / hea['ms']:.1%} of the bound")
+    del eng, heng, st, hst, hinputs, inputs, obj
+    torch.cuda.empty_cache()
 
     # 7. zamba2 serving ---------------------------------------------------------
     cfg = get_config("zamba2-1.2b")

@@ -8,15 +8,32 @@ model's kernel with ``batch_impl="model"``), route the emissions (the
 identity on one device) and deliver them into the calendar or the fallback
 list.  Every overflow/causality condition is counted in ``Stats``.
 
-The host drives the epochs: :meth:`ParsirEngine.run` is a Python loop of
-steps, and :meth:`ParsirEngine.run_until_drained` reads the in-flight count
-on the host every epoch.  ``syncs`` counts every such host read of a device
-value (the round count of the ``batch`` scheduler, the drain predicate) —
-the counterpart of the JAX engine's ``dispatches``.
+The fused loops.  The JAX engine runs :meth:`ParsirEngine.run` as one
+compiled ``fori_loop`` and :meth:`ParsirEngine.run_until_drained` as one
+``while_loop`` that carries the drain predicate.  The port runs both on the
+card as replays of CUDA graphs of the step (:mod:`repro_torch.core.graphs`)
+wherever the step reads nothing on the host (a CUDA device and the
+``batch-model`` scheduler): ``run`` replays graphs of the step and reads
+nothing; ``run_until_drained`` replays graphs of the *gated* step (the epoch
+advances only while events are in flight, so a drained state is a fixpoint)
+and reads the in-flight count once per ``DRAIN_CHUNK`` epochs.  Elsewhere
+(the CPU, or the ``batch`` rounds scheduler, whose round count is a host
+read) ``run`` is a Python loop of steps and ``run_until_drained`` runs the
+same gated chunks eagerly, one in-flight read per chunk, so the CPU runs
+the semantics the card replays.
+
+Counters: ``dispatches`` counts the JAX engine's way, one per ``init``,
+``step``, ``run`` and ``run_until_drained``; ``syncs`` counts host reads of
+device values made while running epochs (the ``batch`` scheduler's round
+count, one per epoch, and the drain flag, one per chunk).
 
 State ownership: like the JAX engine's donated buffers, ``step``/``run``
 consume their input state — the ``model`` scheduler updates the object state
-in place — so rebind the result and do not reuse the input.
+in place — so rebind the result and do not reuse the input.  Under graphs
+the engine owns one static state: ``run`` and ``run_until_drained`` copy
+their input into it (unless the input already is it) and return it, so the
+next such call overwrites what the last one returned; clone a result to
+keep it.
 """
 from __future__ import annotations
 
@@ -27,11 +44,12 @@ from .api import SimModel
 from .calendar import make_calendar, make_fallback
 from .device import resolve_device
 from .events import EventBatch
-from .pipeline import (EngineConfig, EngineState, deliver, make_step,
-                       resolve_scheduler, zero_stats)
+from .graphs import DRAIN_CHUNK, StepGraphs, split
+from .pipeline import (EngineConfig, EngineState, deliver, in_flight,
+                       make_step, resolve_scheduler, zero_stats)
 from .placement import Placement, equal_placement
 
-__all__ = ["EngineConfig", "EngineState", "ParsirEngine"]
+__all__ = ["DRAIN_CHUNK", "EngineConfig", "EngineState", "ParsirEngine"]
 
 
 class ParsirEngine:
@@ -45,10 +63,20 @@ class ParsirEngine:
         cfg.validate(self.D)
         self.placement: Placement = equal_placement(model.n_objects, self.D)
         self._step = make_step(model, cfg, self.placement)
+        self._gated = make_step(model, cfg, self.placement, gated=True)
         self._step_syncs = resolve_scheduler(cfg).host_syncs
         #: host reads of device values made while running epochs (the
         #: inspection helpers below are not counted).
         self.syncs = 0
+        #: calls of init, step, run and run_until_drained (the JAX engine's
+        #: count of program launches).
+        self.dispatches = 0
+        #: the CUDA graphs of the step, where the step reads nothing on the
+        #: host; None where the loops run eagerly.
+        self.graphs = (StepGraphs({False: self._step, True: self._gated},
+                                  self.device)
+                       if self.device.type == "cuda" and self._step_syncs == 0
+                       else None)
 
     # -- lifecycle -------------------------------------------------------------
 
@@ -87,6 +115,7 @@ class ParsirEngine:
     def init(self, seed: int | None = None) -> EngineState:
         """Build the initial state and ingest the bootstrap events
         (``seed`` selects the replication stream)."""
+        self.dispatches += 1
         state = self._fresh_state()
         batch = self._initial_batch(seed)
         pl = self.placement.with_boundaries(state.bounds[0])
@@ -100,30 +129,77 @@ class ParsirEngine:
                             oob_events=st.oob_events + oob)
         return state._replace(cal=cal, fb=fb, stats=stats)
 
+    def check_stats_bound(self, n_epochs: int) -> None:
+        """Fail fast if ``n_epochs`` epochs could overflow a Stats counter.
+
+        The port's ledger is int64 (:func:`zero_stats`).  The worst-case
+        per-epoch increment of any counter is bounded by the largest static
+        buffer a stage can fill: the epoch bucket (``n_local_max *
+        bucket_cap``), the route buffer or the fallback list.  ``run`` and
+        ``run_until_drained`` check this bound before they run.
+        """
+        cap = torch.iinfo(torch.int64).max
+        per_epoch = max(self.placement.n_local_max * self.cfg.bucket_cap,
+                        self.cfg.route_cap, self.cfg.fallback_cap)
+        if int(n_epochs) * per_epoch > cap:
+            raise ValueError(
+                f"{n_epochs} epochs could overflow the int64 Stats counters "
+                f"(worst-case {per_epoch} events/epoch/device, bound "
+                f"{int(n_epochs) * per_epoch:,} > {cap:,}); split the horizon")
+
     def step(self, state: EngineState) -> EngineState:
-        """Advance exactly one epoch."""
+        """Advance exactly one epoch (eagerly)."""
+        self.dispatches += 1
         self.syncs += self._step_syncs
         return self._step(state)
 
     def run(self, state: EngineState, n_epochs: int) -> EngineState:
-        """Advance exactly ``n_epochs`` epochs."""
-        for _ in range(int(n_epochs)):
-            state = self.step(state)
+        """Advance exactly ``n_epochs`` epochs: replays of the step's graphs
+        on the card (no host read), a loop of steps elsewhere."""
+        n = int(n_epochs)
+        self.check_stats_bound(n)
+        self.dispatches += 1
+        if self.graphs is None:
+            for _ in range(n):
+                self.syncs += self._step_syncs
+                state = self._step(state)
+            return state
+        state = self.graphs.adopt(state)
+        for length in split(n):
+            self.graphs.replay(False, length)
         return state
 
     def run_until_drained(self, state: EngineState,
                           max_epochs: int) -> EngineState:
         """Run until no event is parked anywhere, or ``max_epochs`` epochs.
 
-        A drained state is a fixpoint of the step, so stopping at the drain
-        epoch leaves the same state the full bound would (bar the epoch
-        counter).  The predicate is read on the host before every epoch.
+        Chunks of ``DRAIN_CHUNK`` epochs of the gated step, each followed by
+        one host read of the events in flight; the loop stops after the
+        first chunk that ends drained.  The gated step leaves a drained
+        state as it is, epoch counter included, so the result equals the
+        JAX engine's ``while_loop``, which stops at the drain epoch, and a
+        workload that never drains runs exactly ``max_epochs`` epochs, equal
+        to ``run(state, max_epochs)``.
         """
-        for _ in range(int(max_epochs)):
+        n = int(max_epochs)
+        self.check_stats_bound(n)
+        self.dispatches += 1
+        if self.graphs is not None:
+            state = self.graphs.adopt(state)
+        for c0 in range(0, n, DRAIN_CHUNK):
+            chunk = min(DRAIN_CHUNK, n - c0)
+            if self.graphs is None:
+                for _ in range(chunk):
+                    self.syncs += self._step_syncs
+                    state = self._gated(state)
+                pending = self.in_flight(state)
+            else:
+                for length in split(chunk):
+                    self.graphs.replay(True, length)
+                pending = self.graphs.in_flight()
             self.syncs += 1
-            if self.in_flight(state) == 0:
+            if pending == 0:
                 break
-            state = self.step(state)
         return state
 
     # -- inspection -------------------------------------------------------------
@@ -133,7 +209,7 @@ class ParsirEngine:
         return dict(zip(state.stats._fields, (int(v) for v in flat)))
 
     def in_flight(self, state: EngineState) -> int:
-        return int(state.cal.cnt.sum() + state.fb.events.valid.sum())
+        return int(in_flight(state))
 
     def global_row_of(self, state: EngineState
                       ) -> tuple[np.ndarray, np.ndarray]:

@@ -150,12 +150,14 @@ def draw_scaled(bits: torch.Tensor, dist: str, shift: int,
 def ring_neighbor(gid, go_right, n: int):
     """Neighbor on a ring of ``n`` objects, wrapping at both edges.
 
-    Works on tensors (``go_right`` a bool tensor) and on numpy/Python ints
-    (``go_right`` a bool).
+    Works on tensors and on numpy/Python ints.  ``go_right`` is a bool
+    tensor or a Python/numpy bool; a Python bool stays a Python int step, so
+    a tensor ``gid`` makes no host-to-device copy for it.
     """
-    if isinstance(gid, torch.Tensor):
-        step = torch.where(torch.as_tensor(go_right, device=gid.device),
-                           1, n - 1)
+    if isinstance(gid, torch.Tensor) and isinstance(go_right, torch.Tensor):
+        step = torch.where(go_right, 1, n - 1)
+    elif isinstance(gid, torch.Tensor):
+        step = 1 if go_right else n - 1
     else:
         step = np.int32(1 if go_right else n - 1)
     return (gid + step) % n

@@ -1,0 +1,152 @@
+"""CUDA graphs of the epoch step: the engine's fused loops on the card.
+
+The JAX engine runs ``run`` as one compiled ``fori_loop`` and
+``run_until_drained`` as one ``while_loop``.  On a CUDA device the port
+captures the step into CUDA graphs of fixed lengths (1, 2, 4, ...,
+``DRAIN_CHUNK`` epochs) and replays them, so a horizon of any length is a
+sequence of replays and never a new capture.  Each graph reads and writes one static
+:class:`EngineState` that the runner owns: its steps run from that state,
+and its last operations copy the final state back into it (the kernel
+updates the object state in place) and write the events still in flight to
+a one-element flag.  ``run`` replays ungated graphs and reads nothing;
+``run_until_drained`` replays graphs of the gated step and reads the flag
+once per ``DRAIN_CHUNK`` epochs.
+
+Capture launches nothing, so the kernels' ``launches`` counters are put
+back after a capture and the launches it recorded are added once per
+replay.  A failed capture or replay raises; nothing falls back to the
+eager loop.  At most ``2 * len(LENGTHS)`` graphs exist per runner,
+all in one memory pool (their scratch is dead at every graph's end, so they
+may share it in any order).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from .pipeline import EngineState, in_flight
+
+#: epochs per read of the drain flag, and the longest captured graph.
+DRAIN_CHUNK = 16
+#: the graph lengths a runner may capture: the powers of two up to
+#: ``DRAIN_CHUNK``.
+LENGTHS = tuple(1 << i for i in range(DRAIN_CHUNK.bit_length()))
+
+
+def split(n: int) -> list[int]:
+    """``n`` epochs as graph lengths: whole chunks, then the binary digits
+    of the rest, longest first."""
+    rest = n % DRAIN_CHUNK
+    return [DRAIN_CHUNK] * (n // DRAIN_CHUNK) + [
+        1 << i for i in reversed(range(rest.bit_length())) if rest >> i & 1]
+
+
+def leaves(tree) -> list[torch.Tensor]:
+    """The tensors of a state tree (NamedTuples and dicts, dict keys in
+    sorted order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
+    return [t for x in tree for t in leaves(x)]
+
+
+def clone_state(tree):
+    """A copy of a state tree with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_state(v) for k, v in tree.items()}
+    return type(tree)(*(clone_state(x) for x in tree))
+
+
+def copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into the same leaf of ``dst`` (a leaf
+    that already is its source is left alone)."""
+    for d, s in zip(leaves(dst), leaves(src), strict=True):
+        if d is not s:
+            d.copy_(s)
+
+
+class StepGraphs:
+    """Captured graphs of one engine's ungated and gated steps."""
+
+    def __init__(self, steps: dict[bool, Callable[[EngineState], EngineState]],
+                 device: torch.device):
+        self.steps, self.device = steps, device
+        #: the state every graph reads and writes (None until first use).
+        self.static: EngineState | None = None
+        self._flag = torch.zeros((), dtype=torch.int64, device=device)
+        self._pool = None
+        self._graphs: dict[tuple[bool, int], tuple] = {}
+        self._warm: set[bool] = set()
+        #: graphs captured, graphs replayed, and eager warm-up steps run
+        #: (one per step variant, on a copy of the state, before its first
+        #: capture).
+        self.captures = self.replays = self.warmup_steps = 0
+
+    def adopt(self, state: EngineState) -> EngineState:
+        """The static state, holding ``state``'s values (copied in unless
+        ``state`` already is it)."""
+        if self.static is None:
+            self.static = clone_state(state)
+        elif any(a is not b for a, b in zip(leaves(state),
+                                            leaves(self.static), strict=True)):
+            copy_into(self.static, state)
+        return self.static
+
+    def replay(self, gated: bool, length: int) -> None:
+        """Advance the static state by one replay of ``length`` epochs."""
+        graph, launched = self._graph(gated, length)
+        graph.replay()
+        self.replays += 1
+        for fn, n in launched:
+            fn.launches += n
+
+    def in_flight(self) -> int:
+        """Events in flight after the last gated replay (a host read)."""
+        return int(self._flag)
+
+    def _warm_up(self, step) -> None:
+        """Run ``step`` once on a copy of the static state, on a side
+        stream, so that every kernel it runs is built and loaded before a
+        capture."""
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            step(clone_state(self.static))
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self.warmup_steps += 1
+
+    def _graph(self, gated: bool, length: int):
+        key = (gated, length)
+        if key in self._graphs:
+            return self._graphs[key]
+        if length not in LENGTHS:
+            raise ValueError(f"no graph of {length} epochs (lengths "
+                             f"{LENGTHS})")
+        from ..kernels.ops import KERNELS
+        step = self.steps[gated]
+        if gated not in self._warm:
+            self._warm_up(step)
+            self._warm.add(gated)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        before = [fn.launches for fn in KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, pool=self._pool):
+                s = self.static
+                for _ in range(length):
+                    s = step(s)
+                copy_into(self.static, s)
+                self._flag.copy_(in_flight(s))
+        finally:
+            recorded = [fn.launches - b for fn, b in zip(KERNELS, before)]
+            for fn, b in zip(KERNELS, before):
+                fn.launches = b
+        launched = tuple((fn, n) for fn, n in zip(KERNELS, recorded) if n)
+        self._graphs[key] = (graph, launched)
+        self.captures += 1
+        return self._graphs[key]

@@ -15,11 +15,11 @@ from .base import (ROUTERS, SCHEDULERS, EngineState, Router, Scheduler, Stats,
                    resolve_router, resolve_scheduler, zero_stats)
 from .config import EngineConfig
 from .deliver import deliver
-from .step import make_step
+from .step import in_flight, make_step
 
 __all__ = [
     "ROUTERS", "SCHEDULERS", "EngineConfig", "EngineState", "Router",
-    "Scheduler", "Stats", "deliver", "epoch_of", "make_step",
+    "Scheduler", "Stats", "deliver", "epoch_of", "in_flight", "make_step",
     "register_router", "register_scheduler", "resolve_router",
     "resolve_scheduler", "zero_stats",
 ]

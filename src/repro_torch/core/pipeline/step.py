@@ -9,14 +9,26 @@ their fail-fast validation and returns the step function.
 
 Out-of-range destinations are triaged at the producer: counted in
 ``stats.oob_events`` and excluded from routing and the fallback.
+
+``gated=True`` builds the step of the fused drain: it counts the events in
+flight (calendar + fallback) before the epoch and advances ``epoch`` by
+``pending > 0`` instead of by 1.  A drained state's calendar, object state
+and counters are already a fixpoint (an empty bucket processes, routes and
+delivers nothing); its fallback holds no event, but a step rewrites the
+fields of its empty slots, so the gated step keeps the old fallback when
+nothing was in flight.  A drained state is then a bit-exact fixpoint, and
+k gated epochs past the drain equal stopping at it, as the JAX engine's
+``while_loop`` does.
 """
 from __future__ import annotations
 
 from typing import Callable
 
+import torch
+
 from ..api import SimModel
 from ..calendar import Fallback, extract_sorted
-from ..events import compact_mask, concat_batches, truncate
+from ..events import EventBatch, compact_mask, concat_batches, truncate
 from ..placement import Placement
 from . import routers, schedulers  # noqa: F401  (registration imports)
 from .base import EngineState, epoch_of, resolve_router, resolve_scheduler
@@ -24,8 +36,13 @@ from .config import EngineConfig
 from .deliver import deliver
 
 
-def make_step(model: SimModel, cfg: EngineConfig, placement: Placement
-              ) -> Callable[[EngineState], EngineState]:
+def in_flight(state: EngineState):
+    """Events parked in the calendar and the fallback (a 0-dim tensor)."""
+    return state.cal.cnt.sum() + state.fb.events.valid.sum()
+
+
+def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
+              gated: bool = False) -> Callable[[EngineState], EngineState]:
     N = cfg.n_buckets
     O = placement.n_objects
     dev = 0
@@ -36,6 +53,7 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement
     router.validate(cfg, placement)
 
     def step(state: EngineState) -> EngineState:
+        advance = (in_flight(state) > 0).to(torch.int32) if gated else 1
         cur = state.epoch[0]
         pl = placement.with_boundaries(state.bounds[0])
 
@@ -82,7 +100,11 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement
             lookahead_violations=st.lookahead_violations + lv,
             oob_events=st.oob_events + n_oob + oob2,
         )
-        return EngineState(cal, fb, obj, state.epoch + 1, stats,
+        if gated:
+            fb = Fallback(EventBatch(*(
+                torch.where(advance > 0, new, old)
+                for new, old in zip(fb.events, state.fb.events))))
+        return EngineState(cal, fb, obj, state.epoch + advance, stats,
                            state.bounds, state.load)
 
     return step

@@ -11,6 +11,10 @@ from .event_apply import event_apply_cuda, event_apply_ref
 from .flash_attention import attention_ref, flash_cuda
 from .ssd_scan import ssd_cuda, ssd_ref
 
+#: every kernel wrapper, each with its ``launches`` counter: a caller that
+#: captures launches into a CUDA graph adds them back once per replay.
+KERNELS = (event_apply_cuda, flash_cuda, ssd_cuda)
+
 #: the key block of the JAX package's ``ops.mha``; its non-causal rule
 #: (Tk a multiple of the block) is kept, though the kernel masks the edge.
 KEY_BLOCK = 128

@@ -56,6 +56,11 @@ class PholdParams:
         return max(1, int(math.ceil(self.realloc_fraction * self.state_nodes)))
 
 
+def _draw_np(bits, params: PholdParams):
+    """The timestamp increment's numpy draw under ``params``."""
+    return ev.draw_np(bits, params.dist, params.mean_increment)
+
+
 class Phold(SimModel):
     max_out = 1
 
@@ -82,6 +87,22 @@ class Phold(SimModel):
             "top": a.top,
         }
 
+    def object_weights(self) -> np.ndarray | None:
+        """Expected steady-state event share per object (placement hint).
+
+        With non-uniform routing, every emission lands on one of the first
+        ``hot_objects`` ids with probability ``hot_prob/256``, so in steady
+        state that mass concentrates there.  Uniform routing carries no
+        skew: None (equal split).
+        """
+        p = self.params
+        if not (p.hot_objects and p.hot_prob):
+            return None
+        h = p.hot_prob / 256.0
+        w = np.full(p.n_objects, (1.0 - h) / p.n_objects, np.float64)
+        w[:p.hot_objects] += h / p.hot_objects
+        return w
+
     def initial_events(self, seed: int | None = None) -> dict[str, np.ndarray]:
         p = self.params
         c = _INIT_C ^ ev.seed_salt_np(p.seed if seed is None else seed)
@@ -89,8 +110,7 @@ class Phold(SimModel):
         m = np.tile(np.arange(p.initial_events, dtype=np.uint32), p.n_objects)
         with np.errstate(over="ignore"):
             s0 = ev._mix_np(ev._mix_np(o ^ c) + m * np.uint32(0x9E3779B9))
-        ts0 = ev.draw_np(ev.fold_np(s0, 2), p.dist,
-                         p.mean_increment).astype(np.float32)
+        ts0 = _draw_np(ev.fold_np(s0, 2), p).astype(np.float32)
         return {
             "dst": o.astype(np.int32),
             "ts": ts0,
@@ -186,8 +206,7 @@ class Phold(SimModel):
             if (ev.fold_np(seed, 8) & np.uint32(255)) < np.uint32(p.hot_prob):
                 dst = np.int32(ev.fold_np(seed, 9) % np.uint32(p.hot_objects))
         ts_out = np.float32(np.float32(ts) + np.float32(p.lookahead)
-                            + ev.draw_np(ev.fold_np(seed, 2), p.dist,
-                                         p.mean_increment))
+                            + _draw_np(ev.fold_np(seed, 2), p))
         return {
             "dst": dst,
             "ts": ts_out,

@@ -116,13 +116,22 @@ def run_conformance(model: Any, overrides: dict, *, n_epochs: int,
             "config": kw, "n_epochs": n_epochs, "engine": eng, "state": st}
 
 
+def supported_configs(name: str) -> list[str]:
+    """The SWEEP configs a registered workload runs under (``batch-model``
+    only where it has ``process_batch``)."""
+    spec = conformance_spec(name)
+    return [c for c, o in SWEEP.items()
+            if o.get("batch_impl") != "model" or spec["supports_batch_impl"]]
+
+
 def check_workload(name: str, config: str, *, device="cuda") -> dict:
     """Conformance-check a registered workload under a named SWEEP config."""
     spec = conformance_spec(name)
     overrides = dict(SWEEP[config])
     if overrides.get("batch_impl") == "model" \
             and not spec["supports_batch_impl"]:
-        raise ValueError(f"workload {name} has no process_batch")
+        raise ValueError(f"workload {name} has no process_batch: it does "
+                         f"not run under {config}")
     model = get_workload(name, **spec["model_kw"])
     return run_conformance(model, overrides, n_epochs=spec["n_epochs"],
                            engine_kw=spec["engine_kw"], dyadic=spec["dyadic"],

@@ -17,16 +17,31 @@ from ..workloads.registry import conformance_spec, get_workload
 
 #: pinned digests, copied from the JAX package's golden_digests.json.
 PINNED: dict[str, str] = {
+    "cluster/medium":
+        "e22297f2765377fa846cf42b0e9c09c1b442e225b9b65d1edd70b0e872ffa66d",
+    "cluster/small":
+        "17927417d5d78ac4008eab018d20afe505758e4d9da212b96b77dba504768043",
+    "phold-hotspot/medium":
+        "eb70daad97a0d2149d01004a6ae59be01a6b21788bb7c47446a0d28b380ab7a8",
+    "phold-hotspot/small":
+        "4f5eecfd35b62d3c0b4975b0386cfc955b74c1e00eceb462be9ae6b804d0ea5b",
     "phold/medium":
         "580ca61ca229025b135bcf2948ec85c79d5a92262e09017ae28fa3ca8a003f71",
     "phold/small":
         "37caeaa85eb12c467de98d8ff12c1df7fa23e401cfbf03c24df9b2515f64e38c",
+    "queueing/medium":
+        "405164fac1fa9cfedf4571c793f66782afc37cd13f98018edd29613f70f9f991",
+    "queueing/small":
+        "6126fa90eb567f875b9278cbe018a62d27f7477ceb033a0a2bf843c393013485",
 }
 
 #: the "medium" size per workload: model_kw overrides on top of the
 #: CONFORMANCE model_kw, plus the horizon in epochs.
 MEDIUM_SIZES: dict[str, tuple[dict, int]] = {
     "phold": (dict(n_objects=48, initial_events=6), 32),
+    "phold-hotspot": (dict(n_objects=48, hot_objects=6), 32),
+    "queueing": (dict(n_stations=32, n_jobs=128), 32),
+    "cluster": (dict(n_nodes=32, n_rings=8), 48),
 }
 
 

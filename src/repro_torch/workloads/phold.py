@@ -2,13 +2,14 @@
 
 The model lives in :mod:`repro_torch.phold.model`; this module binds it to
 the registry contract (``make`` + ``CONFORMANCE``), the same recipe as the
-JAX package's ``repro/workloads/phold.py``, and names the port's main path
-(:func:`main_path`).
+JAX package's ``repro/workloads/phold.py``, and names the port's two
+full-width configurations (:func:`main_path`, :func:`hotspot_main_path`).
 """
 from __future__ import annotations
 
 from ..core.pipeline.config import EngineConfig
 from ..phold.model import Phold, PholdParams
+from .hotspot import make as make_hotspot
 
 
 def make(**overrides) -> Phold:
@@ -24,6 +25,25 @@ def main_path() -> tuple[Phold, EngineConfig]:
     return model, EngineConfig(lookahead=model.params.lookahead,
                                batch_impl="model", route_cap=16384,
                                fallback_cap=16384)
+
+
+#: events a bucket holds in :func:`hotspot_main_path`: half of an epoch's
+#: ~5,100 emissions land on 4 hot objects, and the fullest bucket of 64
+#: epochs holds 767 (``tools/bucket_occupancy.py``), so 512 would overflow.
+HOTSPOT_BUCKET_CAP = 1024
+
+
+def hotspot_main_path():
+    """``phold-hotspot`` at the main path's full width (1024 objects x 4000
+    nodes x 6 lanes, touch 125, reallocate 4, lookahead 0.5, dyadic) with
+    the reference's hot parameters (4 hot objects, hot_prob 128/256, boost
+    3), each epoch through the ``event_apply`` kernel on buckets of
+    ``HOTSPOT_BUCKET_CAP`` events."""
+    model = make_hotspot(dist="dyadic")
+    return model, EngineConfig(lookahead=model.params.lookahead,
+                               batch_impl="model",
+                               bucket_cap=HOTSPOT_BUCKET_CAP,
+                               route_cap=16384, fallback_cap=16384)
 
 
 CONFORMANCE = dict(

@@ -3,7 +3,8 @@
 Each module under :mod:`repro_torch.workloads` exposes ``make(**overrides)``
 and ``CONFORMANCE`` (the small differential-test recipe: ``model_kw``,
 ``n_epochs``, ``engine_kw``, ``dyadic``, ``supports_batch_impl``), as in the
-JAX package.  The rest of the zoo joins with later slices of the port.
+JAX package, under the JAX package's ids.  ``open-queueing``, ``epidemic``
+and ``wireless`` join with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -12,6 +13,9 @@ from importlib import import_module
 
 WORKLOADS = {
     "phold": "phold",
+    "phold-hotspot": "hotspot",
+    "queueing": "queueing",
+    "cluster": "cluster",
 }
 
 
@@ -27,3 +31,7 @@ def get_workload(name: str, **overrides):
 def conformance_spec(name: str) -> dict:
     """The workload's differential-test recipe (deep copy — safe to mutate)."""
     return copy.deepcopy(_module(name).CONFORMANCE)
+
+
+def all_workloads() -> list[str]:
+    return list(WORKLOADS)

@@ -98,7 +98,8 @@ def test_run_until_drained_matches_run():
     a = eng.run(eng.init(), 10)
     eng2 = teng.ParsirEngine(model, cfg, device="cpu")
     b = eng2.run_until_drained(eng2.init(), 10)
-    assert eng2.syncs == 10            # one in-flight read per epoch
+    # one in-flight read per chunk of DRAIN_CHUNK epochs
+    assert eng2.syncs == -(-10 // teng.DRAIN_CHUNK) == 1
     assert eng.totals(a) == eng2.totals(b)
     np.testing.assert_array_equal(a.obj["payload"].numpy(),
                                   b.obj["payload"].numpy())
@@ -243,6 +244,11 @@ def test_names_and_stats_match_jax():
     assert set(tbase.SCHEDULERS) == {"batch", "batch-model"}
     assert set(tbase.ROUTERS) == {"allgather"} < set(tnames.ROUTES)
     assert json.loads(json.dumps(tconf.SWEEP))
+    # the port pins both sizes of every workload it registers, as copied
+    pinned = jgolden.load_digests()
+    want = {k for k in pinned if k.split("/")[0] in treg.all_workloads()}
+    assert set(tgolden.PINNED) == want and len(want) == 8
+    assert all(tgolden.PINNED[k] == pinned[k] for k in want)
 
 
 @pytest.mark.parametrize("epoch_len", [0.5, 0.25, 0.3, 0.37])

@@ -109,6 +109,15 @@ def test_seed_salt_and_ring_neighbor():
         jev.ring_neighbor(np.int32(0), False, 7)
 
 
+@pytest.mark.parametrize("go_right", [True, False, np.bool_(True)])
+def test_ring_neighbor_of_a_tensor_with_a_host_bool(go_right):
+    gid = np.array([0, 1, 5, 6], np.int32)
+    got = tev.ring_neighbor(torch.from_numpy(gid), go_right, 7)
+    want = jev.ring_neighbor(jnp.asarray(gid), bool(go_right), 7)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def _batches(n=40, seed=3):
     rng = np.random.default_rng(seed)
     cols = dict(dst=rng.integers(0, 9, n, dtype=np.int32),

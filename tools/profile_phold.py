@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where a full-width PHOLD epoch of the PyTorch port spends its time on a GPU.
 
-Runs the port's main path (``repro_torch.workloads.phold.main_path``:
-default PHOLD, 1024 objects x 4000 nodes x 6 lanes, dyadic draw, through
-``batch_impl="model"`` — the configuration ``chip_smoke.py`` drives), warms
+Runs one of the port's two full-width PHOLD configurations
+(``repro_torch.workloads.phold.main_path``: default PHOLD, 1024 objects x
+4000 nodes x 6 lanes, dyadic draw, through ``batch_impl="model"`` — the
+configuration ``chip_smoke.py`` drives; or ``hotspot_main_path``, the same
+width under phold-hotspot's skew) either as the engine's graphed ``run``
+(replays of CUDA graphs of the step) or as a loop of eager ``step``s, warms
 it up, times a window of epochs untraced, then traces the
 same number of epochs with ``torch.profiler`` and prints, per epoch: host
 wall time, device busy time (sum of the device-side ops: kernels, memcpy,
@@ -11,10 +14,12 @@ memset) and its share of the untraced wall time, device ops launched, and
 the device ops and operators with the most device time.  Run from the
 repository root on a machine with a CUDA card::
 
-    python3 tools/profile_phold.py [--epochs 16] [--out DIR]
+    python3 tools/profile_phold.py [--config main|hotspot]
+        [--mode graphed|eager] [--epochs 16] [--out DIR]
 
-``--out`` (default ``artifacts/profile_phold``) receives ``profile_phold.json`` and the
-Chrome trace ``profile_phold_trace.json``.
+``--out`` (default ``artifacts/profile_phold``) receives
+``profile_phold_<config>_<mode>.json`` and the Chrome trace
+``profile_phold_<config>_<mode>_trace.json``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ def _self_device_us(evt) -> float:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=("main", "hotspot"), default="main")
+    ap.add_argument("--mode", choices=("graphed", "eager"), default="graphed")
     ap.add_argument("--epochs", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=16)
     ap.add_argument("--out", default=str(ROOT / "artifacts" / "profile_phold"))
@@ -52,15 +59,25 @@ def main(argv=None) -> int:
         return 1
     from repro_torch.core.engine import ParsirEngine
     from repro_torch.testing.clean import assert_clean
-    from repro_torch.workloads.phold import main_path
+    from repro_torch.workloads.phold import hotspot_main_path, main_path
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    model, cfg = main_path()
+    model, cfg = (main_path if args.config == "main" else hotspot_main_path)()
     eng = ParsirEngine(model, cfg, device="cuda")
-    st = eng.run(eng.init(), args.warmup)
+
+    def run(st, n):
+        if args.mode == "graphed":
+            return eng.run(st, n)
+        for _ in range(n):
+            st = eng.step(st)
+        return st
+
+    st = run(eng.init(), args.warmup)
+    if args.mode == "graphed":
+        st = eng.run(st, args.epochs)   # every graph of the window captured
     torch.cuda.synchronize()
 
     # the same window untraced, for the wall time the profiler does not slow.
@@ -68,7 +85,7 @@ def main(argv=None) -> int:
     e1 = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     e0.record()
-    st = eng.run(st, args.epochs)
+    st = run(st, args.epochs)
     e1.record()
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / args.epochs
@@ -78,7 +95,7 @@ def main(argv=None) -> int:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        st = eng.run(st, args.epochs)
+        st = run(st, args.epochs)
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6 / args.epochs
     tot = eng.totals(st)
@@ -100,7 +117,8 @@ def main(argv=None) -> int:
     busy_us = sum(r["device_us_per_epoch"] for r in kernels)
     launches = sum(r["calls_per_epoch"] for r in kernels)
     report = {
-        "card": smi, "torch": torch.__version__, "epochs": n,
+        "card": smi, "torch": torch.__version__, "config": args.config,
+        "mode": args.mode, "epochs": n,
         "events_per_epoch": (tot["processed"] - p0) / n,
         "wall_us_per_epoch": wall_us,
         "cuda_event_span_us_per_epoch": span_us,
@@ -113,10 +131,12 @@ def main(argv=None) -> int:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_phold.json").write_text(json.dumps(report, indent=1))
-    prof.export_chrome_trace(str(out / "profile_phold_trace.json"))
+    tag = f"{args.config}_{args.mode}"
+    (out / f"profile_phold_{tag}.json").write_text(json.dumps(report, indent=1))
+    prof.export_chrome_trace(str(out / f"profile_phold_{tag}_trace.json"))
 
-    print(f"card: {smi}, torch {torch.__version__}")
+    print(f"card: {smi}, torch {torch.__version__}; {args.config} "
+          f"configuration, {args.mode}")
     print(f"{n} epochs: wall {wall_us:.1f} us/epoch untraced (CUDA-event "
           f"span {span_us:.1f}), {traced_us:.1f} traced, "
           f"{report['events_per_epoch']:.0f} events/epoch")
