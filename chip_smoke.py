@@ -56,18 +56,32 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 real epoch's batch and on a skewed batch (4 objects with
                 full buckets, the rest at 0-10 events), and on one real
                 phold-hotspot epoch's batch at its C;
-  7. serve    — zamba2 serving (``ServeSession``): the reduced config on the
-                card against the CPU; the full-width zamba2-1.2b in f32,
-                every decode step's logits against the teacher-forced
-                forward; then in its own bf16, B=4 prompts of 1024 tokens
-                and 32 greedy tokens, timed (prefill ms, decode ms/token,
-                tok/s, peak memory), with 38 ssd_scan launches per prefill,
-                a profile of where the device time goes (with the ssd_scan,
-                cumsum and strided-copy launches of a prefill), and
-                ssd_scan's own time per launch on the model's view beside
-                its bound; then one zamba2-1.2b bf16
-                forward (B=4, T=1024) through flash_attention (7 launches)
-                and its logits' spread against the plain attention and f32;
+  7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
+                CUDA graph of the step per session): the reduced config on
+                the card against the CPU; the full-width zamba2-1.2b in f32
+                through the graphed session, the prefill's and every decode
+                step's logits against the teacher-forced forward; then in
+                its own bf16, B=4 prompts of 1024 tokens and 32 greedy
+                tokens, timed (prefill ms; decode ms/token with the capture
+                and replayed; the first, eager, step; the capture; tok/s;
+                peak memory) beside a loop of eager ``decode_step`` calls
+                from the same prompts (tokens equal, max |Δlogit| logged),
+                with 38 ssd_scan launches per prefill and 0 per decode
+                step, a profile of the prefill, of a replayed decode step
+                and of an eager one (with the ssd_scan, cumsum and
+                strided-copy launches of a prefill), and ssd_scan's own
+                time per launch on the model's view beside its bound; the
+                bf16 prefill with its shared attention through
+                flash_attention (7 launches) and through the plain f32
+                attention, in turns; then one zamba2-1.2b bf16 forward
+                (B=4, T=1024) through flash_attention (7 launches) and its
+                logits' spread against the plain attention and f32;
+  7b. serve   — llama3.2-3b serving under ``attn_impl="pallas"`` the same
+                way: the reduced config on the card against the CPU; the
+                full width in f32 (prefill and decode logits against the
+                teacher-forced forward); then bf16, B=4 x 1024 + 32 tokens,
+                graphed against eager, timed and profiled, with 28
+                flash_attention launches per prefill and 0 per decode step;
   8. lm       — llama3.2-3b's teacher-forced forward and loss
                 (``DecoderLM.loss``): the reduced config on the card against
                 the CPU; the full width in f32 through the kernel against the
@@ -77,7 +91,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 (with the count and time of its layout copies) and the bf16
                 logits' spread; flash_attention's own time per launch at
                 llama3.2-3b's and zamba2-1.2b's shapes on the views the
-                models pass, beside its plain version, SDPA's and its bound;
+                models pass, beside its plain version, SDPA's and its bound,
+                and at llama3.2-3b's prefill shape (T=1024);
   9. a JSON line listing every ported kernel, the nvidia-smi line, and the
      last line ``{"ok": true, "device": {...}}``.
 
@@ -573,19 +588,45 @@ def ssd_bound(b, T, H, P, N, Q, x_bytes):
     return nbytes, flops
 
 
-# -- zamba2 serving ----------------------------------------------------------------
+# -- serving: zamba2-1.2b (phase 7) and llama3.2-3b (phase 7b) ---------------------
 
-def serve_reduced(dev) -> float:
-    """The reduced zamba2 on the card and on the CPU, same weights and
-    prompts, prefill + 8 greedy tokens: tokens equal, logits within 1e-4."""
+def _served_model(dev, arch, **changes):
+    """The full-width model of ``arch`` (random weights, seed 0) on the
+    card, with those config fields changed: llama3.2-3b under
+    ``attn_impl="pallas"``, zamba2-1.2b under its own attention."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    if arch == "llama3.2-3b":
+        changes = {"attn_impl": "pallas", **changes}
+    return build_model(dataclasses.replace(cfg, **changes), device=dev,
+                       seed=0)
+
+
+def _prefill_kernel(m):
+    """(kernel wrapper, launches per prefill) of a served model: zamba2's
+    prefill runs ssd_scan once per Mamba-2 layer, llama3.2-3b's (under
+    ``"pallas"``) flash_attention once per layer."""
+    from repro_torch.kernels.flash_attention import flash_cuda
+    from repro_torch.kernels.ssd_scan import ssd_cuda
+    return (ssd_cuda if m.cfg.family == "hybrid" else flash_cuda,
+            m.cfg.n_layers)
+
+
+def serve_reduced(dev, arch) -> float:
+    """The reduced config on the card (a graphed session) and on the CPU,
+    same weights and prompts, prefill + 8 greedy tokens: tokens equal,
+    logits within 1e-4."""
     import torch
     from repro_torch.configs.registry import get_config
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.models.zamba import Zamba
+    from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ServeSession
-    cfg = get_config("zamba2-1.2b", reduced=True)
-    cpu = Zamba(cfg, device="cpu", seed=0)
-    card = Zamba(cfg, device=dev, seed=0)
+    cfg = get_config(arch, reduced=True)
+    if arch == "llama3.2-3b":
+        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=dev, seed=0)
     card.load_state_dict(cpu.state_dict())
     batch = make_batch(cfg, 2, 32, step=2, device="cpu")
     outs = []
@@ -595,123 +636,266 @@ def serve_reduced(dev) -> float:
         toks = torch.cat([first[:, None], sess.decode(first, 8)], dim=1)
         outs.append((toks.cpu(), torch.stack(sess.logits, 1).cpu()))
     err = float((outs[0][1] - outs[1][1]).abs().max())
-    if not torch.equal(outs[0][0], outs[1][0]) or not err <= 1e-4:
-        raise AssertionError(f"reduced zamba2: card and CPU disagree (tokens "
+    if not torch.equal(outs[0][0], outs[1][0]) or not err <= 1e-4 \
+            or (sess.captures, sess.replays) != (1, 7):
+        raise AssertionError(f"reduced {arch}: card and CPU disagree (tokens "
                              f"equal {torch.equal(outs[0][0], outs[1][0])}, "
-                             f"max |logit diff| {err})")
-    log("serve", f"reduced zamba2 (4 layers, d_model 64), 2 prompts x 32 + 8 "
-                 f"greedy tokens: card == CPU tokens, max |logit diff| {err:.3g}"
-                 f" (tol 1e-4)")
+                             f"max |logit diff| {err}), or the card session "
+                             f"captured {sess.captures} and replayed "
+                             f"{sess.replays} times")
+    log("serve", f"reduced {arch} ({cfg.n_layers} layers, d_model "
+                 f"{cfg.d_model}, attn_impl={cfg.attn_impl!r}), 2 prompts x 32"
+                 f" + 8 greedy tokens: card (graphed decode: 1 capture, 7 "
+                 f"replays) == CPU tokens, max |logit diff| {err:.3g} (tol "
+                 f"1e-4)")
     return err
 
 
-def serve_causal_check(dev, cfg):
-    """Full width in f32: each served step's logits against the
-    teacher-forced forward over prompt + generated tokens."""
+def serve_causal_check(dev, arch):
+    """Full width in f32 through a graphed session: the prefill's last
+    logits and every decode step's against the teacher-forced forward over
+    prompt + generated tokens; the prefill kernel's launches counted."""
     import torch
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels.ssd_scan import ssd_cuda
-    from repro_torch.models.zamba import Zamba
     from repro_torch.serve.engine import ServeSession
-    cfg32 = dataclasses.replace(cfg, dtype="float32")
-    m = Zamba(cfg32, device=dev, seed=0)
-    batch = make_batch(cfg32, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    m = _served_model(dev, arch, dtype="float32")
+    kernel, per_prefill = _prefill_kernel(m)
+    batch = make_batch(m.cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
     sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
                         device=dev)
-    before = ssd_cuda.launches
+    before = kernel.launches
     first = sess.prefill(batch)
-    if ssd_cuda.launches - before != cfg.n_layers:
-        raise AssertionError("f32 prefill: ssd_scan did not launch once per "
-                             "Mamba layer")
+    if kernel.launches - before != per_prefill:
+        raise AssertionError(f"f32 prefill: {kernel.__name__} launched "
+                             f"{kernel.launches - before} times, not "
+                             f"{per_prefill}")
     out = sess.decode(first, SERVE_TOKENS - 1)
+    if (sess.captures, sess.replays, kernel.launches - before) != (
+            1, SERVE_TOKENS - 2, per_prefill):
+        raise AssertionError(f"f32 decode: {sess.captures} captures, "
+                             f"{sess.replays} replays, {kernel.__name__} "
+                             f"{kernel.launches - before - per_prefill} times")
     seq = torch.cat([batch["tokens"], first[:, None], out[:, :-1]], dim=1)
     full = m(seq)[:, SERVE_PROMPT - 1:]
     steps = torch.stack(sess.logits, dim=1)
     diff = (steps - full).abs()
     err, big = float(diff.max()), float(full.abs().max())
+    pre = float(diff[:, 0].max())
     rel = float((diff / full.abs().clamp(min=1.0)).max())
     agree = float((steps.argmax(-1) == full.argmax(-1)).float().mean())
     torch.cuda.synchronize()
     if not bool((diff <= CAUSAL_TOL + CAUSAL_TOL * full.abs()).all()):
         raise AssertionError(
-            f"full-width f32: decode logits differ from the teacher-forced "
-            f"forward by up to {err} (max |logit| {big})")
-    log("serve", f"full-width zamba2-1.2b in f32, {SERVE_BATCH} x "
-                 f"{SERVE_PROMPT} prompt + {SERVE_TOKENS} greedy tokens: "
-                 f"prefill + decode logits == teacher-forced forward over "
-                 f"{seq.shape[1]} tokens, max |diff| {err:.3g} (max |logit| "
-                 f"{big:.3g}, max |diff|/max(1,|logit|) {rel:.3g}; tol atol="
-                 f"rtol={CAUSAL_TOL}), argmax agreement {agree:.4f}")
+            f"full-width f32 {arch}: served logits differ from the "
+            f"teacher-forced forward by up to {err} (max |logit| {big})")
+    log("serve", f"full-width {arch} in f32 ({sum(p.numel() for p in m.parameters()):,} "
+                 f"params, attn_impl={m.cfg.attn_impl!r}), {SERVE_BATCH} x "
+                 f"{SERVE_PROMPT} prompt + {SERVE_TOKENS} greedy tokens, "
+                 f"graphed decode ({sess.captures} capture, {sess.replays} "
+                 f"replays): prefill + decode logits == teacher-forced "
+                 f"forward over {seq.shape[1]} tokens, max |diff| {err:.3g} "
+                 f"(the prefill's {pre:.3g}; max |logit| {big:.3g}, max "
+                 f"|diff|/max(1,|logit|) {rel:.3g}; tol atol=rtol="
+                 f"{CAUSAL_TOL}), argmax agreement {agree:.4f}; "
+                 f"{kernel.__name__} {per_prefill} launches in the prefill, "
+                 f"0 in decode")
     del m, sess, full, steps, diff
     torch.cuda.empty_cache()
     return err
 
 
-def serve_timed(dev, cfg):
-    """Full width in the config's bf16: one warm-up, then SERVE_REPEATS
-    timed sessions; returns the model, prompts and medians."""
+def _clock(marks):
+    """Append the host time after the card has caught up."""
+    import torch
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+
+
+def eager_decode(m, w, tokens, n, max_len):
+    """The yardstick of the graphed session: prefill, then ``n`` eager
+    ``decode_step`` calls, the position a device tensor, the same
+    ``max_len`` → (tokens [B, n], logits [B, n + 1, V], ms per step)."""
+    import torch
+    caches = m.init_cache(tokens.shape[0], max_len)
+    lg, _ = m.prefill(tokens, caches, w)
+    tok = lg[:, -1].argmax(-1)
+    cur_len = torch.tensor(tokens.shape[1], device=tokens.device)
+    toks, logits, marks = [], [lg[:, -1]], []
+    _clock(marks)
+    for _ in range(n):
+        lg, _ = m.decode_step(tok[:, None], caches, cur_len, w)
+        tok = lg[:, -1].argmax(-1)
+        cur_len += 1
+        toks.append(tok)
+        logits.append(lg[:, -1])
+    _clock(marks)
+    return (torch.stack(toks, 1), torch.stack(logits, 1),
+            (marks[1] - marks[0]) * 1e3 / n)
+
+
+def serve_timed(dev, arch):
+    """Full width in bf16: one warm-up and SERVE_REPEATS timed runs, each a
+    graphed session (the prefill; the first decode step, eager; the
+    second, capture + first replay; the rest, replays) and then the eager
+    ``decode_step`` loop from the same prompts with the session's weights:
+    greedy tokens equal, max |Δlogit| logged.  Every kernel count is set to
+    0 just before and read just after: the prefill kernel launches once per
+    layer in each prefill and never in a decode step, no other kernel runs.
+    Returns the model, the prompts, the medians and the launches."""
     import torch
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels.ssd_scan import ssd_cuda
-    from repro_torch.models.zamba import Zamba
+    from repro_torch.kernels.ops import KERNELS
     from repro_torch.serve.engine import ServeSession
     torch.cuda.reset_peak_memory_stats()
-    m = Zamba(cfg, device=dev, seed=0)
-    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
-    n_dec = SERVE_TOKENS - 1
+    m = _served_model(dev, arch)
+    kernel, per_prefill = _prefill_kernel(m)
+    batch = make_batch(m.cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    n_dec, max_len = SERVE_TOKENS - 1, SERVE_PROMPT + SERVE_TOKENS
     rows = []
-    ssd_cuda.launches = 0
-    for r in range(1 + SERVE_REPEATS):
-        sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
-                            device=dev)
-        e0, e1, e2 = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-        torch.cuda.synchronize()
-        before = ssd_cuda.launches
-        t0 = time.perf_counter()
+    for fn in KERNELS:
+        fn.launches = 0
+    for _ in range(1 + SERVE_REPEATS):
+        sess = ServeSession(m, SERVE_BATCH, max_len, device=dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t = []
+        _clock(t)
         e0.record()
         first = sess.prefill(batch)
         e1.record()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        if ssd_cuda.launches - before != cfg.n_layers:
-            raise AssertionError(f"prefill launched ssd_scan "
-                                 f"{ssd_cuda.launches - before} times, not "
-                                 f"{cfg.n_layers}")
-        out = sess.decode(first, n_dec)
-        e2.record()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        _clock(t)
+        launched = kernel.launches
+        o1 = sess.decode(first, 1)
+        _clock(t)
+        o2 = sess.decode(o1[:, -1], 1)
+        _clock(t)
+        o3 = sess.decode(o2[:, -1], n_dec - 2)
+        _clock(t)
+        if kernel.launches != launched or (sess.eager_steps, sess.captures,
+                                           sess.replays) != (1, 1, n_dec - 1):
+            raise AssertionError(f"{arch} decode: {kernel.__name__} launched "
+                                 f"{kernel.launches - launched} times; "
+                                 f"{sess.eager_steps} eager steps, "
+                                 f"{sess.captures} captures, {sess.replays} "
+                                 f"replays")
+        toks = torch.cat([o1, o2, o3], 1)
         logits = torch.stack(sess.logits, 1)
-        if out.shape != (SERVE_BATCH, n_dec) or not bool(
+        e_toks, e_logits, eager_ms = eager_decode(m, sess.weights,
+                                                  batch["tokens"], n_dec,
+                                                  max_len)
+        if not torch.equal(toks, e_toks) or not bool(
                 torch.isfinite(logits).all()) or not bool(
-                ((out >= 0) & (out < cfg.vocab_size)).all()):
-            raise AssertionError("bf16 serving: bad tokens or logits")
-        rows.append({"prefill_ms": (t1 - t0) * 1e3,
+                ((toks >= 0) & (toks < m.cfg.vocab_size)).all()):
+            raise AssertionError(f"bf16 {arch}: the graphed session's tokens "
+                                 f"differ from the eager loop's, or bad "
+                                 f"logits")
+        steady = (t[4] - t[3]) * 1e3 / (n_dec - 2)
+        rows.append({"prefill_ms": (t[1] - t[0]) * 1e3,
                      "prefill_dev_ms": e0.elapsed_time(e1),
-                     "decode_ms": (t2 - t1) * 1e3 / n_dec,
-                     "decode_dev_ms": e1.elapsed_time(e2) / n_dec})
-        del sess
-    launches = ssd_cuda.launches
+                     "first_step_ms": (t[2] - t[1]) * 1e3,
+                     "capture_ms": (t[3] - t[2]) * 1e3 - steady,
+                     "decode_ms": (t[4] - t[1]) * 1e3 / n_dec,
+                     "steady_ms": steady, "eager_ms": eager_ms,
+                     "dlogit": float((logits - e_logits).abs().max())})
+        del sess, logits, e_logits
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    want = {fn.__name__: 2 * per_prefill * (1 + SERVE_REPEATS)
+            if fn is kernel else 0 for fn in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{arch} serving launched {launches}, not "
+                             f"{want} (a prefill per session and per eager "
+                             f"loop)")
     timed = rows[1:]
     med = {k: statistics.median(r[k] for r in timed) for k in timed[0]}
     med["tok_s"] = SERVE_BATCH / (med["decode_ms"] / 1e3)
+    med["steady_tok_s"] = SERVE_BATCH / (med["steady_ms"] / 1e3)
+    med["eager_tok_s"] = SERVE_BATCH / (med["eager_ms"] / 1e3)
     med["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
-    log("serve", f"full-width zamba2-1.2b in bf16 ({sum(p.numel() for p in m.parameters()):,} "
-                 f"params, f32 masters + bf16 copy), {SERVE_BATCH} x "
-                 f"{SERVE_PROMPT}-token prompts, {SERVE_TOKENS} greedy "
-                 f"tokens, median of {SERVE_REPEATS} after 1 warm-up: "
-                 f"prefill {med['prefill_ms']:.2f} ms (CUDA events "
-                 f"{med['prefill_dev_ms']:.2f}), decode "
-                 f"{med['decode_ms']:.3f} ms/token (events "
-                 f"{med['decode_dev_ms']:.3f}), {med['tok_s']:.1f} tok/s, "
+    nbytes = decode_bound(m, max_len)
+    med["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+    log("serve", f"full-width {arch} in bf16 ({sum(p.numel() for p in m.parameters()):,} "
+                 f"params, f32 masters + bf16 copy, attn_impl="
+                 f"{m.cfg.attn_impl!r}), {SERVE_BATCH} x {SERVE_PROMPT}-token "
+                 f"prompts, {SERVE_TOKENS} greedy tokens, median of "
+                 f"{SERVE_REPEATS} after 1 warm-up: prefill "
+                 f"{med['prefill_ms']:.2f} ms (CUDA events "
+                 f"{med['prefill_dev_ms']:.2f}); graphed decode "
+                 f"{med['decode_ms']:.3f} ms/token with the capture "
+                 f"({med['tok_s']:.1f} tok/s), {med['steady_ms']:.3f} ms/token "
+                 f"replayed ({med['steady_tok_s']:.1f} tok/s), first (eager) "
+                 f"step {med['first_step_ms']:.3f} ms, capture "
+                 f"{med['capture_ms']:.3f} ms; eager decode_step loop "
+                 f"{med['eager_ms']:.3f} ms/token ({med['eager_tok_s']:.1f} "
+                 f"tok/s, {med['eager_ms'] / med['steady_ms']:.2f}x the "
+                 f"replay); bound {med['bound_ms']:.3f} ms/token "
+                 f"({nbytes} B of compute weights and "
+                 f"caches at 3.35 TB/s; the replay at "
+                 f"{100 * med['bound_ms'] / med['steady_ms']:.1f} % of it); "
                  f"peak device memory {med['peak_mib']:.0f} MiB")
-    log("serve", "per run (prefill ms, decode ms/token): " + ", ".join(
-        f"{r['prefill_ms']:.2f}/{r['decode_ms']:.3f}" for r in rows)
+    log("serve", f"{arch} per run (prefill ms, graphed ms/token with capture"
+                 f", replayed ms/token, capture ms, eager ms/token): " +
+        ", ".join(f"{r['prefill_ms']:.2f}/{r['decode_ms']:.3f}/"
+                  f"{r['steady_ms']:.3f}/{r['capture_ms']:.1f}/"
+                  f"{r['eager_ms']:.3f}" for r in rows)
         + " (the first is the warm-up)")
-    log("serve", f"ssd_scan launches on the main path: {launches} "
-                 f"({launches // (1 + SERVE_REPEATS)} per prefill, 0 per "
+    log("serve", f"{arch} graphed decode == eager decode_step loop: greedy "
+                 f"tokens equal in every run, max |Δlogit| "
+                 f"{max(r['dlogit'] for r in rows):.3g} (logged, not gated); "
+                 f"kernel launches on the path: {launches} ({per_prefill} "
+                 f"{kernel.__name__} per prefill, 2 prefills a run, 0 per "
                  f"decode step)")
-    return m, batch, med, launches
+    return m, batch, med, launches[kernel.__name__]
+
+
+def decode_bound(m, max_len) -> int:
+    """Bytes a decode step must move: every compute weight read once (the
+    tied table once, for the unembedding), every cache read once as the
+    masked attention reads it (all ``max_len`` rows), the SSM states also
+    written once; the new k/v rows and the activations are left out."""
+    from repro_torch.core.graphs import leaves
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    caches = m.init_cache(SERVE_BATCH, max_len)
+    total = nbytes(leaves(m.weights()))
+    if isinstance(caches, dict):                 # hybrid: SSM states r+w
+        total += nbytes(leaves(caches["attn"])) + 2 * nbytes(
+            leaves(caches["mamba"]))
+    else:
+        total += nbytes(leaves(dict(enumerate(caches))))
+    return total
+
+
+def time_masked_decode(dev, arch, flush):
+    """``layers.attn_masked_decode`` alone at a served model's decode shape
+    (B prompts, one query each, its bf16 cache of SERVE_PROMPT +
+    SERVE_TOKENS rows, the first SERVE_PROMPT + 1 valid), L2 flushed before
+    each call: ms per call and per decode step (one call per attention
+    layer), beside the bound of reading q and the cache and writing o
+    once."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.layers import attn_masked_decode
+    cfg = get_config(arch)
+    calls = (len(range(0, cfg.n_layers, cfg.attn_every or 6))
+             if cfg.family == "hybrid" else cfg.n_layers)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    smax = SERVE_PROMPT + SERVE_TOKENS
+    q, k, v = (torch.randn(shape, generator=g).to(torch.bfloat16).to(dev)
+               for shape in ((SERVE_BATCH, 1, cfg.n_heads, cfg.hd),
+                             (SERVE_BATCH, smax, cfg.n_kv_heads, cfg.hd),
+                             (SERVE_BATCH, smax, cfg.n_kv_heads, cfg.hd)))
+    valid = torch.tensor(SERVE_PROMPT + 1, device=dev)
+
+    def fn(q, k, v):
+        return attn_masked_decode(q, k, v, valid)
+    ms = _time_launches(fn, [q, k, v], 20, flush)
+    nbytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log("timing", f"{arch} masked decode attention (attn_masked_decode, "
+                  f"plain PyTorch) at B={SERVE_BATCH} Hq={cfg.n_heads} "
+                  f"Hkv={cfg.n_kv_heads} D={cfg.hd}, bf16 cache of {smax} "
+                  f"rows: {ms:.4f} ms/call, {calls} calls per decode step = "
+                  f"{calls * ms:.3f} ms per step; bound {bound:.4f} ms/call "
+                  f"({nbytes} B at 3.35 TB/s), L2 flushed before each call")
+    return ms * calls
 
 
 def _device_rows(prof):
@@ -727,46 +911,66 @@ def _device_rows(prof):
     return sorted(rows, reverse=True)
 
 
+#: decode steps each serving profile covers.
+PROFILE_STEPS = 8
+
+
 def serve_profile(dev, m, batch, med):
-    """torch.profiler over one prefill, then over 8 decode steps: top device
-    ops, and the device's busy share of the untraced median times."""
+    """torch.profiler over one prefill, over PROFILE_STEPS replays of a
+    captured decode step and over PROFILE_STEPS eager ``decode_step``
+    calls: top device ops, and the device's busy share of the untraced
+    median times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serve.engine import ServeSession
+    arch = m.cfg.name
     sess = ServeSession(m, SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS,
                         device=dev)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    n_dec = min(8, SERVE_TOKENS - 1)
     torch.cuda.synchronize()
     with profile(activities=acts) as p_pre:
         first = sess.prefill(batch)
         torch.cuda.synchronize()
-    with profile(activities=acts) as p_dec:
-        sess.decode(first, n_dec)
+    out = sess.decode(first, 2)                 # the eager step, the capture
+    torch.cuda.synchronize()
+    with profile(activities=acts) as p_graph:
+        sess.decode(out[:, -1], PROFILE_STEPS)
+        torch.cuda.synchronize()
+    w, caches, cur_len = sess.weights, sess.caches, sess.cur_len
+    tok = sess.tokens
+    with profile(activities=acts) as p_eager:
+        for _ in range(PROFILE_STEPS):
+            lg, _ = m.decode_step(tok, caches, cur_len, w)
+            tok = lg[:, -1:].argmax(-1)
+            cur_len += 1
         torch.cuda.synchronize()
     shares = {}
-    for name, prof, untraced_ms in (
-            ("prefill", p_pre, med["prefill_ms"]),
-            (f"{n_dec} decode steps", p_dec, n_dec * med["decode_ms"])):
+    for name, prof, untraced_ms, steps in (
+            ("prefill", p_pre, med["prefill_ms"], 1),
+            ("graphed decode step", p_graph, med["steady_ms"], PROFILE_STEPS),
+            ("eager decode step", p_eager, med["eager_ms"], PROFILE_STEPS)):
         rows = _device_rows(prof)
-        busy_ms = sum(r[0] for r in rows) / 1e3
+        busy_ms = sum(r[0] for r in rows) / 1e3 / steps
+        ops = sum(r[1] for r in rows) / steps
         shares[name] = busy_ms / untraced_ms if busy_ms else None
-        log("profile", f"{name}: device busy {busy_ms:.3f} ms in "
-                       f"{sum(r[1] for r in rows)} device ops = " + (
+        log("profile", f"{arch} {name} (mean of {steps}): device busy "
+                       f"{1e3 * busy_ms:.1f} us in {ops:.1f} device ops = " + (
                            f"{100 * shares[name]:.1f} % of the untraced "
                            f"median {untraced_ms:.3f} ms" if busy_ms else
                            "not measured (the profiler saw no device time)"))
         for us, cnt, key in rows[:8]:
-            log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+            log("profile", f"  {us / 1e3 / steps:9.3f} ms {cnt / steps:7.1f}x"
+                           f"  {key[:90]}")
         if prof is p_pre:
-            log("profile", "prefill: " + "; ".join(
+            kern, label = (("ssd_", "ssd_scan") if arch == "zamba2-1.2b"
+                           else ("flash_", "flash_attention"))
+            log("profile", f"{arch} prefill: " + "; ".join(
                 f"{what} {sum(r[1] for r in sel)} launches, "
                 f"{sum(r[0] for r in sel) / 1e3:.3f} ms" for what, sel in (
-                    ("ssd_scan", [r for r in rows if "ssd_" in r[2]]),
-                    ("cumsum (ssd_final_state's, gone since the kernel "
-                     "writes the state)",
-                     [r for r in rows if "cumsum" in r[2].lower()
-                      or "scan" in r[2].lower() and "ssd_" not in r[2]]),
+                    (label, [r for r in rows if kern in r[2]]),
+                    ("cumsum", [r for r in rows if "cumsum" in r[2].lower()
+                                or "scan" in r[2].lower()
+                                and "ssd_" not in r[2]]),
                     ("direct_copy of strided inputs (casts and copies of "
                      "views)", [
                         r for r in rows if "direct_copy" in r[2]
@@ -830,6 +1034,7 @@ FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                 (1, 2, 2, 128, 128, 32, False), (2, 8, 2, 256, 256, 64, False),
                 (1, 4, 2, 64, 128, 32, True), (2, 8, 2, 96, 160, 64, True),
                 (1, 8, 2, 1000, 1000, 128, True),
+                (4, 24, 8, 1024, 1024, 128, True),
                 (4, 24, 8, 2048, 2048, 128, True),
                 (4, 32, 32, 1024, 1024, 128, True)]
 
@@ -915,6 +1120,8 @@ def time_flash(dev, flush):
                                               enable_gqa=True)
     out = {}
     for model, shape, name in (("llama3.2-3b", FLASH_SHAPES[-2], "bfloat16"),
+                               ("llama3.2-3b prefill", FLASH_SHAPES[-3],
+                                "bfloat16"),
                                ("zamba2-1.2b", FLASH_SHAPES[-1], "bfloat16"),
                                ("llama3.2-3b", FLASH_SHAPES[-2], "float32")):
         B, Hq, Hkv, Tq, Tk, D, causal = shape
@@ -1170,6 +1377,44 @@ def zamba_pallas_forward(dev, model):
     bf16_spread("zamba2-1.2b", model, tokens)
 
 
+def zamba_pallas_prefill(dev, model, batch):
+    """The zamba2-1.2b bf16 prefill with its shared-attention calls through
+    the kernel (``attn_impl="pallas"``: one launch per invocation) beside
+    its own plain f32 attention, in turns (plain, kernel, kernel, plain):
+    ms by the host clock, launches, the last logits' spread (logged, not
+    gated)."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_cuda
+    cfg, w = model.cfg, model.weights()
+    ms, last = {"jnp": [], "pallas": []}, {}
+    for impl in ("jnp", "pallas", "pallas", "jnp"):
+        caches = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS)
+        before, t = flash_cuda.launches, []
+        _clock(t)
+        last[impl], _ = _with(model, attn_impl=impl).prefill(
+            batch["tokens"], caches, w)
+        _clock(t)
+        launched = flash_cuda.launches - before
+        if launched != (len(model.attn_at) if impl == "pallas" else 0):
+            raise AssertionError(f"zamba2 prefill under {impl}: {launched} "
+                                 f"flash launches")
+        ms[impl].append((t[1] - t[0]) * 1e3)
+        del caches
+    model.cfg = cfg
+    d = last["pallas"] - last["jnp"]
+    log("lm", f"full-width zamba2-1.2b bf16 prefill, {SERVE_BATCH} x "
+              f"{SERVE_PROMPT} tokens, in turns: shared attention through "
+              f"flash_attention ({len(model.attn_at)} launches) "
+              f"{', '.join(f'{x:.2f}' for x in ms['pallas'])} ms, through the "
+              f"plain f32 attention {', '.join(f'{x:.2f}' for x in ms['jnp'])}"
+              f" ms; last logits max |diff| {float(d.abs().max()):.3g}, "
+              f"argmax agreement "
+              f"{float((last['pallas'].argmax(-1) == last['jnp'].argmax(-1)).float().mean()):.4f}"
+              f" (logged, not gated)")
+    del w, last, d
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1411,15 +1656,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 7. zamba2 serving ---------------------------------------------------------
-    cfg = get_config("zamba2-1.2b")
-    serve_reduced(dev)
-    serve_causal_check(dev, cfg)
-    model, batch, med, ssd_launches = serve_timed(dev, cfg)
+    serve_reduced(dev, "zamba2-1.2b")
+    serve_causal_check(dev, "zamba2-1.2b")
+    model, batch, med, ssd_launches = serve_timed(dev, "zamba2-1.2b")
     serve_profile(dev, model, batch, med)
+    time_masked_decode(dev, "zamba2-1.2b", flush)
+    zamba_pallas_prefill(dev, model, batch)
     zamba_pallas_forward(dev, model)
     del model, batch
     torch.cuda.empty_cache()
     ssd_t = time_ssd_scan(dev, flush)["bfloat16"]
+
+    # 7b. llama3.2-3b serving ----------------------------------------------------
+    serve_reduced(dev, "llama3.2-3b")
+    serve_causal_check(dev, "llama3.2-3b")
+    model, batch, med, _ = serve_timed(dev, "llama3.2-3b")
+    serve_profile(dev, model, batch, med)
+    time_masked_decode(dev, "llama3.2-3b", flush)
+    del model, batch
+    torch.cuda.empty_cache()
 
     # 8. llama3.2-3b forward and loss ------------------------------------------------
     cfg = get_config("llama3.2-3b")

@@ -22,7 +22,7 @@ ARCHS = {
     "zamba2-1.2b": "zamba2_1_2b",
 }
 
-_LATER = "a later slice of the LM substrate (ROADMAP A15)"
+_LATER = "a later slice of the LM substrate (ROADMAP A9)"
 
 
 def get_config(arch: str, reduced: bool = False):

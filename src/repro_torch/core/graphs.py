@@ -14,8 +14,9 @@ once per ``DRAIN_CHUNK`` epochs.
 
 Capture launches nothing, so the kernels' ``launches`` counters are put
 back after a capture and the launches it recorded are added once per
-replay.  A failed capture or replay raises; nothing falls back to the
-eager loop.  At most ``2 * len(LENGTHS)`` graphs exist per runner,
+replay (:func:`capture`, :func:`replay`; the serving session's decode
+graph, ``serve/engine.py``, keeps the same rules).  A failed capture or
+replay raises; nothing falls back to the eager loop.  At most ``2 * len(LENGTHS)`` graphs exist per runner,
 all in one memory pool (their scratch is dead at every graph's end, so they
 may share it in any order).
 """
@@ -69,6 +70,36 @@ def copy_into(dst, src) -> None:
             d.copy_(s)
 
 
+def capture(fn: Callable[[], object], pool):
+    """Capture ``fn()`` into a new CUDA graph in memory pool ``pool``.
+
+    Capture runs nothing, so the kernels' ``launches`` counters are put
+    back as they were; the launches the graph recorded come back as
+    ``launched`` for :func:`replay` to add on every replay.  Returns
+    ``(graph, launched, out)``, ``out`` being what ``fn`` returned: the
+    graph's static outputs, rewritten by each replay.  A failed capture
+    raises."""
+    from ..kernels.ops import KERNELS
+    before = [k.launches for k in KERNELS]
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    finally:
+        recorded = [k.launches - b for k, b in zip(KERNELS, before)]
+        for k, b in zip(KERNELS, before):
+            k.launches = b
+    launched = tuple((k, n) for k, n in zip(KERNELS, recorded) if n)
+    return graph, launched, out
+
+
+def replay(graph, launched) -> None:
+    """Replay a graph made by :func:`capture` and count its launches."""
+    graph.replay()
+    for k, n in launched:
+        k.launches += n
+
+
 class StepGraphs:
     """Captured graphs of one engine's ungated and gated steps."""
 
@@ -98,11 +129,8 @@ class StepGraphs:
 
     def replay(self, gated: bool, length: int) -> None:
         """Advance the static state by one replay of ``length`` epochs."""
-        graph, launched = self._graph(gated, length)
-        graph.replay()
+        replay(*self._graph(gated, length))
         self.replays += 1
-        for fn, n in launched:
-            fn.launches += n
 
     def in_flight(self) -> int:
         """Events in flight after the last gated replay (a host read)."""
@@ -126,27 +154,20 @@ class StepGraphs:
         if length not in LENGTHS:
             raise ValueError(f"no graph of {length} epochs (lengths "
                              f"{LENGTHS})")
-        from ..kernels.ops import KERNELS
         step = self.steps[gated]
         if gated not in self._warm:
             self._warm_up(step)
             self._warm.add(gated)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        before = [fn.launches for fn in KERNELS]
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, pool=self._pool):
-                s = self.static
-                for _ in range(length):
-                    s = step(s)
-                copy_into(self.static, s)
-                self._flag.copy_(in_flight(s))
-        finally:
-            recorded = [fn.launches - b for fn, b in zip(KERNELS, before)]
-            for fn, b in zip(KERNELS, before):
-                fn.launches = b
-        launched = tuple((fn, n) for fn, n in zip(KERNELS, recorded) if n)
+
+        def run():
+            s = self.static
+            for _ in range(length):
+                s = step(s)
+            copy_into(self.static, s)
+            self._flag.copy_(in_flight(s))
+        graph, launched, _ = capture(run, self._pool)
         self._graphs[key] = (graph, launched)
         self.captures += 1
         return self._graphs[key]

@@ -18,7 +18,7 @@ def make_batch(cfg, batch: int, seq: int, step: int = 0, seed: int = 0,
         raise NotImplementedError(
             f"frontend={cfg.frontend!r} batches are not in the PyTorch port "
             f"yet; they come with a later slice of the LM substrate "
-            f"(ROADMAP A15)")
+            f"(ROADMAP A9)")
     rng = np.random.default_rng(np.uint64(seed) * np.uint64(1_000_003)
                                 + np.uint64(step))
     toks = rng.integers(0, cfg.vocab_size, (batch, seq))

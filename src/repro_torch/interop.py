@@ -15,6 +15,10 @@ on); every other leaf keeps its dtype.
 :func:`zamba_params_from_numpy` and :func:`decoder_params_from_numpy` turn
 the JAX ``Zamba.init`` and ``DecoderLM.init`` parameter trees, fetched to
 the host, into state dicts of the port's models, keyed by the tree's paths.
+:func:`caches_from_numpy` carries a serving state across as well: the JAX
+models' caches, fetched to the host, as the port's; :func:`caches_to_numpy`
+goes the other way, so that both packages can decode on from the same
+mid-decode state.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from .core.calendar import Calendar, Fallback
 from .core.device import resolve_device
 from .core.events import EventBatch
 from .core.pipeline.base import EngineState, Stats
+from .models.layers import DTYPES
 
 
 def _to(a, device, dtype=None) -> torch.Tensor:
@@ -107,3 +112,42 @@ def decoder_params_from_numpy(tree, cfg) -> dict:
     if cfg.scan_layers:
         blocks = [layer(blocks, i) for i in range(cfg.n_layers)]
     return _flatten({**tree, "blocks": blocks})
+
+
+def caches_from_numpy(tree, cfg, device="cuda"):
+    """A host copy of a JAX model's serving caches (``init_cache``,
+    ``prefill``, ``decode_step``) → the port's, on ``device``: for the
+    hybrid family ``{"mamba": [{"conv", "h"}], "attn": [{"k", "v"}]}``, for
+    the dense family one ``{"k", "v"}`` per layer, the leading layer axis
+    of a ``scan_layers`` stack unstacked.  Every leaf takes the port's
+    dtype: the compute dtype, except the SSM state ``h`` (f32)."""
+    dev = resolve_device(device)
+    cdt = DTYPES[cfg.dtype]
+
+    def leaf(a, name):
+        a = torch.from_numpy(np.array(a, np.float32))
+        return a.to(dev, torch.float32 if name == "h" else cdt)
+
+    def part(layers):
+        return [{k: leaf(v, k) for k, v in d.items()} for d in layers]
+    if cfg.family == "hybrid":
+        return {p: part(tree[p]) for p in ("mamba", "attn")}
+    if isinstance(tree, dict):            # the scan_layers stack
+        tree = [{k: v[i] for k, v in tree.items()}
+                for i in range(cfg.n_layers)]
+    return part(tree)
+
+
+def caches_to_numpy(caches, cfg):
+    """The port's serving caches → the JAX model's layout as f32 numpy
+    arrays (a dense ``scan_layers`` model's stacked along a leading layer
+    axis); cast them to the JAX cache's dtype on the way in."""
+    def part(layers):
+        return [{k: v.detach().float().cpu().numpy() for k, v in d.items()}
+                for d in layers]
+    if cfg.family == "hybrid":
+        return {p: part(caches[p]) for p in ("mamba", "attn")}
+    layers = part(caches)
+    if cfg.scan_layers:
+        return {k: np.stack([d[k] for d in layers]) for k in ("k", "v")}
+    return layers

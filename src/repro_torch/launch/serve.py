@@ -3,12 +3,18 @@ then decode greedily, and report the times.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --batch 4 --prompt-len 1024 --tokens 32            # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
+      --batch 4 --prompt-len 1024 --tokens 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --reduced --batch 2 --prompt-len 32 --tokens 8 --device cpu
 
 Times on a CUDA device wait for the card (``torch.cuda.synchronize``) and
 include the first call's warm-up; the first generated token comes from the
-prefill, the other ``--tokens - 1`` from decode steps.
+prefill, the other ``--tokens - 1`` from decode steps.  On the card the
+session runs its first decode step eagerly and replays a CUDA graph of the
+step after that: ``decode`` is the mean over every step, the capture
+counted in, ``steady`` the mean over the steps after the first two (pure
+replays; on the CPU, eager steps).
 """
 from __future__ import annotations
 
@@ -34,6 +40,8 @@ def main(argv=None):
     if args.tokens < 1:
         ap.error("--tokens must be at least 1")
 
+    import torch
+
     from ..configs.registry import get_config
     from ..core.device import resolve_device
     from ..data.synthetic import make_batch
@@ -51,17 +59,25 @@ def main(argv=None):
     first = sess.prefill(batch)
     _sync(dev)
     t1 = time.perf_counter()
-    out = sess.decode(first, args.tokens - 1)
+    steps = args.tokens - 1
+    # the first two steps (eager, then capture + replay), then the rest.
+    head = sess.decode(first, min(steps, 2))
     _sync(dev)
     t2 = time.perf_counter()
-    steps = args.tokens - 1
+    tail = sess.decode(head[:, -1], steps - head.shape[1]) if steps > 2 \
+        else head[:, :0]
+    _sync(dev)
+    t3 = time.perf_counter()
+    out = torch.cat([head, tail], dim=1)
+    steady = (f"{1e3 * (t3 - t2) / tail.shape[1]:.2f}ms/token"
+              if tail.shape[1] else "n/a")
     print(f"[serve] arch={cfg.name} device={dev} batch={args.batch} "
           f"prompt={args.prompt_len} prefill={1e3 * (t1 - t0):.2f}ms "
-          f"decode={1e3 * (t2 - t1) / max(steps, 1):.2f}ms/token "
-          f"({args.batch * steps / max(t2 - t1, 1e-9):,.1f} tok/s)")
-    toks = [first.cpu()] + ([out.cpu()] if steps else [])
-    import torch
-    toks = torch.cat([t.reshape(args.batch, -1) for t in toks], dim=1)
+          f"decode={1e3 * (t3 - t1) / max(steps, 1):.2f}ms/token "
+          f"({args.batch * steps / max(t3 - t1, 1e-9):,.1f} tok/s) "
+          f"steady={steady} (graph captures={sess.captures} "
+          f"replays={sess.replays} eager steps={sess.eager_steps})")
+    toks = torch.cat([first[:, None], out], dim=1).cpu()
     for b in range(min(args.batch, 4)):
         print(f"[serve] req{b}: {toks[b].tolist()}")
 

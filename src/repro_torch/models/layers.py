@@ -6,15 +6,18 @@ softmax statistics and logits are f32.  Ported so far: ``dt_of``,
 ``dense_init``, ``norm``, ``rope``, ``embed``/``unembed`` (tied or not), the
 chunked online-softmax attention, ``sdpa`` (the plain attention or, under
 ``attn_impl="pallas"``, the flash_attention kernel through ``ops.mha``),
-the GQA attention block in its no-cache form and the MLP.
+the masked decode attention, the GQA attention block with and without a
+cache, and the MLP.
 
-The attention is causal by position everywhere: query row ``i`` sits at
-absolute position ``q_offset + i`` and sees key columns ``<= q_offset + i``.
-With no cache that is the teacher-forced mask; over a cache that holds
-``cur_len`` earlier entries (``q_offset = cur_len``) it is the mask of
-stepwise decoding.  The JAX package's cached prefill masks only
-``cols < valid_len`` (ROADMAP C3), which lets a prompt position see later
-ones; the port does not copy that.
+With a cache ({"k","v": [B, Smax, Hkv, hd]}, updated in place) the new k
+and v are written at rows ``cur_len + arange(T)``, where ``cur_len`` may be
+a 0-d tensor on the device: nothing reads it on the host, so a decode step
+can be captured into a CUDA graph.  A prefill from an empty cache then
+attends as the teacher-forced forward does, causally; a decode step (T=1)
+attends over every cache row with the columns ``>= cur_len + 1`` masked, as
+the JAX package's ``_attn_masked_decode`` does.  The JAX package also masks
+its cached prefill only by ``cols < valid_len`` (ROADMAP C3), which lets a
+prompt position see later ones; the port does not copy that.
 """
 from __future__ import annotations
 
@@ -76,21 +79,20 @@ def rope(x, positions, theta: float):
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
 
 
-def attn_chunked(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
+def attn_chunked(q, k, v, *, chunk: int = 1024,
                  compute_dtype=torch.float32):
     """Causal attention with an online softmax over key chunks.
 
-    q: [B,T,Hq,hd]; k, v: [B,S,Hkv,hd] (GQA: query head h reads key head
-    h // (Hq/Hkv)).  Row i sees columns ``<= q_offset + i``; columns past
-    the last row's position are never read.  Scores and statistics are f32.
+    q: [B,T,Hq,hd]; k, v: [B,T,Hkv,hd] (GQA: query head h reads key head
+    h // (Hq/Hkv)).  Row i sees columns ``<= i``.  Scores and statistics
+    are f32.
     """
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = 1.0 / math.sqrt(hd)
-    S = min(S, q_offset + T)
     qf = q.to(compute_dtype).reshape(B, T, Hkv, G, hd)
-    rows = q_offset + torch.arange(T, device=q.device)
+    rows = torch.arange(T, device=q.device)
     m = torch.full((B, T, Hkv, G), -1e30, dtype=torch.float32,
                    device=q.device)
     l = torch.zeros((B, T, Hkv, G), dtype=torch.float32, device=q.device)
@@ -112,6 +114,42 @@ def attn_chunked(q, k, v, *, q_offset: int = 0, chunk: int = 1024,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(B, T, Hq, -1).to(q.dtype)
+
+
+def attn_masked_decode(q, k, v, valid_len):
+    """Decode attention (``_attn_masked_decode`` of the JAX package): q
+    [B,T,Hq,hd] over the whole cache k, v [B,Smax,Hkv,hd], only the columns
+    ``< valid_len`` taking part.  ``valid_len`` may be a 0-d tensor on the
+    device; shapes depend on nothing else, so no value is read on the host.
+    In f32 throughout, over chunks of 1024 columns where 1024 divides Smax,
+    else one chunk.  Every row sees the same columns: at T=1 that is the
+    causal mask, at T>1 it is not (ROADMAP C3)."""
+    B, T, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    chunk = 1024 if S % 1024 == 0 else S
+    qf = q.float().reshape(B, T, Hkv, G, hd)
+    m = torch.full((B, T, Hkv, G), -1e30, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, T, Hkv, G), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, T, Hkv, G, hd), dtype=torch.float32,
+                      device=q.device)
+    for c0 in range(0, S, chunk):
+        kb = k[:, c0:c0 + chunk].float()
+        vb = v[:, c0:c0 + chunk].float()
+        s = torch.einsum("bthgd,bchd->bthgc", qf, kb) * scale
+        cols = c0 + torch.arange(chunk, device=q.device)
+        s = torch.where(cols < valid_len, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bthgc,bchd->bthgd",
+                                                    p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, T, Hq, hd).to(q.dtype)
 
 
 def sdpa(cfg, q, k, v):
@@ -155,11 +193,39 @@ def qkv(cfg, p, x, positions):
             rope(k, positions, cfg.rope_theta), v)
 
 
-def attention(cfg, p, x, positions):
-    """The attention block without a cache (train / teacher-forced
-    forward).  x: [B,T,d] → [B,T,d]."""
+def attend(cfg, q, k, v, cache=None, cur_len=0, decode=False):
+    """Attention of q [B,T,Hq,hd] given this call's k, v [B,T,Hkv,hd].
+
+    Without a cache: the teacher-forced forward's causal ``sdpa``.  With a
+    cache ({"k","v": [B,Smax,Hkv,hd]}), k and v are first written in place
+    at rows ``cur_len + arange(T)`` (``cur_len`` an int or a 0-d tensor on
+    the cache's device).  A prefill (``decode`` False; the cache empty,
+    ``cur_len`` 0) then attends as the forward does, through ``sdpa``, so
+    it stays causal; a decode step (T=1) attends over the whole cache in
+    the compute dtype with the columns ``>= cur_len + 1`` masked
+    (:func:`attn_masked_decode`)."""
+    T = q.shape[1]
+    if decode and T != 1:
+        raise ValueError(f"a decode step takes one token a row, got {T}: "
+                         f"the length mask is causal only at T=1 "
+                         f"(ROADMAP C3)")
+    if cache is not None:
+        rows = cur_len + torch.arange(T, device=q.device)
+        cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+    if not decode:
+        return sdpa(cfg, q, k, v)
+    cdt = dt_of(cfg)
+    return attn_masked_decode(q, cache["k"].to(cdt), cache["v"].to(cdt),
+                              cur_len + 1)
+
+
+def attention(cfg, p, x, positions, cache=None, cur_len=0, decode=False):
+    """The attention block, x: [B,T,d] → [B,T,d]: without a cache the
+    train / teacher-forced forward's, with one a prefill or decode step
+    that updates it in place (see :func:`attend`)."""
     B, T, _ = x.shape
-    o = sdpa(cfg, *qkv(cfg, p, x, positions))
+    o = attend(cfg, *qkv(cfg, p, x, positions), cache, cur_len, decode)
     return o.reshape(B, T, -1) @ p["wo"]
 
 

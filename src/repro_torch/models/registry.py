@@ -20,5 +20,5 @@ def build_model(cfg, *, device="cuda", seed: int = 0):
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not in the PyTorch port "
             f"yet; it comes with a later slice of the LM substrate "
-            f"(ROADMAP A15)")
+            f"(ROADMAP A9)")
     raise ValueError(f"unknown family {cfg.family}")

@@ -1,6 +1,7 @@
 """Decoder-only LM of the dense family (llama3.2, granite, stablelm,
 starcoder2 backbones), port of ``repro/models/transformer.py``: the
-teacher-forced forward and the next-token loss.
+teacher-forced forward, the next-token loss and cached serving
+(``init_cache``, ``prefill``, ``decode_step``).
 
 The module's parameters are the f32 masters, named as the JAX parameter
 tree with its stacked layer axis unstacked (``embed.tok``,
@@ -8,13 +9,17 @@ tree with its stacked layer axis unstacked (``embed.tok``,
 JAX model's with ``interop.decoder_params_from_numpy``).
 :meth:`DecoderLM.weights` casts them once to the compute dtype where the JAX
 model casts at every use.  The blocks run in a Python loop: the reference's
-``lax.scan`` and ``remat`` have no counterpart in a forward pass.  Every
-attention goes through ``layers.sdpa``, so under ``attn_impl="pallas"`` a
-CUDA tensor runs the flash_attention kernel once per layer.
+``lax.scan`` and ``remat`` have no counterpart in a forward pass, and its
+stacked caches are one ``{"k","v"}`` per layer here.  Every attention
+without a cache, and the prefill's, goes through ``layers.sdpa``, so under
+``attn_impl="pallas"`` a CUDA tensor runs the flash_attention kernel once
+per layer; a decode step attends over the whole cache with a length mask
+(``layers.attn_masked_decode``) and reads nothing on the host.
 
-Cached serving of this family (``init_cache``, ``prefill``,
-``decode_step``), MoE, MLA and the audio/vision front ends come with later
-slices (ROADMAP A15).
+Prefill is causal (ROADMAP C3): it computes the teacher-forced forward's
+last logits and the caches of :meth:`DecoderLM.decode_step` called once per
+prompt token.  MoE, MLA and the audio/vision front ends come with later
+slices (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -25,10 +30,6 @@ from .layers import (ParamTree, attention, dt_of, embed, init_attn,
                      init_embed, init_mlp, init_norm, mlp, norm,
                      target_logprobs, unembed)
 
-_SERVING = ("cached serving of the dense family (init_cache, prefill, "
-            "decode_step) is not in the PyTorch port yet; it comes with the "
-            "dense serving slice (ROADMAP A15)")
-
 
 def init_block(cfg, gen: torch.Generator) -> dict:
     dev = gen.device
@@ -37,15 +38,19 @@ def init_block(cfg, gen: torch.Generator) -> dict:
             "attn": init_attn(cfg, gen), "mlp": init_mlp(cfg, gen)}
 
 
-def block_apply(cfg, bp, x, positions):
+def block_apply(cfg, bp, x, positions, cache=None, cur_len=0,
+                decode=False):
+    """One block; with a cache, a prefill or decode step that updates it
+    in place (``layers.attend``)."""
     x = x + attention(cfg, bp["attn"], norm(bp["ln1"], x, cfg.norm,
-                                            cfg.norm_eps), positions)
+                                            cfg.norm_eps), positions,
+                      cache, cur_len, decode)
     return x + mlp(cfg, bp["mlp"], norm(bp["ln2"], x, cfg.norm, cfg.norm_eps))
 
 
 class DecoderLM(ParamTree):
-    """Dense decoder: ``forward`` (teacher-forced logits) and ``loss``.
-    Parameters come from a seeded ``torch.Generator`` on ``device`` (the
+    """Dense decoder: ``forward`` (teacher-forced logits), ``loss``,
+    ``init_cache``, ``prefill`` and ``decode_step``.  Parameters come from a seeded ``torch.Generator`` on ``device`` (the
     card unless the caller asks for the CPU)."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
@@ -59,7 +64,7 @@ class DecoderLM(ParamTree):
             raise NotImplementedError(
                 f"{', '.join(later)} ({cfg.name}) is not in the PyTorch port "
                 f"yet; it comes with a later slice of the LM substrate "
-                f"(ROADMAP A15)")
+                f"(ROADMAP A9)")
         if cfg.param_dtype != "float32":
             raise NotImplementedError(
                 f"param_dtype={cfg.param_dtype!r}: the port keeps f32 master "
@@ -82,17 +87,21 @@ class DecoderLM(ParamTree):
         from f32; norm scales stay f32, as the JAX model uses them)."""
         return self.tree(dt_of(self.cfg))
 
+    def _run(self, w, x, positions, caches=None, cur_len=0, decode=False):
+        cfg = self.cfg
+        for i, bp in enumerate(w["blocks"]):
+            x = block_apply(cfg, bp, x, positions,
+                            None if caches is None else caches[i], cur_len,
+                            decode)
+        return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
+
     @torch.no_grad()
     def forward(self, tokens, w=None):
         """Teacher-forced logits [B,T,V] (f32) of tokens [B,T]."""
-        cfg = self.cfg
         w = self.weights() if w is None else w
         x = embed(w["embed"], tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for bp in w["blocks"]:
-            x = block_apply(cfg, bp, x, positions)
-        x = norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
-        return unembed(cfg, w["embed"], x)
+        return unembed(self.cfg, w["embed"], self._run(w, x, positions))
 
     @torch.no_grad()
     def loss(self, batch, w=None):
@@ -102,11 +111,32 @@ class DecoderLM(ParamTree):
         sel = target_logprobs(self(tokens, w), tokens)
         return -sel.sum() / max(sel.numel(), 1)
 
-    def init_cache(self, batch_size: int, max_len: int):
-        raise NotImplementedError(_SERVING)
+    def init_cache(self, batch_size: int, max_len: int) -> list:
+        """One ``{"k","v": [B, max_len, Hkv, hd]}`` per layer in the
+        compute dtype (the JAX model's ``scan_layers`` stack, unstacked)."""
+        cfg = self.cfg
+        kv = (batch_size, max_len, cfg.n_kv_heads, cfg.hd)
+        return [{k: torch.zeros(kv, dtype=dt_of(cfg), device=self.device)
+                 for k in ("k", "v")} for _ in range(cfg.n_layers)]
 
+    @torch.no_grad()
     def prefill(self, tokens, caches, w=None):
-        raise NotImplementedError(_SERVING)
+        """Run prompts tokens [B,T] from empty caches (filled in place);
+        returns the last position's logits [B,1,V] f32."""
+        w = self.weights() if w is None else w
+        x = embed(w["embed"], tokens)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._run(w, x, positions, caches)
+        return unembed(self.cfg, w["embed"], x[:, -1:]), caches
 
-    def decode_step(self, tokens, caches, cur_len: int, w=None):
-        raise NotImplementedError(_SERVING)
+    @torch.no_grad()
+    def decode_step(self, tokens, caches, cur_len, w=None):
+        """One token per row, tokens [B,1], at position ``cur_len`` (a 0-d
+        integer tensor on the model's device, or an int); caches advance in
+        place.  Returns logits [B,1,V] f32."""
+        w = self.weights() if w is None else w
+        cur_len = torch.as_tensor(cur_len, device=self.device)
+        x = embed(w["embed"], tokens)
+        positions = cur_len + torch.arange(x.shape[1], device=x.device)[None, :]
+        x = self._run(w, x, positions, caches, cur_len, True)
+        return unembed(self.cfg, w["embed"], x), caches

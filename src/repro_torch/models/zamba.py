@@ -10,7 +10,10 @@ model casts at every use; a serving session keeps that copy.
 
 Caches are updated in place.  Prefill is causal (ROADMAP C3): it computes
 the same logits as the teacher-forced :meth:`Zamba.forward`, and the same
-caches as :meth:`Zamba.decode_step` called once per prompt token.
+caches as :meth:`Zamba.decode_step` called once per prompt token.  A decode
+step takes its position ``cur_len`` as a 0-d tensor on the device (a host
+int is converted) and reads nothing on the host, so a serving session can
+capture it into a CUDA graph (``serve/engine.py``).
 """
 from __future__ import annotations
 
@@ -20,9 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .layers import (ParamTree, attention, attn_chunked, dense_init, dt_of,
-                     embed, init_embed, init_norm, norm, qkv,
-                     target_logprobs, unembed)
+from .layers import (ParamTree, attention, dense_init, dt_of, embed,
+                     init_embed, init_norm, norm, target_logprobs, unembed)
 from .mamba2 import init_mamba_block, mamba_apply
 
 
@@ -43,23 +45,14 @@ def init_shared_attn(cfg, gen: torch.Generator) -> dict:
     }
 
 
-def shared_attn_apply(cfg, p, h, e0, positions, cache=None, cur_len=0):
+def shared_attn_apply(cfg, p, h, e0, positions, cache=None, cur_len=0,
+                      decode=False):
     """h: hidden [B,T,d]; e0: initial embeddings [B,T,d].  With a cache
-    ({"k","v": [B,Smax,Hkv,hd]}), k/v land in rows [cur_len, cur_len+T) and
-    the queries attend over rows [0, cur_len+T), causally by position."""
-    B, T, _ = h.shape
+    ({"k","v": [B,Smax,Hkv,hd]}), a prefill or decode step of the
+    attention that updates it in place (``layers.attend``)."""
     xa = torch.cat([h, e0], dim=-1)                            # [B,T,2d]
     y = norm(p["ln1"], xa, cfg.norm, cfg.norm_eps)
-    if cache is None:
-        xa = xa + attention(cfg, p, y, positions)
-    else:
-        q, k, v = qkv(cfg, p, y, positions)
-        cache["k"][:, cur_len:cur_len + T] = k
-        cache["v"][:, cur_len:cur_len + T] = v
-        cdt = dt_of(cfg)
-        o = attn_chunked(q, cache["k"].to(cdt), cache["v"].to(cdt),
-                         q_offset=cur_len)
-        xa = xa + o.reshape(B, T, -1) @ p["wo"]
+    xa = xa + attention(cfg, p, y, positions, cache, cur_len, decode)
     y = norm(p["ln2"], xa, cfg.norm, cfg.norm_eps)
     ff = F.silu(y @ p["wg"]) * (y @ p["wu"])
     xa = xa + ff @ p["wd"]
@@ -112,7 +105,7 @@ class Zamba(ParamTree):
             if i in self.attn_at:
                 cache = None if attn_caches is None else attn_caches[inv]
                 x = shared_attn_apply(cfg, w["shared_attn"], x, e0, positions,
-                                      cache, cur_len)
+                                      cache, cur_len, decode)
                 inv += 1
             st = None if mamba_states is None else mamba_states[i]
             x = mamba_apply(cfg, bp, x, st, decode)
@@ -167,10 +160,12 @@ class Zamba(ParamTree):
         return unembed(self.cfg, w["embed"], x[:, -1:]), caches
 
     @torch.no_grad()
-    def decode_step(self, tokens, caches, cur_len: int, w=None):
-        """One token per row, tokens [B,1], at position ``cur_len``; caches
-        advance in place.  Returns logits [B,1,V] f32."""
+    def decode_step(self, tokens, caches, cur_len, w=None):
+        """One token per row, tokens [B,1], at position ``cur_len`` (a 0-d
+        integer tensor on the model's device, or an int); caches advance in
+        place.  Returns logits [B,1,V] f32."""
         w = self.weights() if w is None else w
+        cur_len = torch.as_tensor(cur_len, device=self.device)
         x = embed(w["embed"], tokens)
         positions = cur_len + torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, caches["mamba"], caches["attn"],

@@ -1,11 +1,29 @@
 """Serving of the port (``repro/serve/engine.py``): a batched greedy
-prefill + decode session on one device.  The multi-device cache shardings
-come with the multi-device slice."""
+prefill + decode session on one device, for the hybrid (zamba2) and the
+dense (llama3.2) family.
+
+The reference compiles its decode step once per session
+(``jax.jit(make_decode_step(model))``) and passes the position ``cur_len``
+as a device scalar.  Here the session owns, on the device, the position
+``cur_len`` (a 0-d int64 tensor), the input token buffer [B, 1] and the
+caches, which the models update in place; one decode step is
+"``decode_step`` → argmax into the token buffer → ``cur_len += 1``" and
+reads nothing on the host.  On a CUDA device the first decode step of a
+session runs eagerly (it loads what the step needs) and the second
+captures that step into one CUDA graph (``core.graphs.capture``), which it
+and every later step replay; the capture itself advances nothing.  On the
+CPU every step runs eagerly.  A failed capture or replay raises; nothing
+falls back to the eager loop.  The host keeps a mirror of the length for
+its bound checks and never reads the device's.
+
+The multi-device cache shardings come with the multi-device slice.
+"""
 from __future__ import annotations
 
 import torch
 
 from ..core.device import resolve_device
+from ..core.graphs import capture, replay
 
 
 class ServeSession:
@@ -14,7 +32,9 @@ class ServeSession:
     The model's weights are cast to the compute dtype once, here.  Next
     tokens stay on the device: nothing in :meth:`prefill` or :meth:`decode`
     waits for the card.  ``logits`` keeps each step's last-position logits
-    [B, V] (f32), the prefill's first."""
+    [B, V] (f32), the prefill's first; ``captures``, ``replays`` and
+    ``eager_steps`` count the decode graph's captures and replays and the
+    decode steps run eagerly."""
 
     def __init__(self, model, batch_size: int, max_len: int, *,
                  device="cuda"):
@@ -27,8 +47,16 @@ class ServeSession:
         self.max_len = max_len
         self.caches = model.init_cache(batch_size, max_len)
         self.weights = model.weights()
-        self.cur_len = 0
+        #: the position of the next token, on the device.
+        self.cur_len = torch.zeros((), dtype=torch.long, device=dev)
+        #: its mirror on the host, for the bound checks.
+        self.length = 0
+        #: the token each decode step reads, and its argmax overwrites.
+        self.tokens = torch.zeros((batch_size, 1), dtype=torch.long,
+                                  device=dev)
         self.logits = []
+        self._graph = None
+        self.captures = self.replays = self.eager_steps = 0
 
     def prefill(self, batch) -> torch.Tensor:
         """Prompts {"tokens": [B, T]} → the first generated token [B]."""
@@ -38,22 +66,50 @@ class ServeSession:
                              f"cache's {self.max_len}")
         logits, self.caches = self.model.prefill(tokens, self.caches,
                                                  self.weights)
-        self.cur_len = tokens.shape[1]
+        self.cur_len.fill_(tokens.shape[1])
+        self.length = tokens.shape[1]
         self.logits = [logits[:, -1]]
         return torch.argmax(logits[:, -1], dim=-1)
 
     def decode(self, tokens, n_steps: int) -> torch.Tensor:
         """Feed tokens [B] and decode ``n_steps`` greedy tokens → [B, n_steps]."""
-        if self.cur_len + n_steps > self.max_len:
-            raise ValueError(f"{n_steps} steps from position {self.cur_len} "
+        if self.length + n_steps > self.max_len:
+            raise ValueError(f"{n_steps} steps from position {self.length} "
                              f"exceed the cache's {self.max_len}")
-        toks = tokens.to(self.device).reshape(-1, 1)
-        out = []
-        for _ in range(n_steps):
-            logits, self.caches = self.model.decode_step(
-                toks, self.caches, self.cur_len, self.weights)
-            self.logits.append(logits[:, -1])
-            toks = torch.argmax(logits[:, -1:], dim=-1)
-            out.append(toks[:, 0])
-            self.cur_len += 1
-        return torch.stack(out, dim=1)
+        B = self.tokens.shape[0]
+        self.tokens.copy_(tokens.reshape(B, 1))
+        out = torch.empty((B, n_steps), dtype=torch.long, device=self.device)
+        logits = None
+        for i in range(n_steps):
+            step = self._advance()
+            if logits is None:
+                logits = step.new_empty((n_steps,) + tuple(step.shape))
+            # copies: a replay rewrites the graph's outputs.
+            logits[i].copy_(step)
+            out[:, i].copy_(self.tokens[:, 0])
+            self.length += 1
+        if n_steps:
+            self.logits.extend(logits.unbind(0))
+        return out
+
+    def _step(self) -> torch.Tensor:
+        """One decode step on the session's device state → logits [B, V]."""
+        logits, _ = self.model.decode_step(self.tokens, self.caches,
+                                           self.cur_len, self.weights)
+        self.tokens.copy_(torch.argmax(logits[:, -1:], dim=-1))
+        self.cur_len.add_(1)
+        return logits[:, -1]
+
+    def _advance(self) -> torch.Tensor:
+        """One decode step: eager on the CPU and for a session's first step
+        on the card, a replay of the captured step after that."""
+        if self.device.type != "cuda" or not self.eager_steps:
+            self.eager_steps += 1
+            return self._step()
+        if self._graph is None:
+            self._graph = capture(self._step, torch.cuda.graph_pool_handle())
+            self.captures += 1
+        graph, launched, logits = self._graph
+        replay(graph, launched)
+        self.replays += 1
+        return logits

@@ -219,17 +219,6 @@ def test_decoder_refuses_what_later_slices_bring(change, match):
         DecoderLM(cfg, device="cpu")
 
 
-def test_serving_a_decoder_names_its_slice():
-    from repro_torch.serve.engine import ServeSession
-    m = DecoderLM(treg.get_config(ARCH, reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense serving slice"):
-        ServeSession(m, 1, 8, device="cpu")
-    for call in (lambda: m.prefill(None, None),
-                 lambda: m.decode_step(None, None, 0)):
-        with pytest.raises(NotImplementedError, match="A15"):
-            call()
-
-
 @pytest.mark.cuda
 def test_card_forward_runs_the_kernel_and_matches_the_cpu():
     if not torch.cuda.is_available():
