@@ -45,7 +45,7 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 way: 32 graphed epochs against the oracle, graphed against
                 eager, the drain; then phold-hotspot, queueing and cluster
                 through ``check_workload`` under every SWEEP config each
-                supports;
+                supports (ltf and batch-packed among them);
   6. timing   — for both full-width configurations, graphed and eager:
                 ms/epoch (CUDA events and host clock), events/s, host syncs
                 per epoch, graph replays and captures, event_apply launches
@@ -56,6 +56,27 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 real epoch's batch and on a skewed batch (4 objects with
                 full buckets, the rest at 0-10 events), and on one real
                 phold-hotspot epoch's batch at its C;
+  zoo.        — the rest of the workload zoo, which runs the host-read
+                schedulers eagerly and launches no kernel (every counter
+                set to 0 before it and read after): phold under ltf and
+                batch-packed and open-queueing, epidemic and wireless under
+                every SWEEP config, through ``check_workload``; then
+                queueing, cluster, open-queueing, epidemic and wireless at
+                the reference's bench scale (``workloads.bench_path``: 512
+                objects, dyadic): 32 epochs of ``rounds`` held against the
+                oracle, the same 32 under ``packed`` (tile 64) equal to
+                them, the padded rounds grid against the events present
+                over 16 epochs, 128 timed epochs of each scheduler (ms/epoch
+                by CUDA events and host clock, events/s, host syncs per
+                epoch, peak memory) and a profile of 16 (device busy share
+                and ops per epoch); 10 epochs of ``ltf`` on queueing and
+                wireless, timed and equal to ``rounds`` at epoch 10 (bucket
+                and fallback events as multisets); and three drains
+                (wireless with max_calls=4, bound 256; epidemic at 128
+                objects, pop=8, n_seeds=16, trans_p=96, bound 512;
+                open-queueing with max_jobs=4, bound 256), each drained
+                before its bound, equal to the oracle, a fixpoint of the
+                drain and equal to ``run`` of its drain epoch;
   7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
@@ -413,13 +434,14 @@ def check_graphs(eng, st, name, n=GRAPH_EPOCHS):
 
 
 def time_epochs(eng, st, n, graphed=True):
-    """Run ``n`` epochs (the graphed ``run``, or a loop of eager ``step``s)
-    and time them by CUDA events and the host clock."""
+    """Run ``n`` epochs (``run``: replays of graphs where the engine has
+    them; or a loop of eager ``step``s) and time them by CUDA events and the
+    host clock."""
     import torch
     from repro_torch.kernels.event_apply import event_apply_cuda
     g = eng.graphs
     syncs, p0 = eng.syncs, eng.totals(st)["processed"]
-    replays, captures = g.replays, g.captures
+    replays, captures = (g.replays, g.captures) if g else (0, 0)
     launches = event_apply_cuda.launches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -439,7 +461,8 @@ def time_epochs(eng, st, n, graphed=True):
     return dict(state=st, dev_ms=e0.elapsed_time(e1) / n,
                 wall_ms=wall * 1e3 / n, events=events,
                 events_per_s=events / wall, syncs=(eng.syncs - syncs) / n,
-                replays=g.replays - replays, captures=g.captures - captures,
+                replays=(g.replays if g else 0) - replays,
+                captures=(g.captures if g else 0) - captures,
                 launches=(event_apply_cuda.launches - launches) / n,
                 peak_mib=torch.cuda.max_memory_allocated() / 2**20)
 
@@ -490,6 +513,288 @@ def profile_graphed(eng, st, name, n=16):
         log("profile", f"  {us / n:9.2f} us/epoch {cnt / n:6.1f}x  "
                        f"{key[:90]}")
     return st, busy_us
+
+
+# -- the zoo at the reference's bench scale (phase zoo) ---------------------------
+
+#: the five workloads of the zoo that run the rounds path, at bench scale.
+ZOO = ("queueing", "cluster", "open-queueing", "epidemic", "wireless")
+#: epochs held against the oracle, then timed, then profiled, per scheduler.
+ZOO_EPOCHS_CHECKED, ZOO_EPOCHS_TIMED, ZOO_EPOCHS_PROFILED = 32, 128, 16
+#: the ltf run: the length of the reference bench's ``ltf_reference_scheduler``
+#: rung, on the two workloads it names.
+LTF_EPOCHS, LTF_ZOO = 10, ("queueing", "wireless")
+#: the packed scheduler at the bench's tile.
+PACKED = dict(batch_impl="packed", pack_tile=64)
+#: the three drains: workload, ``bench_path`` overrides, epoch bound (the
+#: reference bench's draining rungs: wireless ``it4_drain_budget``, epidemic's
+#: speculation rung at 128 objects; open-queueing with a job budget).
+ZOO_DRAINS = (("wireless", dict(max_calls=4), 256),
+              ("epidemic", dict(n_objects=128, pop=8, n_seeds=16,
+                                trans_p=96), 512),
+              ("open-queueing", dict(max_jobs=4), 256))
+
+
+def _same_run(a, b, ctx, ordered=True):
+    """Raise unless two engine states hold the same simulation.
+
+    Object state, Stats, epoch, bounds and the calendar's counts are
+    compared leaf by leaf.  With ``ordered`` (two schedulers that emit in
+    the same order, as rounds and packed do) the calendar is compared slot
+    by slot and the fallback's live slots in order; its dead slots keep
+    whatever the scheduler's emission buffer left there.  Without (ltf, which
+    emits in global time order) the events of every calendar bucket and of
+    the fallback are compared as sorted multisets of (ts, seed, payload,
+    dst)."""
+    import torch
+    from repro_torch.core.graphs import leaves
+    for part in ("obj", "stats", "epoch", "bounds", "load"):
+        for i, (x, y) in enumerate(zip(leaves(getattr(a, part)),
+                                       leaves(getattr(b, part)))):
+            if x.shape != y.shape or not torch.equal(x, y):
+                raise AssertionError(f"{ctx}: {part} leaf {i} differs")
+    if not torch.equal(a.cal.cnt, b.cal.cnt):
+        raise AssertionError(f"{ctx}: calendar counts differ")
+
+    def canon(ts, seed, others, live, dim):
+        """The live events sorted by (ts, seed) along ``dim``, dead slots
+        masked and last."""
+        ts = torch.where(live, ts, float("inf"))
+        seed = torch.where(live, seed, -1)
+        others = [torch.where(live, x, 0) for x in others]
+        o1 = torch.sort(seed, dim=dim, stable=True).indices
+        o2 = torch.sort(torch.gather(ts, dim, o1), dim=dim,
+                        stable=True).indices
+        o = torch.gather(o1, dim, o2)
+        return [torch.gather(x, dim, o) for x in (ts, seed, *others)]
+
+    C = a.cal.ts.shape[-1]
+    live = torch.arange(C, device=a.cal.ts.device) < a.cal.cnt[..., None]
+    fa, fb = a.fb.events, b.fb.events
+    if not torch.equal(fa.valid, fb.valid) and ordered:
+        raise AssertionError(f"{ctx}: fallback slots differ")
+    if int(fa.valid.sum()) != int(fb.valid.sum()):
+        raise AssertionError(f"{ctx}: fallback sizes differ")
+    if ordered:
+        pairs = [(x, y) for x, y in zip(a.cal[:3], b.cal[:3])]
+        pairs += [(x[fa.valid], y[fb.valid]) for x, y in zip(fa[:4], fb[:4])]
+    else:
+        pairs = list(zip(canon(a.cal.ts, a.cal.seed, [a.cal.payload], live, 2),
+                         canon(b.cal.ts, b.cal.seed, [b.cal.payload], live,
+                               2)))
+        pairs += list(zip(
+            canon(fa.ts, fa.seed, [fa.payload, fa.dst], fa.valid, 0),
+            canon(fb.ts, fb.seed, [fb.payload, fb.dst], fb.valid, 0)))
+    for i, (x, y) in enumerate(pairs):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{ctx}: {'slot' if ordered else 'multiset'}"
+                                 f" {i} of the calendar or fallback differs")
+
+
+def zoo_lanes(eng, st, n=ZOO_EPOCHS_PROFILED):
+    """The lanes of the padded rounds grid against the events present
+    (``occupancy`` before each step), summed over ``n`` epochs stepped from
+    a copy of ``st``."""
+    from repro_torch.core.graphs import clone_state
+    s = clone_state(st)
+    padded = packed = 0
+    for _ in range(n):
+        occ = eng.occupancy(s)
+        padded += int(occ["padded_lanes"].sum())
+        packed += int(occ["packed_lanes"].sum())
+        s = eng.step(s)
+    return padded, packed
+
+
+def profile_zoo(eng, st, n=ZOO_EPOCHS_PROFILED):
+    """torch.profiler over ``n`` epochs of ``run``: device busy µs and ops
+    per epoch, and the top ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = eng.run(st, n)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    if not rows:
+        return st, None, None, []
+    return (st, sum(r[0] for r in rows) / n, sum(r[1] for r in rows) / n,
+            rows[:4])
+
+
+def zoo_workload(dev, name):
+    """One workload at bench scale: 32 epochs of rounds against the oracle,
+    the same 32 under packed equal to them, then 128 timed and 16 profiled
+    epochs of each."""
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.core.graphs import clone_state
+    from repro_torch.core.ref_engine import run_sequential
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.testing.conformance import assert_vs_oracle
+    from repro_torch.workloads import bench_path
+    n0 = ZOO_EPOCHS_CHECKED
+    model, cfg = bench_path(name)
+    eng = ParsirEngine(model, cfg, device=dev)
+    t0 = time.perf_counter()
+    st = eng.run(eng.init(), n0)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    tot = eng.totals(st)
+    assert_clean(tot, context=f"bench-scale {name}")
+    t0 = time.perf_counter()
+    ref = run_sequential(model, n0, cfg.epoch_len)
+    t_ref = time.perf_counter() - t0
+    pend = assert_vs_oracle(eng, st, tot, ref, True, f"[bench-scale {name}]")
+    _, pcfg = bench_path(name, **PACKED)
+    peng = ParsirEngine(model, pcfg, device=dev)
+    pst = peng.run(peng.init(), n0)
+    _same_run(pst, st, f"bench-scale {name}: packed vs rounds")
+    log("zoo", f"{name} at bench scale ({model.n_objects} objects, "
+               f"{cfg.n_buckets} x {cfg.bucket_cap} calendar): init + {n0} "
+               f"epochs of rounds, processed {tot['processed']}, pending "
+               f"{pend.shape[0]}, clean, bit-exact vs oracle (engine "
+               f"{t_run:.2f} s, oracle {t_ref:.1f} s); packed (tile "
+               f"{pcfg.pack_tile}) == rounds (state, Stats, calendar, live "
+               f"fallback)")
+    padded, packed = zoo_lanes(eng, st)
+    log("zoo", f"{name} lanes over the next {ZOO_EPOCHS_PROFILED} epochs: "
+               f"the padded rounds grid {padded}, the events present "
+               f"{packed} ({padded / max(packed, 1):.2f}x)")
+    for impl, e, s in (("rounds", eng, st), ("packed", peng, pst)):
+        t = time_epochs(e, clone_state(s), ZOO_EPOCHS_TIMED)
+        s = t.pop("state")
+        assert_clean(e.totals(s), context=f"bench-scale {name} {impl} (timed)")
+        s, busy, ops, top = profile_zoo(e, s)
+        busy_txt = ("device busy not measured (the profiler saw no device "
+                    "op)" if busy is None else
+                    f"device busy {busy:.1f} us/epoch in {ops:.1f} ops "
+                    f"({busy / (t['wall_ms'] * 1e3):.1%} of the untraced "
+                    f"host-clock epoch)")
+        log("zoo", f"{name} {impl}, {ZOO_EPOCHS_TIMED} epochs: "
+                   f"{t['dev_ms']:.4f} ms/epoch (CUDA events), "
+                   f"{t['wall_ms']:.4f} ms/epoch (host clock), "
+                   f"{t['events']} events, {t['events_per_s']:.0f} events/s, "
+                   f"host syncs/epoch {t['syncs']:g}, peak device memory "
+                   f"{t['peak_mib']:.0f} MiB; {busy_txt}")
+        for us, cnt, key in top:
+            log("zoo", f"  {us / ZOO_EPOCHS_PROFILED:9.2f} us/epoch "
+                       f"{cnt / ZOO_EPOCHS_PROFILED:6.1f}x  {key[:80]}")
+        del s
+
+
+def zoo_ltf(dev, name):
+    """LTF_EPOCHS epochs of ltf at bench scale, timed, against rounds."""
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.workloads import bench_path
+    model, cfg = bench_path(name)
+    eng = ParsirEngine(model, cfg, device=dev)
+    st = eng.run(eng.init(), LTF_EPOCHS)
+    _, lcfg = bench_path(name, scheduler="ltf")
+    leng = ParsirEngine(model, lcfg, device=dev)
+    lst = leng.init()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lst = leng.run(lst, LTF_EPOCHS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tot = leng.totals(lst)
+    assert_clean(tot, context=f"bench-scale {name} ltf")
+    _same_run(lst, st, f"bench-scale {name}: ltf vs rounds", ordered=False)
+    log("zoo", f"{name} ltf, {LTF_EPOCHS} epochs at bench scale: "
+               f"{wall * 1e3 / LTF_EPOCHS:.2f} ms/epoch (host clock), "
+               f"{tot['processed']} events, {tot['processed'] / wall:.0f} "
+               f"events/s, host syncs/epoch {leng.syncs / LTF_EPOCHS:g}; == "
+               f"rounds at epoch {LTF_EPOCHS} (state, Stats, calendar counts; "
+               f"bucket and fallback events as multisets)")
+
+
+def zoo_drain(dev, name, over, bound):
+    """``run_until_drained`` of a budgeted workload: drained before the
+    bound, equal to the oracle there, a fixpoint of the drain and equal to
+    ``run(drain_epoch)``."""
+    import torch
+    from repro_torch.core.engine import DRAIN_CHUNK, ParsirEngine
+    from repro_torch.core.graphs import clone_state
+    from repro_torch.core.ref_engine import run_sequential
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.testing.conformance import assert_vs_oracle
+    from repro_torch.workloads import bench_path
+    model, cfg = bench_path(name, **over)
+    eng = ParsirEngine(model, cfg, device=dev)
+    st = eng.init()
+    torch.cuda.synchronize()
+    syncs = eng.syncs
+    t0 = time.perf_counter()
+    st = eng.run_until_drained(st, bound)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    syncs = eng.syncs - syncs
+    d = int(st.epoch[0])
+    tot = eng.totals(st)
+    assert_clean(tot, context=f"{name} drain")
+    if eng.in_flight(st) != 0 or d >= bound:
+        raise AssertionError(f"{name}: not drained in {bound} epochs "
+                             f"({eng.in_flight(st)} events in flight)")
+    ref = run_sequential(model, d, cfg.epoch_len)
+    assert_vs_oracle(eng, st, tot, ref, True, f"[{name} drain]")
+    if ref.pending_records:
+        raise AssertionError(f"{name}: the oracle holds events at the drain")
+    again = eng.run_until_drained(clone_state(st), DRAIN_CHUNK)
+    _same_run(again, st, f"{name}: the drained state under the drain")
+    ran = eng.run(eng.init(), d)
+    _same_run(ran, st, f"{name}: run({d}) vs the drain")
+    log("zoo", f"{name} drain ({model.n_objects} objects, "
+               f"{', '.join(f'{k}={v}' for k, v in over.items())}): "
+               f"drained at epoch {d} of {bound}, "
+               f"{tot['processed']} events, {wall:.2f} s, {syncs} host syncs "
+               f"({syncs / max(d, 1):.2f} per epoch); == oracle, a fixpoint "
+               f"of the drain, == run({d})")
+
+
+def zoo_phase(dev):
+    """Phase zoo: conformance of the new workloads under every SWEEP point,
+    the five rounds-path workloads at bench scale, ltf, the drains."""
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.testing.conformance import (check_workload,
+                                                 supported_configs)
+    for fn in KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for cfg_name in ("ltf", "batch-packed"):
+        rep = check_workload("phold", cfg_name, device=dev)
+        log("zoo", f"phold conformance {cfg_name}: processed "
+                   f"{rep['totals']['processed']}, pending {rep['pending']}, "
+                   f"clean, bit-exact vs oracle")
+    for name in ("open-queueing", "epidemic", "wireless"):
+        for cfg_name in supported_configs(name):
+            rep = check_workload(name, cfg_name, device=dev)
+            log("zoo", f"{name} conformance {cfg_name}: processed "
+                       f"{rep['totals']['processed']}, pending "
+                       f"{rep['pending']}, clean, bit-exact vs oracle")
+    marks = [("conformance", time.perf_counter())]
+    for name in ZOO:
+        zoo_workload(dev, name)
+        marks.append((name, time.perf_counter()))
+    for name in LTF_ZOO:
+        zoo_ltf(dev, name)
+    marks.append(("ltf", time.perf_counter()))
+    for name, over, bound in ZOO_DRAINS:
+        zoo_drain(dev, name, over, bound)
+    marks.append(("drains", time.perf_counter()))
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    if any(counts.values()):
+        raise AssertionError(f"the zoo launched a kernel: {counts}")
+    log("zoo", f"kernel launches on the zoo's path: {counts} (no TPU kernel "
+               f"is on it)")
+    spans, last = [], t0
+    for what, t in marks:
+        spans.append(f"{what} {t - last:.1f} s")
+        last = t
+    log("zoo", f"phase time {last - t0:.1f} s: {', '.join(spans)}")
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -1653,6 +1958,10 @@ def main() -> int:
                   f"{hea['flops']} flop), "
                   f"{hea['bound_ms'] / hea['ms']:.1%} of the bound")
     del eng, heng, st, hst, hinputs, inputs, obj
+    torch.cuda.empty_cache()
+
+    # zoo. the rest of the workload zoo at the reference's bench scale -----------
+    zoo_phase(dev)
     torch.cuda.empty_cache()
 
     # 7. zamba2 serving ---------------------------------------------------------

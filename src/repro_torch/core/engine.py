@@ -17,15 +17,16 @@ wherever the step reads nothing on the host (a CUDA device and the
 nothing; ``run_until_drained`` replays graphs of the *gated* step (the epoch
 advances only while events are in flight, so a drained state is a fixpoint)
 and reads the in-flight count once per ``DRAIN_CHUNK`` epochs.  Elsewhere
-(the CPU, or the ``batch`` rounds scheduler, whose round count is a host
-read) ``run`` is a Python loop of steps and ``run_until_drained`` runs the
-same gated chunks eagerly, one in-flight read per chunk, so the CPU runs
-the semantics the card replays.
+(the CPU, or the ``batch`` rounds, ``batch-packed`` and ``ltf`` schedulers,
+whose loop bounds are host reads) ``run`` is a Python loop of steps and
+``run_until_drained`` runs the same gated chunks eagerly, one in-flight
+read per chunk, so the CPU runs the semantics the card replays.
 
 Counters: ``dispatches`` counts the JAX engine's way, one per ``init``,
 ``step``, ``run`` and ``run_until_drained``; ``syncs`` counts host reads of
-device values made while running epochs (the ``batch`` scheduler's round
-count, one per epoch, and the drain flag, one per chunk).
+device values made while running epochs (the loop bound of the rounds,
+packed and ltf schedulers, one per epoch, and the drain flag, one per
+chunk).
 
 State ownership: like the JAX engine's donated buffers, ``step``/``run``
 consume their input state — the ``model`` scheduler updates the object state
@@ -41,7 +42,7 @@ import numpy as np
 import torch
 
 from .api import SimModel
-from .calendar import make_calendar, make_fallback
+from .calendar import bucket_occupancy, make_calendar, make_fallback
 from .device import resolve_device
 from .events import EventBatch
 from .graphs import DRAIN_CHUNK, StepGraphs, split
@@ -210,6 +211,24 @@ class ParsirEngine:
 
     def in_flight(self, state: EngineState) -> int:
         return int(in_flight(state))
+
+    def occupancy(self, state: EngineState) -> dict[str, np.ndarray | int]:
+        """Width-packing diagnostics for the *current* epoch's bucket.
+
+        Per device: the live event total (``events``), the deepest
+        per-object batch (``max_depth``), the dense rounds grid
+        (``padded_lanes = max_depth × n_local_max``) and the events present
+        (``packed_lanes``, what ``batch_impl='packed'`` processes up to
+        per-round tile rounding).  The padded-row tax is the gap.
+        """
+        M = self.placement.n_local_max
+        depth = bucket_occupancy(state.cal, state.epoch[0]).cpu().numpy() \
+            .reshape(self.D, M)
+        events = depth.sum(axis=1)
+        max_depth = depth.max(axis=1, initial=0)
+        return {"events": events, "max_depth": max_depth,
+                "padded_lanes": max_depth * M, "packed_lanes": events,
+                "n_local_max": M}
 
     def global_row_of(self, state: EngineState
                       ) -> tuple[np.ndarray, np.ndarray]:

@@ -6,7 +6,6 @@ configuration the JAX engine rejects raises the same ``ValueError`` here.
 A valid configuration that needs a stage this slice of the port does not
 have yet raises ``NotImplementedError`` naming the slice that brings it:
 
-  * ``scheduler="ltf"``, ``batch_impl="packed"`` — the other schedulers;
   * ``steal=True``, ``placement`` other than ``"equal"``, ``route="a2a"``,
     any device count above 1 — the multi-device slice;
   * ``opt_window > 0`` — the speculation slice.
@@ -21,7 +20,6 @@ import dataclasses
 from .names import (BATCH_IMPLS, PLACEMENTS, ROUTES, SELECTABLE_SCHEDULERS)
 
 _LATER = {
-    "schedulers": "the slice that ports the other schedulers (ltf, packed)",
     "multi": "the multi-device slice (placement, routing across devices, "
              "stealing, rebalancing)",
     "speculation": "the speculation slice (opt_window)",
@@ -183,10 +181,6 @@ class EngineConfig:
                 f"batch_impl={self.batch_impl!r})")
 
         # valid, but not ported yet.
-        if self.scheduler != "batch":
-            raise _not_yet(f"scheduler={self.scheduler!r}", "schedulers")
-        if self.batch_impl == "packed":
-            raise _not_yet("batch_impl='packed'", "schedulers")
         if self.steal:
             raise _not_yet("steal=True", "multi")
         if self.route == "a2a":

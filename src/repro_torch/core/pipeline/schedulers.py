@@ -1,17 +1,25 @@
 """Scheduler stage implementations (paper §II-A).
 
-Port of the ``batch`` and ``batch-model`` schedulers of
-``repro/core/pipeline/schedulers.py``:
+Port of ``repro/core/pipeline/schedulers.py``:
 
 ``batch``        — PARSIR's per-object batch rounds: round r applies the r-th
                    (ts, seed)-ordered event of every object at once through
                    the model's batched ``process_events``.
+``batch-packed`` — the same schedule width-packed: the occupied slots of the
+                   epoch slice are compacted round-major into a dense work
+                   list (:mod:`.packing`) and processed in ``pack_tile``-wide
+                   tiles with a per-tile state gather and scatter-back.
+                   Same bits, different schedule.
 ``batch-model``  — same schedule, but the whole per-object batch goes through
                    the model's own ``process_batch`` kernel (PHOLD: the
                    hand-written CUDA ``event_apply``).
+``ltf``          — strict lowest-timestamp-first interleaving across objects,
+                   one event at a time; same results, no batch locality.
 
-Both honor the emission contract: each processed event may emit
-0..``model.max_out`` events, flagged by ``valid``.
+All honor the emission contract: each processed event may emit
+0..``model.max_out`` events, flagged by ``valid``.  The rounds, packed and
+ltf loops are bounded by one value read on the host per epoch (the round
+count, the tile count, the event total): their ``host_syncs`` is 1.
 """
 from __future__ import annotations
 
@@ -22,6 +30,19 @@ import torch
 from ..api import SimModel
 from ..events import EventBatch, to_f32
 from .base import Scheduler, register_scheduler
+from .packing import pack_slice
+
+
+def _emission_buffer(lead: tuple, mo: int, dev) -> EventBatch:
+    """An all-invalid ``lead + (mo,)`` emission buffer."""
+    shape = lead + (mo,)
+    return EventBatch(
+        dst=torch.zeros(shape, dtype=torch.int32, device=dev),
+        ts=torch.full(shape, float("inf"), dtype=torch.float32, device=dev),
+        seed=torch.zeros(shape, dtype=torch.int64, device=dev),
+        payload=torch.zeros(shape, dtype=torch.float32, device=dev),
+        valid=torch.zeros(shape, dtype=torch.bool, device=dev),
+    )
 
 
 def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
@@ -32,16 +53,8 @@ def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
     call) and bounds the Python loop.
     """
     n_rows, C = ts_s.shape
-    mo = model.max_out
     dev = ts_s.device
-    out = EventBatch(
-        dst=torch.zeros((C, n_rows, mo), dtype=torch.int32, device=dev),
-        ts=torch.full((C, n_rows, mo), float("inf"), dtype=torch.float32,
-                      device=dev),
-        seed=torch.zeros((C, n_rows, mo), dtype=torch.int64, device=dev),
-        payload=torch.zeros((C, n_rows, mo), dtype=torch.float32, device=dev),
-        valid=torch.zeros((C, n_rows, mo), dtype=torch.bool, device=dev),
-    )
+    out = _emission_buffer((C, n_rows), model.max_out, dev)
     lv = torch.zeros((), dtype=torch.int64, device=dev)
     max_r = int(cnt_b.max()) if n_rows else 0
     L = to_f32(lookahead)
@@ -60,6 +73,52 @@ def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
         out.valid[r] = ev_valid
     flat = EventBatch(*(x.reshape(-1) for x in out))
     return obj, flat, lv
+
+
+def process_batch_packed(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
+                         cnt_b, lookahead: float, tile: int):
+    """Width-packed batch rounds: dense tiles over the occupied slots.
+
+    The slice is packed round-major (:mod:`.packing`): a tile holds at most
+    one event per object, so the per-tile gather → ``process_events`` →
+    scatter-back is conflict-free, and an object's rounds land in strictly
+    increasing tiles.  Identical per-event inputs in identical intra-object
+    order give bit-identical results to ``batch``.  The tile count is read
+    on the host (one device sync per call) and bounds the Python loop; dead
+    lanes scatter their state to a sentinel row that is sliced off.
+    """
+    n_rows, C = ts_s.shape
+    dev = ts_s.device
+    packed = pack_slice(ts_s, seed_s, pay_s, cnt_b, tile)
+    k_pad, T = packed.ts.shape[0], packed.tile
+    out = _emission_buffer((k_pad,), model.max_out, dev)
+    lv = torch.zeros((), dtype=torch.int64, device=dev)
+    if k_pad == 0:
+        return obj, EventBatch(*(x.reshape(-1) for x in out)), lv
+    L = to_f32(lookahead)
+    # one extra row per leaf: the sentinel the dead lanes write to.
+    work = {k: torch.cat([v, v[:1]]) for k, v in obj.items()}
+    n_tiles = int(packed.n_tiles)
+    for t in range(n_tiles):
+        sl = slice(t * T, (t + 1) * T)
+        vvalid, vts = packed.valid[sl], packed.ts[sl]
+        rows = packed.row[sl].long()
+        gather = rows.clamp(max=n_rows - 1)
+        st = {k: v[gather] for k, v in work.items()}
+        new_st, emitted = model.process_events(st, vts, packed.seed[sl],
+                                               packed.payload[sl])
+        scat = torch.where(vvalid, rows, n_rows)
+        for k, v in work.items():
+            v[scat] = new_st[k]
+        ev_valid = emitted.valid & vvalid[:, None]
+        lv = lv + (ev_valid & (emitted.ts < vts[:, None] + L)).sum()
+        out.dst[sl] = emitted.dst
+        out.ts[sl] = torch.where(ev_valid, emitted.ts, float("inf"))
+        out.seed[sl] = emitted.seed
+        out.payload[sl] = emitted.payload
+        out.valid[sl] = ev_valid
+    obj = {k: v[:n_rows] for k, v in work.items()}
+    return obj, EventBatch(*(x.reshape(-1) for x in out)), lv
 
 
 @register_scheduler("batch")
@@ -85,3 +144,64 @@ class ModelKernelScheduler(Scheduler):
     def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
         return model.process_batch(obj, ts_s, seed_s, pay_s, cnt_b,
                                    cfg.lookahead)
+
+
+@register_scheduler("batch-packed")
+class PackedBatchScheduler(Scheduler):
+    """Width-packed batch rounds (``batch_impl='packed'``): process only the
+    occupied event slots, in ``pack_tile``-wide tiles."""
+
+    host_syncs = 1   # the tile count
+
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
+        return process_batch_packed(model, obj, ts_s, seed_s, pay_s, cnt_b,
+                                    cfg.lookahead, cfg.pack_tile)
+
+
+@register_scheduler("ltf")
+class LtfScheduler(Scheduler):
+    """Strict lowest-timestamp-first interleaving across objects.
+
+    The epoch's events are put in global ``(ts, seed)`` order by two stable
+    sorts (seed, then ts) and applied one at a time, each to its object's
+    state row.  The event total is read on the host (one device sync per
+    call) and bounds the Python loop.
+    """
+
+    host_syncs = 1   # the event total
+
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
+        n_rows, C = ts_s.shape
+        dev = ts_s.device
+        rows = torch.arange(n_rows, device=dev).repeat_interleave(C)
+        live = (torch.arange(C, device=dev)[None, :]
+                < cnt_b[:, None]).reshape(-1)
+        ts_f = torch.where(live, ts_s.reshape(-1), float("inf"))
+        seed_f, pay_f = seed_s.reshape(-1), pay_s.reshape(-1)
+
+        p1 = torch.sort(seed_f, stable=True).indices
+        p2 = torch.sort(ts_f[p1], stable=True).indices
+        order = p1[p2]
+        ts_f, seed_f, pay_f = ts_f[order], seed_f[order], pay_f[order]
+        rows = rows[order]
+
+        out = _emission_buffer((n_rows * C,), model.max_out, dev)
+        lv = torch.zeros((), dtype=torch.int64, device=dev)
+        L = to_f32(cfg.lookahead)
+        obj = {k: v.clone() for k, v in obj.items()}
+        total = int(cnt_b.sum())
+        for i in range(total):
+            row, ets = rows[i:i + 1], ts_f[i:i + 1]
+            st = {k: v[row] for k, v in obj.items()}
+            new_st, emitted = model.process_events(st, ets, seed_f[i:i + 1],
+                                                   pay_f[i:i + 1])
+            for k, v in obj.items():
+                v[row] = new_st[k]
+            lv = lv + (emitted.valid & (emitted.ts < ets[:, None] + L)).sum()
+            out.dst[i] = emitted.dst[0]
+            out.ts[i] = torch.where(emitted.valid[0], emitted.ts[0],
+                                    float("inf"))
+            out.seed[i] = emitted.seed[0]
+            out.payload[i] = emitted.payload[0]
+            out.valid[i] = emitted.valid[0]
+        return obj, EventBatch(*(x.reshape(-1) for x in out)), lv

@@ -27,8 +27,12 @@ from .clean import assert_clean
 #: simulated horizon is unchanged).
 SWEEP: dict[str, dict] = {
     "batch-allgather": dict(),
+    "ltf": dict(scheduler="ltf"),
     "epoch-fraction": dict(epoch_len_frac=0.5),
     "batch-model": dict(batch_impl="model"),
+    # a tiny tile forces many tiles per round (and round-boundary padding)
+    # at conformance scale, where the default tile would be one per round.
+    "batch-packed": dict(batch_impl="packed", pack_tile=4),
 }
 
 

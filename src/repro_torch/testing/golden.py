@@ -1,4 +1,4 @@
-"""Golden digests of the oracle, for the workloads the port has.
+"""Golden digests of the oracle, for the seven workloads of the zoo.
 
 The port's copy of ``state_digest`` and of the pinned digests of
 ``repro/testing/golden_digests.json`` for its workloads.  A run of the
@@ -21,6 +21,14 @@ PINNED: dict[str, str] = {
         "e22297f2765377fa846cf42b0e9c09c1b442e225b9b65d1edd70b0e872ffa66d",
     "cluster/small":
         "17927417d5d78ac4008eab018d20afe505758e4d9da212b96b77dba504768043",
+    "epidemic/medium":
+        "91d61b74ac5d3717d67f172670abc095634605aae0f8bb74c596e0abaab49ad2",
+    "epidemic/small":
+        "c31144b99ec94d4cbe056d911b38eab1675cbdddfa6d1e2322fd8769d1677adc",
+    "open-queueing/medium":
+        "585e2d9cb9a7ac65a76c55fb7e4106a589e30a98b08841d294297ed1ffe5ede7",
+    "open-queueing/small":
+        "c96cfdeac6f5fd2b5c7f3135c151d766b3d24e902da5f01f79592dc6870f5396",
     "phold-hotspot/medium":
         "eb70daad97a0d2149d01004a6ae59be01a6b21788bb7c47446a0d28b380ab7a8",
     "phold-hotspot/small":
@@ -33,6 +41,10 @@ PINNED: dict[str, str] = {
         "405164fac1fa9cfedf4571c793f66782afc37cd13f98018edd29613f70f9f991",
     "queueing/small":
         "6126fa90eb567f875b9278cbe018a62d27f7477ceb033a0a2bf843c393013485",
+    "wireless/medium":
+        "b06df7d69449312ddd874b37d7736a82475cb0fdab73e44293073954cfba9322",
+    "wireless/small":
+        "b47e7b06295e6c917010d3440c5293621881ed065534e7abd6f7e9451c536bf1",
 }
 
 #: the "medium" size per workload: model_kw overrides on top of the
@@ -42,6 +54,10 @@ MEDIUM_SIZES: dict[str, tuple[dict, int]] = {
     "phold-hotspot": (dict(n_objects=48, hot_objects=6), 32),
     "queueing": (dict(n_stations=32, n_jobs=128), 32),
     "cluster": (dict(n_nodes=32, n_rings=8), 48),
+    "open-queueing": (dict(n_sources=8, n_stage1=8, n_forks=8, n_stage2=8,
+                           n_sinks=8), 32),
+    "epidemic": (dict(n_patches=48, pop=16, n_seeds=6), 32),
+    "wireless": (dict(n_cells=48, hot_cells=8), 32),
 }
 
 

@@ -1,3 +1,5 @@
-"""The port's workload zoo (phold, phold-hotspot, queueing, cluster), each
-with a numpy oracle mirror."""
-from .registry import all_workloads, conformance_spec, get_workload  # noqa: F401
+"""The port's workload zoo (the JAX package's seven ids), each with a numpy
+oracle mirror; :func:`bench_path` builds one at the reference's bench
+scale."""
+from .registry import (all_workloads, bench_path, conformance_spec,  # noqa: F401
+                       get_workload)

@@ -241,13 +241,14 @@ def test_names_and_stats_match_jax():
                  "PLACEMENTS"):
         assert getattr(tnames, name) == getattr(jnames, name), name
     assert tbase.Stats._fields == jeng.Stats._fields
-    assert set(tbase.SCHEDULERS) == {"batch", "batch-model"}
+    assert set(tbase.SCHEDULERS) == {"batch", "batch-model", "batch-packed",
+                                     "ltf"}
     assert set(tbase.ROUTERS) == {"allgather"} < set(tnames.ROUTES)
     assert json.loads(json.dumps(tconf.SWEEP))
     # the port pins both sizes of every workload it registers, as copied
     pinned = jgolden.load_digests()
     want = {k for k in pinned if k.split("/")[0] in treg.all_workloads()}
-    assert set(tgolden.PINNED) == want and len(want) == 8
+    assert set(tgolden.PINNED) == want == set(pinned) and len(want) == 14
     assert all(tgolden.PINNED[k] == pinned[k] for k in want)
 
 

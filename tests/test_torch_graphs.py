@@ -10,7 +10,10 @@ without a device; JAX is not needed):
 * a new epoch count needs no new capture;
 * the kernel's launch counter counts every replayed launch;
 * a step that reads a device value on the host fails to capture, and the
-  call raises instead of falling back to the eager loop.
+  call raises instead of falling back to the eager loop;
+* the packed and ltf schedulers, whose loop bounds are host reads, build no
+  graphs and end every workload's recipe with the oracle's and the CPU's
+  bits.
 """
 import os
 import subprocess
@@ -105,6 +108,20 @@ def test_graphed_loops_equal_eager_steps_on_card(name):
     _assert_same(drained, eager, f"{name} graphed drain vs eager steps")
     for config in tconf.supported_configs(name):
         tconf.check_workload(name, config, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["ltf", "batch-packed"])
+def test_host_read_schedulers_run_eagerly_with_the_cpu_bits_on_card(config):
+    dev = _card()
+    for name in treg.all_workloads():
+        card = tconf.check_workload(name, config, device=dev)  # vs the oracle
+        assert card["engine"].graphs is None
+        cpu = tconf.check_workload(name, config, device="cpu")
+        for i, (x, y) in enumerate(zip(tgraphs.leaves(card["state"]),
+                                       tgraphs.leaves(cpu["state"]),
+                                       strict=True)):
+            assert torch.equal(x.cpu(), y), f"{name}/{config}: leaf {i}"
 
 
 @pytest.mark.cuda

@@ -49,8 +49,7 @@ def _np(x):
 
 
 def test_registry_and_recipes_match_jax():
-    assert treg.all_workloads() == ["phold"] + NEW
-    assert set(treg.all_workloads()) < set(jreg.all_workloads())
+    assert treg.all_workloads() == jreg.all_workloads()
     for name in treg.all_workloads():
         assert treg.WORKLOADS[name] == jreg.WORKLOADS[name]
         assert treg.conformance_spec(name) == jreg.conformance_spec(name)

@@ -1,29 +1,37 @@
 #!/usr/bin/env python3
-"""Where a full-width PHOLD epoch of the PyTorch port spends its time on a GPU.
+"""Where a full-width epoch of the PyTorch port's simulator spends its time
+on a GPU.
 
 Runs one of the port's two full-width PHOLD configurations
 (``repro_torch.workloads.phold.main_path``: default PHOLD, 1024 objects x
 4000 nodes x 6 lanes, dyadic draw, through ``batch_impl="model"`` — the
 configuration ``chip_smoke.py`` drives; or ``hotspot_main_path``, the same
-width under phold-hotspot's skew) either as the engine's graphed ``run``
-(replays of CUDA graphs of the step) or as a loop of eager ``step``s, warms
-it up, times a window of epochs untraced, then traces the
-same number of epochs with ``torch.profiler`` and prints, per epoch: host
-wall time, device busy time (sum of the device-side ops: kernels, memcpy,
-memset) and its share of the untraced wall time, device ops launched, and
-the device ops and operators with the most device time.  Run from the
-repository root on a machine with a CUDA card::
+width under phold-hotspot's skew) or a workload of the zoo at the
+reference's bench scale (``repro_torch.workloads.bench_path``: 512
+objects, dyadic draw), either as the engine's ``run`` (on the card: replays
+of CUDA graphs of the step where the step reads nothing on the host, a
+loop of steps otherwise) or as a loop of eager ``step``s, warms it up,
+times a window of epochs untraced, then traces the same number of epochs
+with ``torch.profiler`` and prints, per epoch: host wall time, host reads
+of device values, device busy time (sum of the device-side ops: kernels,
+memcpy, memset) and its share of the untraced wall time, device ops
+launched, and the device ops and operators with the most device time.
+``--impl`` replaces the configuration's scheduler (``model`` for the PHOLD
+configurations, ``rounds`` for the zoo).  Run from the repository root on a
+machine with a CUDA card::
 
-    python3 tools/profile_phold.py [--config main|hotspot]
-        [--mode graphed|eager] [--epochs 16] [--out DIR]
+    python3 tools/profile_phold.py [--config main|hotspot|<zoo id>]
+        [--impl rounds|packed|ltf] [--mode graphed|eager] [--epochs 16]
+        [--out DIR]
 
 ``--out`` (default ``artifacts/profile_phold``) receives
-``profile_phold_<config>_<mode>.json`` and the Chrome trace
-``profile_phold_<config>_<mode>_trace.json``.
+``profile_phold_<config>[_<impl>]_<mode>.json`` and the Chrome trace
+``profile_phold_<config>[_<impl>]_<mode>_trace.json``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -32,6 +40,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+
+
+#: the engine-config overrides of each ``--impl``.
+IMPLS = {"rounds": dict(batch_impl="rounds"),
+         "packed": dict(batch_impl="packed"),
+         "ltf": dict(scheduler="ltf", batch_impl="rounds")}
 
 
 def _self_device_us(evt) -> float:
@@ -43,8 +57,11 @@ def _self_device_us(evt) -> float:
 
 
 def main(argv=None) -> int:
+    from repro_torch.workloads.registry import all_workloads
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--config", choices=("main", "hotspot"), default="main")
+    ap.add_argument("--config", default="main",
+                    choices=("main", "hotspot", *all_workloads()))
+    ap.add_argument("--impl", choices=tuple(IMPLS), default=None)
     ap.add_argument("--mode", choices=("graphed", "eager"), default="graphed")
     ap.add_argument("--epochs", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=16)
@@ -60,12 +77,19 @@ def main(argv=None) -> int:
     from repro_torch.core.engine import ParsirEngine
     from repro_torch.testing.clean import assert_clean
     from repro_torch.workloads.phold import hotspot_main_path, main_path
+    from repro_torch.workloads.registry import bench_path
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    model, cfg = (main_path if args.config == "main" else hotspot_main_path)()
+    if args.config in ("main", "hotspot"):
+        model, cfg = (main_path if args.config == "main"
+                      else hotspot_main_path)()
+        if args.impl:
+            cfg = dataclasses.replace(cfg, **IMPLS[args.impl])
+    else:
+        model, cfg = bench_path(args.config, **IMPLS[args.impl or "rounds"])
     eng = ParsirEngine(model, cfg, device="cuda")
 
     def run(st, n):
@@ -90,7 +114,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / args.epochs
     span_us = e0.elapsed_time(e1) * 1e3 / args.epochs
-    p0 = eng.totals(st)["processed"]
+    p0, syncs = eng.totals(st)["processed"], eng.syncs
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -98,6 +122,7 @@ def main(argv=None) -> int:
         st = run(st, args.epochs)
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6 / args.epochs
+    syncs = (eng.syncs - syncs) / args.epochs
     tot = eng.totals(st)
     assert_clean(tot, context="profile_phold")
 
@@ -118,7 +143,9 @@ def main(argv=None) -> int:
     launches = sum(r["calls_per_epoch"] for r in kernels)
     report = {
         "card": smi, "torch": torch.__version__, "config": args.config,
-        "mode": args.mode, "epochs": n,
+        "scheduler": cfg.scheduler, "batch_impl": cfg.batch_impl,
+        "mode": args.mode, "graphed": eng.graphs is not None, "epochs": n,
+        "host_syncs_per_epoch": syncs,
         "events_per_epoch": (tot["processed"] - p0) / n,
         "wall_us_per_epoch": wall_us,
         "cuda_event_span_us_per_epoch": span_us,
@@ -131,15 +158,18 @@ def main(argv=None) -> int:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    tag = f"{args.config}_{args.mode}"
+    tag = "_".join(filter(None, (args.config, args.impl, args.mode)))
     (out / f"profile_phold_{tag}.json").write_text(json.dumps(report, indent=1))
     prof.export_chrome_trace(str(out / f"profile_phold_{tag}_trace.json"))
 
     print(f"card: {smi}, torch {torch.__version__}; {args.config} "
-          f"configuration, {args.mode}")
+          f"configuration, scheduler {cfg.scheduler}, batch_impl "
+          f"{cfg.batch_impl}, {args.mode}"
+          f"{' (CUDA graphs)' if eng.graphs is not None else ''}")
     print(f"{n} epochs: wall {wall_us:.1f} us/epoch untraced (CUDA-event "
           f"span {span_us:.1f}), {traced_us:.1f} traced, "
-          f"{report['events_per_epoch']:.0f} events/epoch")
+          f"{report['events_per_epoch']:.0f} events/epoch, host syncs/epoch "
+          f"{syncs:g}")
     if busy_us:
         print(f"device busy {busy_us:.1f} us/epoch ({100 * busy_us / wall_us:.1f}"
               f"% of the untraced wall), {launches:.1f} device ops/epoch")
