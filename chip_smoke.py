@@ -77,6 +77,27 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 open-queueing with max_jobs=4, bound 256), each drained
                 before its bound, equal to the oracle, a fixpoint of the
                 drain and equal to ``run`` of its drain epoch;
+  replications. — the replication axis and the campaign layer (every kernel
+                counter set to 0 before it and read after): PHOLD's main
+                path x R, R = 1, 8, 32 (seeds 0..R-1), through
+                ``run_replicated_drained`` as replays of CUDA graphs of the
+                stacked step: 64 epochs timed after one warm-up call (ms/epoch
+                by CUDA events and host clock, events/s summed over R, 1
+                event_apply launch and 0 host syncs per epoch, 1 per
+                16-epoch chunk, replays, captures, peak memory, a 16-epoch
+                profile's busy share and top ops), replications 0 and R-1
+                (all eight at R = 8) equal leaf by leaf to their own graphed
+                ``run_until_drained``, replication 0 at R = 8 after 32
+                epochs bit-exact against the oracle; event_apply at
+                R x 1024 = 32,768 rows on a real stacked epoch's batch,
+                kernel == plain, timed beside its bound; the reference
+                bench's campaign rung (wireless at bench scale, max_calls=4,
+                32 seeds, bound 256) as a host loop of ``run_until_drained``
+                calls and as one stacked drain, per-seed processed counts
+                and drain epochs equal, wall time, dispatches, host syncs
+                and busy share of each; ``run_campaign`` over max_calls
+                {2, 4} x 8 seeds into a temporary store, then again,
+                resuming both points;
   7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
@@ -795,6 +816,360 @@ def zoo_phase(dev):
         spans.append(f"{what} {t - last:.1f} s")
         last = t
     log("zoo", f"phase time {last - t0:.1f} s: {', '.join(spans)}")
+
+
+# -- replications and campaigns (phase replications) ------------------------------
+
+#: stacked replications of PHOLD's main path, the epochs of each timed
+#: replicated drain (after one warm-up call of DRAIN_CHUNK epochs) and of its
+#: profile; at REP_ALL every replication is held to its independent drain,
+#: else the first and the last.
+REP_COUNTS, REP_EPOCHS, REP_PROFILED, REP_ALL = (1, 8, 32), 64, 16, 8
+#: the campaign rung, the reference bench's ``it5_campaign`` at D = 1
+#: (benchmarks/pdes_perf.py:533-543, :244-330): wireless at bench scale with
+#: max_calls=4, 32 seeds, a drain bound of 256 epochs; then ``run_campaign``
+#: over max_calls in {2, 4} x 8 seeds.
+CAMPAIGN = dict(max_calls=4)
+CAMPAIGN_SEEDS, CAMPAIGN_BOUND, CAMPAIGN_GRID_SEEDS = 32, 256, 8
+#: seeds of the host loop that the profiler traces.
+CAMPAIGN_PROFILED_SEEDS = 2
+
+
+def _busy_us(prof):
+    """Device busy µs and device ops in a profile (None without device
+    time), and the event_apply launches it saw."""
+    rows = _device_rows(prof)
+    if not rows:
+        return None, None, 0
+    return (sum(r[0] for r in rows), sum(r[1] for r in rows),
+            sum(r[1] for r in rows if "event_apply" in r[2]))
+
+
+def rep_phold(dev, R, ref):
+    """PHOLD's main path x R: one warm-up call, REP_EPOCHS epochs of
+    ``run_replicated_drained`` timed, replications against their
+    independent graphed drains (and, at REP_ALL, replication 0 after
+    MAIN_EPOCHS_CHECKED epochs against the oracle ``ref`` of seed 0), a
+    profile of REP_PROFILED epochs.  Returns the timing and the engine and
+    its state for the kernel check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import DRAIN_CHUNK, ParsirEngine
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.testing.conformance import assert_vs_oracle
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    eng = ParsirEngine(model, cfg, device=dev)
+    seeds = list(range(R))
+    eng.run_replicated_drained(eng.init_replicated(seeds), DRAIN_CHUNK)
+    g = eng.rep_graphs
+    if g is None:
+        raise AssertionError("the replicated drain does not run as graphs")
+    st = eng.init_replicated(seeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches, syncs = event_apply_cuda.launches, eng.syncs
+    replays, captures = g.replays, g.captures
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    st = eng.run_replicated_drained(st, REP_EPOCHS)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t = dict(dev_ms=e0.elapsed_time(e1) / REP_EPOCHS,
+             wall_ms=wall * 1e3 / REP_EPOCHS,
+             launches=(event_apply_cuda.launches - launches) / REP_EPOCHS,
+             syncs=eng.syncs - syncs, replays=g.replays - replays,
+             captures=g.captures - captures,
+             peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    totals = eng.totals_replicated(st)
+    for r, tot in enumerate(totals):
+        assert_clean(tot, context=f"PHOLD x {R} rep {r}")
+    t["events"] = sum(tot["processed"] for tot in totals)
+    t["events_per_s"] = t["events"] / wall
+    if t["launches"] != 1 or t["syncs"] != REP_EPOCHS // DRAIN_CHUNK \
+            or t["captures"] != 0:
+        raise AssertionError(f"PHOLD x {R}: {t['launches']} event_apply "
+                             f"launches per epoch, {t['syncs']} host reads, "
+                             f"{t['captures']} captures in the timed drain")
+    if st.epoch[:, 0].tolist() != [REP_EPOCHS] * R:
+        raise AssertionError(f"PHOLD x {R}: epochs {st.epoch[:, 0].tolist()}")
+    checked = seeds if R == REP_ALL else sorted({0, R - 1})
+    for r in checked:
+        ind = eng.run_until_drained(eng.init(seed=r), REP_EPOCHS)
+        _same(eng.replication(st, r), ind,
+              f"PHOLD x {R}: replication {r} vs its independent drain")
+    if R == REP_ALL:
+        s32 = eng.run_replicated_drained(eng.init_replicated(seeds),
+                                         MAIN_EPOCHS_CHECKED)
+        tot0 = eng.totals_replicated(s32)[0]
+        assert_vs_oracle(eng, eng.replication(s32, 0), tot0, ref, True,
+                         f"[PHOLD x {R} rep 0]")
+        st = s32             # the runner's static state: profile from it
+    log("replications", f"PHOLD main path x {R}: {len(checked)} "
+                        f"replications ({', '.join(map(str, checked))}) == "
+                        f"their independent graphed run_until_drained("
+                        f"{REP_EPOCHS}) leaf by leaf, epoch and Stats "
+                        f"included"
+                        + (f"; replication 0 after {MAIN_EPOCHS_CHECKED} "
+                           f"epochs bit-exact vs the oracle" if R == REP_ALL
+                           else ""))
+    torch.cuda.synchronize()
+    before = event_apply_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = eng.run_replicated_drained(st, REP_PROFILED)
+        torch.cuda.synchronize()
+    busy, ops, seen = _busy_us(prof)
+    counted = event_apply_cuda.launches - before
+    if busy is not None and seen != counted:
+        raise AssertionError(f"PHOLD x {R}: the profiler saw {seen} "
+                             f"event_apply launches, the counter {counted}")
+    t["busy_us"] = None if busy is None else busy / REP_PROFILED
+    t["ops"] = None if ops is None else ops / REP_PROFILED
+    t["rows"] = _device_rows(prof)[:6]
+    return t, eng, st
+
+
+def rep_event_apply(dev, eng, st, flush):
+    """event_apply at R * M rows: the kernel against its plain version on
+    one real stacked epoch's batch (bit-exact: dyadic), then timed."""
+    import torch
+    from repro_torch.core.calendar import Calendar, extract_sorted
+    from repro_torch.kernels.event_apply import (event_apply_cuda,
+                                                 event_apply_ref)
+    p = eng.model.params
+    R, M = st.epoch.shape[0], eng.placement.n_local_max
+    flat = Calendar(*(x.flatten(0, 1) for x in st.cal))
+    _, ts_s, seed_s, _, cnt_b = extract_sorted(
+        flat, st.epoch[:, 0].repeat_interleave(M))
+    obj = {k: v.flatten(0, 1) for k, v in st.obj.items()}
+    inputs = [obj["payload"], obj["addresses"], obj["top"], ts_s, seed_s,
+              cnt_b]
+    kw = dict(n_objects=p.n_objects, lookahead=p.lookahead, K=p.touch,
+              KR=p.realloc_k, dist=p.dist, mean=p.mean_increment)
+    got = event_apply_cuda(*[t.clone() for t in inputs], **kw)
+    want = event_apply_ref(*[t.clone() for t in inputs], **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, a, b in zip(("payload", "addresses", "top", "dst", "ts",
+                           "seed", "pay", "valid"), got, want):
+        err = max(err, _max_abs_err(a, b))
+        if not torch.equal(a, b):
+            raise AssertionError(f"event_apply at n={R * M}: kernel != "
+                                 f"plain on output {name}")
+    del got, want
+    t = time_event_apply(inputs, kw, flush, plain_reps=2)
+    t.update(max_abs_err=err, n=R * M, fullest=int(cnt_b.max()))
+    return t
+
+
+def rep_campaign(dev):
+    """The campaign rung: 32 wireless seeds at bench scale drained as a
+    host loop of ``run_until_drained`` calls and as one stacked
+    ``run_replicated_drained``; per-seed processed counts and drain epochs
+    equal, every replication clean and drained."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import DRAIN_CHUNK, ParsirEngine
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.workloads import bench_path
+    model, cfg = bench_path("wireless", **CAMPAIGN)
+    eng = ParsirEngine(model, cfg, device=dev)
+    seeds = list(range(CAMPAIGN_SEEDS))
+    eng.run_until_drained(eng.init(seed=0), DRAIN_CHUNK)          # warm-up
+    eng.run_replicated_drained(eng.init_replicated(seeds), DRAIN_CHUNK)
+
+    def host_loop(some, prof=None):
+        per, epochs, dt = [], [], 0.0
+        for s in some:
+            st = eng.init(seed=s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = eng.run_until_drained(st, CAMPAIGN_BOUND)
+            torch.cuda.synchronize()
+            dt += time.perf_counter() - t0
+            tot = eng.totals(st)
+            assert_clean(tot, context=f"wireless seed {s}")
+            if eng.in_flight(st):
+                raise AssertionError(f"wireless seed {s} did not drain")
+            per.append(tot["processed"])
+            epochs.append(int(st.epoch[0]))
+        return per, epochs, dt
+
+    d0, s0 = eng.dispatches, eng.syncs
+    per_l, ep_l, dt_l = host_loop(seeds)
+    loop = dict(dispatches=eng.dispatches - d0, syncs=eng.syncs - s0,
+                wall=dt_l)
+    d0, s0 = eng.dispatches, eng.syncs
+    st = eng.init_replicated(seeds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = eng.run_replicated_drained(st, CAMPAIGN_BOUND)
+    torch.cuda.synchronize()
+    dt_s = time.perf_counter() - t0
+    stacked = dict(dispatches=eng.dispatches - d0, syncs=eng.syncs - s0,
+                   wall=dt_s)
+    totals = eng.totals_replicated(st)
+    for r, tot in enumerate(totals):
+        assert_clean(tot, context=f"stacked wireless rep {r}")
+    per_s = [tot["processed"] for tot in totals]
+    ep_s = st.epoch[:, 0].tolist()
+    if int(eng.in_flight_replicated(st).sum()) != 0:
+        raise AssertionError("the stacked campaign did not drain")
+    if per_s != per_l or ep_s != ep_l:
+        raise AssertionError(f"host loop and stacked drain disagree: "
+                             f"processed {per_l} vs {per_s}, drain epochs "
+                             f"{ep_l} vs {ep_s}")
+    if stacked["dispatches"] != 2:
+        raise AssertionError(f"stacked campaign: {stacked['dispatches']} "
+                             f"dispatches")
+    del st
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        st = eng.init_replicated(seeds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_replicated_drained(st, CAMPAIGN_BOUND)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    stacked["busy_us"] = _busy_us(prof)[0]
+    stacked["traced"] = traced
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, traced = host_loop(seeds[:CAMPAIGN_PROFILED_SEEDS])
+    loop["busy_us"] = _busy_us(prof)[0]
+    loop["traced"] = traced
+    events = sum(per_s)
+    for name, w in (("host loop", loop), ("stacked", stacked)):
+        busy = ("not measured (the profiler saw no device op)"
+                if w["busy_us"] is None else
+                f"{w['busy_us'] / 1e6 / w['traced']:.1%} of the traced "
+                f"drain time")
+        log("replications", f"wireless campaign ({model.n_objects} objects "
+                            f"at bench scale, max_calls=4, "
+                            f"{CAMPAIGN_SEEDS} seeds, bound "
+                            f"{CAMPAIGN_BOUND}), {name}: {w['wall']:.3f} s "
+                            f"of drains, {events} events, "
+                            f"{events / w['wall']:.0f} events/s, "
+                            f"{w['dispatches']} dispatches (init + drain), "
+                            f"{w['syncs']} host syncs; device busy {busy}"
+                            + (f" (traced: {CAMPAIGN_PROFILED_SEEDS} seeds)"
+                               if name == "host loop" else ""))
+    log("replications", f"wireless campaign: per-seed processed and drain "
+                        f"epochs equal both ways, every replication clean "
+                        f"and drained; drain epochs {min(ep_s)}-"
+                        f"{max(ep_s)} (largest {max(ep_s)}), stacked "
+                        f"{dt_l / dt_s:.2f}x the host loop's events/s")
+    return loop, stacked
+
+
+def rep_run_campaign(dev):
+    """``run_campaign`` on the card: max_calls in {2, 4} x 8 seeds into a
+    temporary store, then again, resuming both points."""
+    import tempfile
+    from repro_torch.campaign import CampaignSpec, ResultsStore, run_campaign
+    from repro_torch.workloads.registry import (BENCH_BASE, BENCH_ENGINE,
+                                                BENCH_MODEL_KW)
+    spec = CampaignSpec(
+        workload="wireless", seeds=tuple(range(CAMPAIGN_GRID_SEEDS)),
+        base_model_kw=dict(BENCH_BASE, **BENCH_MODEL_KW["wireless"]),
+        grid={"max_calls": [2, 4]},
+        engine_kw=dict(lookahead=BENCH_BASE["lookahead"], **BENCH_ENGINE),
+        max_epochs=CAMPAIGN_BOUND)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        store = ResultsStore(tmp)
+        t0 = time.perf_counter()
+        first = run_campaign(spec, store=store, device=dev)
+        t1 = time.perf_counter()
+        second = run_campaign(spec, store=store, device=dev)
+        t2 = time.perf_counter()
+    if (first["ran"], first["resumed"], second["ran"],
+            second["resumed"]) != (2, 0, 0, 2):
+        raise AssertionError(f"run_campaign ran {first['ran']}, resumed "
+                             f"{first['resumed']}, then ran "
+                             f"{second['ran']}, resumed {second['resumed']}")
+    if first["unclean"] or first["undrained"] or first["missing"] \
+            or any(r["dispatches"] != 2 for r in first["results"]) \
+            or second["results"] != first["results"]:
+        raise AssertionError(f"run_campaign: unclean {first['unclean']}, "
+                             f"undrained {first['undrained']}, missing "
+                             f"{first['missing']}")
+    events = [sum(r["processed"] for r in res["replications"])
+              for res in first["results"]]
+    log("replications", f"run_campaign on {dev}: 2 points (max_calls 2, 4) "
+                        f"x {CAMPAIGN_GRID_SEEDS} seeds, {events} events, "
+                        f"2 dispatches a point, every point drained and "
+                        f"clean, {t1 - t0:.2f} s; again: both points "
+                        f"resumed from the store in {t2 - t1:.3f} s")
+
+
+def replications_phase(dev, ref, flush):
+    """Phase replications: PHOLD's main path x R through the replicated
+    drain, event_apply at R * M rows, the wireless campaign rung both ways
+    and run_campaign.  Every kernel counter is set to 0 before it and read
+    after.  Returns the R * M kernel timing."""
+    import torch
+    from repro_torch.kernels.ops import KERNELS
+    for fn in KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for R in REP_COUNTS:
+        t, eng, st = rep_phold(dev, R, ref)
+        busy = ("device busy not measured (the profiler saw no device op)"
+                if t["busy_us"] is None else
+                f"device busy {t['busy_us']:.1f} us/epoch in "
+                f"{t['ops']:.1f} ops ({t['busy_us'] / (t['wall_ms'] * 1e3):.1%}"
+                f" of the host-clock epoch)")
+        log("replications", f"PHOLD main path x {R}, run_replicated_drained"
+                            f"({REP_EPOCHS}): {t['dev_ms']:.4f} ms/epoch "
+                            f"(CUDA events), {t['wall_ms']:.4f} ms/epoch "
+                            f"(host clock), {t['events']} events summed "
+                            f"over {R}, {t['events_per_s']:.0f} events/s, "
+                            f"event_apply launches/epoch "
+                            f"{t['launches']:g}, host syncs {t['syncs']} "
+                            f"(0 per epoch, 1 per chunk), graph replays "
+                            f"{t['replays']}, captures {t['captures']}, "
+                            f"peak device memory {t['peak_mib']:.0f} MiB; "
+                            f"{busy}")
+        for us, cnt, key in t["rows"]:
+            log("replications", f"  {us / REP_PROFILED:9.2f} us/epoch "
+                                f"{cnt / REP_PROFILED:6.1f}x  {key[:80]}")
+        if R == REP_COUNTS[-1]:
+            ea = rep_event_apply(dev, eng, st, flush)
+        del eng, st
+        torch.cuda.empty_cache()
+    log("replications", f"event_apply at n={ea['n']} rows (R="
+                        f"{REP_COUNTS[-1]} x {ea['n'] // REP_COUNTS[-1]}; "
+                        f"{ea['events']} events, "
+                        f"the fullest row at {ea['fullest']}): kernel == "
+                        f"plain (max |diff| {ea['max_abs_err']}), kernel "
+                        f"{ea['ms']:.4f} ms/launch, plain "
+                        f"{ea['plain_ms']:.2f} ms, bound "
+                        f"{ea['bound_ms']:.5f} ms ({ea['nbytes']} B at "
+                        f"3.35 TB/s; {ea['flops']} flop), "
+                        f"{ea['bound_ms'] / ea['ms']:.1%} of the bound, L2 "
+                        f"flushed before each launch")
+    t1 = time.perf_counter()
+    rep_campaign(dev)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    rep_run_campaign(dev)
+    t3 = time.perf_counter()
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    if not counts["event_apply_cuda"]:
+        raise AssertionError("the replicated drain launched no event_apply")
+    log("replications", f"kernel launches in the phase: {counts} (PHOLD's "
+                        f"replicated drains, their independent drains and "
+                        f"warm-up steps; the wireless drains launch none)")
+    log("replications", f"phase time {t3 - t0:.1f} s: PHOLD x R "
+                        f"{t1 - t0:.1f} s, campaign rung {t2 - t1:.1f} s, "
+                        f"run_campaign {t3 - t2:.1f} s")
+    return ea
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -1962,6 +2337,11 @@ def main() -> int:
 
     # zoo. the rest of the workload zoo at the reference's bench scale -----------
     zoo_phase(dev)
+    torch.cuda.empty_cache()
+
+    # replications. PHOLD x R, event_apply at R * M rows, the campaigns -----------
+    replications_phase(dev, ref, flush)
+    del ref
     torch.cuda.empty_cache()
 
     # 7. zamba2 serving ---------------------------------------------------------

@@ -40,8 +40,13 @@ class SimModel(abc.ABC):
 
     A model may also define ``process_batch(state, ts_s, seed_s, pay_s,
     cnt_b, lookahead) -> (state, EventBatch, lookahead_violations)``, which
-    applies every object's whole sorted epoch batch at once; the engine
+    applies every object's whole sorted epoch batch at once, emitting flat
+    in (row, slot) order and counting violations per row; the engine
     reaches it through ``EngineConfig(batch_impl="model")``.
+
+    Neither method may depend on a row's position: a stacked state sends
+    the rows of R replications through one call (ids come from the state,
+    as ``gid``).
     """
 
     #: maximum number of events a single ProcessEvent call can emit.

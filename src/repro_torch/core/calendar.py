@@ -6,10 +6,14 @@ calendar of ``n_buckets`` epoch buckets with a static capacity each:
     ts/seed/payload : [n_local, n_buckets, cap]     (compact: slots [0, cnt) live)
     cnt             : [n_local, n_buckets]
 
+Stacked replications hand these functions the ``[R * n_local, ...]`` view
+of their calendars: rows are rows, each at its replication's epoch.
+
 Bucket ``e % n_buckets`` holds epoch ``e`` and is reused once drained.
 Insertion sorts incoming events by (object, bucket) and ranks them inside
-each group with a prefix max, so every event lands at ``cnt + rank`` — a
-conflict-free scatter.  Overflow is counted and returned, never silent.
+each group by a binary search for the group's start, so every event lands
+at ``cnt + rank`` — a conflict-free scatter.  Overflow is counted and
+returned, never silent.
 
 Torch has no ``mode="drop"`` scatter: dropped entries are scattered into one
 extra sentinel slot that is sliced off afterwards.  The functions here
@@ -59,14 +63,14 @@ def group_ranks(key: torch.Tensor, valid: torch.Tensor, sentinel: int):
 
     rank[i] is the position of sorted element i inside its contiguous key
     group — the prefix-sum replacement for fetch-and-add slot assignment.
+    A group starts where a binary search for its key lands (the reference
+    takes a prefix max of the group starts: the same integers, but a scan
+    with indices runs in one thread block on the card).
     """
     k = torch.where(valid, key.to(torch.int64), sentinel)
     ks, order = torch.sort(k, stable=True)
     idx = torch.arange(k.shape[0], dtype=torch.int64, device=k.device)
-    is_start = torch.ones_like(ks, dtype=torch.bool)
-    is_start[1:] = ks[1:] != ks[:-1]
-    start_idx = torch.cummax(torch.where(is_start, idx, 0), dim=0).values
-    return order, ks, idx - start_idx
+    return order, ks, idx - torch.searchsorted(ks, ks)
 
 
 def _scatter_drop(dst: torch.Tensor, flat: torch.Tensor,
@@ -117,27 +121,32 @@ def insert(cal: Calendar, local_idx: torch.Tensor, epoch: torch.Tensor,
 
 
 def _bucket(cal: Calendar, epoch: torch.Tensor) -> torch.Tensor:
-    """Bucket index of ``epoch`` as a 1-element device tensor (no host read)."""
-    return (epoch.to(torch.int64) % cal.n_buckets).reshape(1)
+    """Bucket index of ``epoch`` for every row, i64 [n_local, 1], on the
+    device (no host read).  ``epoch`` is one epoch or one per row (the rows
+    of stacked replications, each at its own epoch)."""
+    b = epoch.to(torch.int64).reshape(-1) % cal.n_buckets
+    return b.expand(cal.n_local)[:, None]
 
 
 def bucket_occupancy(cal: Calendar, epoch: torch.Tensor) -> torch.Tensor:
     """Per-row event count of the bucket holding ``epoch`` — no drain."""
-    return torch.index_select(cal.cnt, 1, _bucket(cal, epoch)).squeeze(1)
+    return torch.gather(cal.cnt, 1, _bucket(cal, epoch)).squeeze(1)
 
 
 def extract_sorted(cal: Calendar, epoch: torch.Tensor):
-    """Drain the bucket for ``epoch``: per-object events sorted by (ts, seed).
+    """Drain the bucket for ``epoch`` (one epoch, or one per row):
+    per-object events sorted by (ts, seed).
 
     Returns (calendar-with-cleared-bucket, ts, seed, payload, cnt_b), the
     event arrays [n_local, cap] with invalid slots at ts=+inf.
     """
     n_local, n_buckets, cap = cal.ts.shape
     b = _bucket(cal, epoch)
-    ts = torch.index_select(cal.ts, 1, b).squeeze(1)
-    seed = torch.index_select(cal.seed, 1, b).squeeze(1)
-    pay = torch.index_select(cal.payload, 1, b).squeeze(1)
-    cnt_b = torch.index_select(cal.cnt, 1, b).squeeze(1)
+    slots = b[:, :, None].expand(n_local, 1, cap)
+    ts = torch.gather(cal.ts, 1, slots).squeeze(1)
+    seed = torch.gather(cal.seed, 1, slots).squeeze(1)
+    pay = torch.gather(cal.payload, 1, slots).squeeze(1)
+    cnt_b = torch.gather(cal.cnt, 1, b).squeeze(1)
 
     live = torch.arange(cap, device=ts.device)[None, :] < cnt_b[:, None]
     ts = torch.where(live, ts, float("inf"))
@@ -154,8 +163,8 @@ def extract_sorted(cal: Calendar, epoch: torch.Tensor):
     pay = torch.gather(pay, 1, order)
 
     # clear the bucket for reuse (epoch + n_buckets).
-    new_cnt = cal.cnt.index_fill(1, b, 0)
-    new_ts = cal.ts.index_fill(1, b, float("inf"))
+    new_cnt = cal.cnt.scatter(1, b, 0)
+    new_ts = cal.ts.scatter(1, slots, float("inf"))
     return cal._replace(ts=new_ts, cnt=new_cnt), ts, seed, pay, cnt_b
 
 
@@ -178,11 +187,12 @@ def make_fallback(cap: int, device) -> Fallback:
 
 
 def fallback_put(fb: Fallback, new: EventBatch):
-    """Append valid events of ``new`` into free slots of the fallback buffer.
+    """Append valid events of ``new`` into free slots of the fallback buffer
+    (per replication along the last dim of a stacked [R, cap] buffer).
 
     Returns (fallback, n_overflow).  Compaction keeps live events in front.
     """
     merged = compact(concat_batches(fb.events, new))
     cap = fb.cap
     keep = EventBatch(*(x[..., :cap] for x in merged))
-    return Fallback(keep), merged.valid[..., cap:].sum()
+    return Fallback(keep), merged.valid[..., cap:].sum(-1)

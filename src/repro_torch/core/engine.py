@@ -22,11 +22,23 @@ whose loop bounds are host reads) ``run`` is a Python loop of steps and
 ``run_until_drained`` runs the same gated chunks eagerly, one in-flight
 read per chunk, so the CPU runs the semantics the card replays.
 
+Replications.  :meth:`ParsirEngine.init_replicated` stacks R simulations
+of the same model, one per seed (every leaf gains a leading R, see
+:class:`~repro_torch.core.pipeline.base.EngineState`), and
+:meth:`ParsirEngine.run_replicated_drained` drains them together: the
+stacked gated step runs one scheduler call over the R * M rows of all of
+them (one ``event_apply`` launch per epoch under ``batch-model``), replayed
+as CUDA graphs on the card exactly as ``run_until_drained`` is, with the
+flag summed over the replications.  A replication that drains stops at its
+own drain epoch (the gated step, per replication), so each one equals its
+own ``run_until_drained``, leaf by leaf.  ``batch_impl="packed"`` and
+``scheduler="ltf"`` refuse R > 1 (:func:`~.pipeline.refuse_stacking`).
+
 Counters: ``dispatches`` counts the JAX engine's way, one per ``init``,
-``step``, ``run`` and ``run_until_drained``; ``syncs`` counts host reads of
-device values made while running epochs (the loop bound of the rounds,
-packed and ltf schedulers, one per epoch, and the drain flag, one per
-chunk).
+``init_replicated``, ``step``, ``run``, ``run_until_drained`` and
+``run_replicated_drained``; ``syncs`` counts host reads of device values
+made while running epochs (the loop bound of the rounds, packed and ltf
+schedulers, one per epoch, and the drain flag, one per chunk).
 
 State ownership: like the JAX engine's donated buffers, ``step``/``run``
 consume their input state — the ``model`` scheduler updates the object state
@@ -42,12 +54,15 @@ import numpy as np
 import torch
 
 from .api import SimModel
-from .calendar import bucket_occupancy, make_calendar, make_fallback
+from .calendar import (Calendar, bucket_occupancy, make_calendar,
+                       make_fallback)
 from .device import resolve_device
 from .events import EventBatch
 from .graphs import DRAIN_CHUNK, StepGraphs, split
 from .pipeline import (EngineConfig, EngineState, deliver, in_flight,
-                       make_step, resolve_scheduler, zero_stats)
+                       make_step, map_tree, pending_per_replication,
+                       refuse_stacking, replica, resolve_scheduler,
+                       stack_of_one, zero_stats)
 from .placement import Placement, equal_placement
 
 __all__ = ["DRAIN_CHUNK", "EngineConfig", "EngineState", "ParsirEngine"]
@@ -65,7 +80,10 @@ class ParsirEngine:
         self.placement: Placement = equal_placement(model.n_objects, self.D)
         self._step = make_step(model, cfg, self.placement)
         self._gated = make_step(model, cfg, self.placement, gated=True)
-        self._step_syncs = resolve_scheduler(cfg).host_syncs
+        self._rep_gated = make_step(model, cfg, self.placement, gated=True,
+                                    replicated=True)
+        self._scheduler = resolve_scheduler(cfg)
+        self._step_syncs = self._scheduler.host_syncs
         #: host reads of device values made while running epochs (the
         #: inspection helpers below are not counted).
         self.syncs = 0
@@ -74,14 +92,18 @@ class ParsirEngine:
         self.dispatches = 0
         #: the CUDA graphs of the step, where the step reads nothing on the
         #: host; None where the loops run eagerly.
+        self._graphed = self.device.type == "cuda" and self._step_syncs == 0
         self.graphs = (StepGraphs({False: self._step, True: self._gated},
-                                  self.device)
-                       if self.device.type == "cuda" and self._step_syncs == 0
-                       else None)
+                                  self.device) if self._graphed else None)
+        #: the graphs of the stacked gated step, with their own static
+        #: stacked state, for the R of the last ``run_replicated_drained``
+        #: (None where the loops run eagerly, or before the first call).
+        self.rep_graphs: StepGraphs | None = None
 
     # -- lifecycle -------------------------------------------------------------
 
-    def _fresh_state(self) -> EngineState:
+    def _fresh_state(self, R: int | None = None) -> EngineState:
+        """The zeroed pre-ingest state; ``R`` stacks R copies of it."""
         D, M, cfg, dev = self.D, self.placement.n_local_max, self.cfg, \
             self.device
         obj = self.model.init_object_state(self.placement.padded_gids(), dev)
@@ -89,12 +111,16 @@ class ParsirEngine:
         fb = make_fallback(D * cfg.fallback_cap, dev)
         b = torch.as_tensor(np.asarray(self.placement.boundaries, np.int32),
                             device=dev)
-        return EngineState(
+        state = EngineState(
             cal, fb, obj,
             epoch=torch.zeros((D,), dtype=torch.int32, device=dev),
             stats=zero_stats(dev),
             bounds=b[None, :].clone(),
             load=torch.zeros((D * M,), dtype=torch.int32, device=dev))
+        if R is None:
+            return state
+        return map_tree(lambda t: t.unsqueeze(0).repeat(
+            R, *(1,) * t.ndim), state)
 
     def _initial_batch(self, seed: int | None) -> EventBatch:
         init_ev = (self.model.initial_events() if seed is None
@@ -113,22 +139,43 @@ class ParsirEngine:
                              device=dev),
         )
 
+    def _ingest(self, state: EngineState, batch: EventBatch) -> EngineState:
+        """Deliver bootstrap batches [R, E] into a stacked state."""
+        R, M = state.epoch.shape[0], self.placement.n_local_max
+        pl = self.placement.with_boundaries(state.bounds[0, 0])
+        flat = Calendar(*(x.flatten(0, 1) for x in state.cal))
+        cal, fb, cal_ovf, fb_ovf, late, oob = deliver(
+            flat, state.fb, batch, state.epoch[:, 0], 0, pl, self.cfg,
+            init=True)
+        st = state.stats
+        stats = st._replace(cal_overflow=st.cal_overflow + cal_ovf[:, None],
+                            fb_overflow=st.fb_overflow + fb_ovf[:, None],
+                            late_events=st.late_events + late[:, None],
+                            oob_events=st.oob_events + oob[:, None])
+        cal = Calendar(*(x.unflatten(0, (R, M)) for x in cal))
+        return state._replace(cal=cal, fb=fb, stats=stats)
+
     def init(self, seed: int | None = None) -> EngineState:
         """Build the initial state and ingest the bootstrap events
         (``seed`` selects the replication stream)."""
         self.dispatches += 1
-        state = self._fresh_state()
-        batch = self._initial_batch(seed)
-        pl = self.placement.with_boundaries(state.bounds[0])
-        cal, fb, cal_ovf, fb_ovf, late, oob = deliver(
-            state.cal, state.fb, batch, state.epoch[0], 0, pl, self.cfg,
-            init=True)
-        st = state.stats
-        stats = st._replace(cal_overflow=st.cal_overflow + cal_ovf,
-                            fb_overflow=st.fb_overflow + fb_ovf,
-                            late_events=st.late_events + late,
-                            oob_events=st.oob_events + oob)
-        return state._replace(cal=cal, fb=fb, stats=stats)
+        batch = map_tree(lambda t: t[None], self._initial_batch(seed))
+        return replica(self._ingest(stack_of_one(self._fresh_state()),
+                                    batch), 0)
+
+    def init_replicated(self, seeds) -> EngineState:
+        """Build an R-replication stacked state, one bootstrap stream per
+        seed (``R = len(seeds)``).  The initial object state is the same in
+        every replication: they diverge through their seed-salted bootstrap
+        events alone.  Run it with :meth:`run_replicated_drained`."""
+        seeds = [int(s) for s in seeds]
+        if not seeds:
+            raise ValueError("init_replicated needs at least one seed")
+        refuse_stacking(self._scheduler, len(seeds))
+        self.dispatches += 1
+        batches = [self._initial_batch(s) for s in seeds]
+        batch = EventBatch(*(torch.stack(x) for x in zip(*batches)))
+        return self._ingest(self._fresh_state(len(seeds)), batch)
 
     def check_stats_bound(self, n_epochs: int) -> None:
         """Fail fast if ``n_epochs`` epochs could overflow a Stats counter.
@@ -136,8 +183,10 @@ class ParsirEngine:
         The port's ledger is int64 (:func:`zero_stats`).  The worst-case
         per-epoch increment of any counter is bounded by the largest static
         buffer a stage can fill: the epoch bucket (``n_local_max *
-        bucket_cap``), the route buffer or the fallback list.  ``run`` and
-        ``run_until_drained`` check this bound before they run.
+        bucket_cap``), the route buffer or the fallback list.  A stacked
+        state keeps one ledger per replication, so the bound is the same
+        for any R.  ``run``, ``run_until_drained`` and
+        ``run_replicated_drained`` check it before they run.
         """
         cap = torch.iinfo(torch.int64).max
         per_epoch = max(self.placement.n_local_max * self.cfg.bucket_cap,
@@ -185,25 +234,73 @@ class ParsirEngine:
         n = int(max_epochs)
         self.check_stats_bound(n)
         self.dispatches += 1
-        if self.graphs is not None:
-            state = self.graphs.adopt(state)
+        return self._drain(state, n, self._gated, self.graphs)
+
+    def run_replicated_drained(self, state: EngineState,
+                               max_epochs: int) -> EngineState:
+        """Drain the R replications of a stacked state together: the
+        stacked gated step in chunks of ``DRAIN_CHUNK`` epochs (replays of
+        its CUDA graphs on the card under ``batch-model``), one host read
+        of their summed events in flight per chunk, until every replication
+        is drained or ``max_epochs`` epochs have run.  Each replication
+        stops at its own drain epoch, so replication r of the result equals
+        ``run_until_drained(init(seed=seeds[r]), max_epochs)`` leaf by leaf.
+        On the card the result is the runner's static stacked state (the
+        next call overwrites it).  Read it with :meth:`replication`,
+        :meth:`totals_replicated` and :meth:`in_flight_replicated`.
+        """
+        n = int(max_epochs)
+        self.check_stats_bound(n)
+        R = state.epoch.shape[0]
+        refuse_stacking(self._scheduler, R)
+        self.dispatches += 1
+        if self._graphed and (self.rep_graphs is None
+                              or self.rep_graphs.static.epoch.shape[0] != R):
+            self.rep_graphs = None       # free the last R's state and pool
+            self.rep_graphs = StepGraphs({True: self._rep_gated},
+                                         self.device)
+        return self._drain(state, n, self._rep_gated, self.rep_graphs)
+
+    def _drain(self, state: EngineState, n: int, gated, graphs
+               ) -> EngineState:
+        """The drain loop: chunks of ``gated`` (replays of ``graphs`` where
+        there are any), one read of the events in flight after each."""
+        if graphs is not None:
+            state = graphs.adopt(state)
         for c0 in range(0, n, DRAIN_CHUNK):
             chunk = min(DRAIN_CHUNK, n - c0)
-            if self.graphs is None:
+            if graphs is None:
                 for _ in range(chunk):
                     self.syncs += self._step_syncs
-                    state = self._gated(state)
-                pending = self.in_flight(state)
+                    state = gated(state)
+                pending = int(in_flight(state))
             else:
                 for length in split(chunk):
-                    self.graphs.replay(True, length)
-                pending = self.graphs.in_flight()
+                    graphs.replay(True, length)
+                pending = graphs.in_flight()
             self.syncs += 1
             if pending == 0:
                 break
         return state
 
     # -- inspection -------------------------------------------------------------
+
+    def replication(self, state: EngineState, r: int) -> EngineState:
+        """Replication ``r`` of a stacked state in the classic layout (views
+        into the stack), for every inspection helper below."""
+        return replica(state, r)
+
+    def totals_replicated(self, state: EngineState) -> list[dict[str, int]]:
+        """Per-replication Stats totals of a stacked state, in seed order."""
+        R = state.epoch.shape[0]
+        rows = torch.stack([v.reshape(R, -1).sum(1)
+                            for v in state.stats], 1).tolist()
+        return [dict(zip(state.stats._fields, (int(v) for v in row)))
+                for row in rows]
+
+    def in_flight_replicated(self, state: EngineState) -> np.ndarray:
+        """Per-replication in-flight event counts, i64 [R]."""
+        return pending_per_replication(state).cpu().numpy().astype(np.int64)
 
     def totals(self, state: EngineState) -> dict[str, int]:
         flat = torch.stack([v.sum() for v in state.stats]).tolist()

@@ -26,7 +26,7 @@ from typing import Callable
 
 import torch
 
-from .pipeline import EngineState, in_flight
+from .pipeline import EngineState, in_flight, map_tree
 
 #: epochs per read of the drain flag, and the longest captured graph.
 DRAIN_CHUNK = 16
@@ -55,11 +55,7 @@ def leaves(tree) -> list[torch.Tensor]:
 
 def clone_state(tree):
     """A copy of a state tree with every tensor cloned."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: clone_state(v) for k, v in tree.items()}
-    return type(tree)(*(clone_state(x) for x in tree))
+    return map_tree(torch.Tensor.clone, tree)
 
 
 def copy_into(dst, src) -> None:
@@ -101,7 +97,9 @@ def replay(graph, launched) -> None:
 
 
 class StepGraphs:
-    """Captured graphs of one engine's ungated and gated steps."""
+    """Captured graphs of one engine's ungated and gated steps (or of the
+    gated step alone, for a stacked state of replications: the flag is
+    then the sum of their events in flight)."""
 
     def __init__(self, steps: dict[bool, Callable[[EngineState], EngineState]],
                  device: torch.device):

@@ -7,19 +7,23 @@
     kernel);
   * :mod:`routers`     — ``allgather`` (single device);
   * :mod:`deliver`     — owner-side calendar/fallback insertion;
-  * :mod:`step`        — :func:`make_step`, the wiring.
+  * :mod:`step`        — :func:`make_step`, the wiring (one simulation, or
+    R stacked replications).
 """
 from . import routers, schedulers  # noqa: F401  (registration imports)
 from .base import (ROUTERS, SCHEDULERS, EngineState, Router, Scheduler, Stats,
-                   epoch_of, register_router, register_scheduler,
-                   resolve_router, resolve_scheduler, zero_stats)
+                   epoch_of, map_tree, register_router, register_scheduler,
+                   replica, resolve_router, resolve_scheduler, stack_of_one,
+                   zero_stats)
 from .config import EngineConfig
 from .deliver import deliver
-from .step import in_flight, make_step
+from .schedulers import refuse_stacking
+from .step import in_flight, make_step, pending_per_replication
 
 __all__ = [
     "ROUTERS", "SCHEDULERS", "EngineConfig", "EngineState", "Router",
     "Scheduler", "Stats", "deliver", "epoch_of", "in_flight", "make_step",
-    "register_router", "register_scheduler", "resolve_router",
-    "resolve_scheduler", "zero_stats",
+    "map_tree", "pending_per_replication", "refuse_stacking",
+    "register_router", "register_scheduler", "replica", "resolve_router",
+    "resolve_scheduler", "stack_of_one", "zero_stats",
 ]

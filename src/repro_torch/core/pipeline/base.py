@@ -31,7 +31,8 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
 
 
 class Stats(NamedTuple):
-    """Per-device event counters, each an int64 tensor of shape [1]."""
+    """Per-device event counters, each an int64 tensor of shape [1] (``[R,
+    1]`` in a stacked state)."""
 
     processed: torch.Tensor             # events processed on this device
     cal_overflow: torch.Tensor          # bucket-capacity overflows (must be 0)
@@ -48,12 +49,22 @@ class Stats(NamedTuple):
     spec_commits: torch.Tensor          # speculation windows committed
 
 
-def zero_stats(device) -> Stats:
-    return Stats(*(torch.zeros((1,), dtype=torch.int64, device=device)
+def zero_stats(device, R: int | None = None) -> Stats:
+    """Zeroed counters: shape [1], or [R, 1] for ``R`` stacked
+    replications."""
+    shape = (1,) if R is None else (R, 1)
+    return Stats(*(torch.zeros(shape, dtype=torch.int64, device=device)
                    for _ in Stats._fields))
 
 
 class EngineState(NamedTuple):
+    """One simulation's state.  A *stacked* state holds R independent
+    replications: every leaf gains a leading R (``cal.ts`` [R, M, N, C],
+    ``fb`` [R, fallback_cap], ``epoch`` [R, 1], each Stats field [R, 1],
+    ``bounds`` [R, 1, 2], ``load`` [R, M], ``obj[k]`` [R, M, ...]), each
+    replication contiguous, so that ``[R * M, ...]`` views of the per-row
+    leaves cost nothing."""
+
     cal: Calendar
     fb: Fallback
     obj: Any            # dict of [n_local_max, ...] tensors (model-defined)
@@ -61,6 +72,27 @@ class EngineState(NamedTuple):
     stats: Stats
     bounds: torch.Tensor  # i32 [1, n_devices + 1]
     load: torch.Tensor    # i32 [n_local_max] processed counts per row
+
+
+def map_tree(fn: Callable[[torch.Tensor], torch.Tensor], tree):
+    """``tree`` (NamedTuples and dicts of tensors) with ``fn`` applied to
+    every tensor."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return type(tree)(*(map_tree(fn, x) for x in tree))
+
+
+def stack_of_one(state: EngineState) -> EngineState:
+    """A state as a stack of one replication (views, no copy)."""
+    return map_tree(lambda t: t.unsqueeze(0), state)
+
+
+def replica(state: EngineState, r: int) -> EngineState:
+    """Replication ``r`` of a stacked state in the classic layout (views
+    into the stack)."""
+    return map_tree(lambda t: t[r], state)
 
 
 def epoch_of(ts: torch.Tensor, epoch_len: float) -> torch.Tensor:
@@ -84,8 +116,9 @@ def epoch_of(ts: torch.Tensor, epoch_len: float) -> torch.Tensor:
 # stage interfaces
 # ---------------------------------------------------------------------------
 
-#: a scheduler's result: (updated object state, flat emitted EventBatch,
-#: lookahead-violation count).
+#: a scheduler's result: (updated object state, the emitted EventBatch
+#: [reps, E] in each replication's own order, lookahead-violation counts
+#: [reps]).
 ProcessResult = tuple[Any, EventBatch, torch.Tensor]
 
 
@@ -100,6 +133,9 @@ class Scheduler(abc.ABC):
     name: str
     #: host reads of device values one ``process`` call makes.
     host_syncs: int = 0
+    #: whether ``process`` takes the rows of more than one stacked
+    #: replication (``reps > 1``) with each replication's own bits.
+    stacks: bool = True
 
     def validate(self, model: SimModel, cfg: "EngineConfig") -> None:
         """Fail fast at engine construction if the model/config can't run."""
@@ -107,11 +143,14 @@ class Scheduler(abc.ABC):
     @abc.abstractmethod
     def process(self, model: SimModel, cfg: "EngineConfig", obj: Any,
                 ts_s: torch.Tensor, seed_s: torch.Tensor, pay_s: torch.Tensor,
-                cnt_b: torch.Tensor) -> ProcessResult:
+                cnt_b: torch.Tensor, reps: int = 1) -> ProcessResult:
         """Apply every object's sorted epoch batch; return emitted events.
 
-        Inputs are the per-object [n_local, cap] arrays of
-        :func:`repro_torch.core.calendar.extract_sorted`.
+        Inputs are the per-object [n_rows, cap] arrays of
+        :func:`repro_torch.core.calendar.extract_sorted`; the rows are
+        ``reps`` stacked replications of ``n_rows / reps`` rows each.  The
+        emissions and counts come back per replication, each in the order
+        its own run would give them.
         """
 
 

@@ -9,6 +9,11 @@ never silent.  The per-epoch step and the initial ingest share this code
 
 Out-of-range ``dst`` are excluded from ``mine`` and counted.  On one device
 the batch is seen once, so each is counted once.
+
+The stage works on stacked replications: R batches ``[R, E]``, each with
+its own epoch, delivered into the ``[R * M, ...]`` view of R calendars
+(replication r's object ``i`` is row ``r * M + i``) and into R fallback
+buffers, with every count per replication.
 """
 from __future__ import annotations
 
@@ -24,27 +29,38 @@ def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
             placement: Placement, cfg, init: bool):
     """Insert my in-horizon events; park my beyond-horizon events in fallback.
 
-    ``cur`` is the current epoch (a 0-dim tensor), ``dev`` this device's
-    index.  Returns (cal, fb, n_cal_overflow, n_fb_overflow, n_late, n_oob).
+    ``cal`` is the [R * M, N, C] view of R calendars, ``fb`` R fallback
+    buffers [R, F], ``batch`` R event batches [R, E], ``cur`` the R current
+    epochs [R], ``dev`` this device's index.  Returns (cal, fb,
+    n_cal_overflow, n_fb_overflow, n_late, n_oob), each count [R].
     """
     N = cfg.n_buckets
+    R = batch.dst.shape[0]
+    M = cal.n_local // R
+    cur = cur[:, None]
     epochs = epoch_of(batch.ts, cfg.epoch_len)
     boundaries = torch.as_tensor(placement.boundaries,
                                  device=batch.dst.device).to(torch.int32)
     oob = batch.valid & ((batch.dst < 0)
                          | (batch.dst >= placement.n_objects))
-    n_oob = oob.sum()
+    n_oob = oob.sum(-1)
     owner = placement.owner(batch.dst)
     mine = batch.valid & ~oob & (owner == dev)
     lo = torch.zeros_like(cur) if init else cur + 1
     hi = cur + (N - 1 if init else N)
     insertable = mine & (epochs >= lo) & (epochs <= hi)
     beyond = mine & (epochs > hi)
-    late = (mine & (epochs < lo)).sum()
+    late = (mine & (epochs < lo)).sum(-1)
 
-    local_idx = torch.clamp(batch.dst - boundaries[dev], 0, cal.n_local - 1)
-    cal, cal_ovf = insert(cal, local_idx, epochs, batch.ts, batch.seed,
-                          batch.payload, insertable)
+    local_idx = torch.clamp(batch.dst - boundaries[dev], 0, M - 1)
+    row = local_idx + M * torch.arange(R, dtype=local_idx.dtype,
+                                       device=local_idx.device)[:, None]
+    new, _ = insert(cal, row.reshape(-1), epochs.reshape(-1),
+                    batch.ts.reshape(-1), batch.seed.reshape(-1),
+                    batch.payload.reshape(-1), insertable.reshape(-1))
+    # per replication: what it offered minus what its rows took.
+    cal_ovf = insertable.sum(-1) - (new.cnt - cal.cnt).view(R, -1).sum(1)
+    cal = new
     fb, fb_ovf = fallback_put(fb, EventBatch(batch.dst, batch.ts, batch.seed,
                                              batch.payload, beyond))
     return cal, fb, cal_ovf, fb_ovf, late, n_oob

@@ -17,10 +17,15 @@ from .base import Router, register_router
 
 
 def _select_send_global(prod: EventBatch, eligible: torch.Tensor, cfg):
-    """First-come selection: the first route_cap eligible events are sent."""
-    rank = torch.cumsum(eligible.to(torch.int64), dim=0) - 1
+    """First-come selection: the first route_cap eligible events are sent.
+    Per replication along the last dim of a stacked [R, E] batch."""
+    e = eligible.to(torch.int64)
+    # one scan over every row at once (a scan along the rows of a stack
+    # runs one thread block per row on the card), less each row's start.
+    cs = torch.cumsum(e.reshape(-1), 0).view(e.shape)
+    rank = cs - (cs[..., -1:] - e.sum(-1, keepdim=True)) - 1
     send = eligible & (rank < cfg.route_cap)
-    ovf = (eligible & ~send).sum()
+    ovf = (eligible & ~send).sum(-1)
     buf = truncate(compact_mask(prod, send), cfg.route_cap)
     return buf, send, ovf
 

@@ -20,6 +20,13 @@ All honor the emission contract: each processed event may emit
 0..``model.max_out`` events, flagged by ``valid``.  The rounds, packed and
 ltf loops are bounded by one value read on the host per epoch (the round
 count, the tile count, the event total): their ``host_syncs`` is 1.
+
+Stacked replications (``reps > 1``): ``batch`` and ``batch-model`` take the
+rows of R replications at once and hand back each replication's emissions
+in its own order.  ``batch-packed`` and ``ltf`` order their emissions
+across all rows (tiles of the round-major work list, global time), which
+the stack would mix, so they take one replication only (``stacks =
+False``) and the engine refuses R > 1 under them by name.
 """
 from __future__ import annotations
 
@@ -31,6 +38,19 @@ from ..api import SimModel
 from ..events import EventBatch, to_f32
 from .base import Scheduler, register_scheduler
 from .packing import pack_slice
+
+
+def refuse_stacking(scheduler: Scheduler, reps: int) -> None:
+    """Raise, naming the scheduler, if it cannot take ``reps`` stacked
+    replications."""
+    if reps > 1 and not scheduler.stacks:
+        what = ("batch_impl='packed'" if scheduler.name == "batch-packed"
+                else f"scheduler={scheduler.name!r}")
+        raise ValueError(
+            f"{what} does not run R={reps} stacked replications: its "
+            f"emission order spans every row of the stack, so a replication "
+            f"would not keep its own order; run the seeds one by one, or "
+            f"under batch_impl='rounds' or 'model'")
 
 
 def _emission_buffer(lead: tuple, mo: int, dev) -> EventBatch:
@@ -46,17 +66,22 @@ def _emission_buffer(lead: tuple, mo: int, dev) -> EventBatch:
 
 
 def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
-                         cnt_b, lookahead: float):
+                         cnt_b, lookahead: float, reps: int = 1):
     """Round r applies the r-th (ts,seed)-ordered event of every object.
 
     The round count ``max(cnt_b)`` is read on the host (one device sync per
-    call) and bounds the Python loop.
+    call) and bounds the Python loop.  Each replication's emissions are
+    flattened (round, row, slot), as its own run flattens them; a round past
+    a replication's own deepest row leaves its slots as the emission buffer
+    holds them, as its own run (which stops there) does.
     """
     n_rows, C = ts_s.shape
+    M, mo = n_rows // reps, model.max_out
     dev = ts_s.device
-    out = _emission_buffer((C, n_rows), model.max_out, dev)
-    lv = torch.zeros((), dtype=torch.int64, device=dev)
+    out = _emission_buffer((reps, C, M), mo, dev)
+    lv = torch.zeros((n_rows,), dtype=torch.int64, device=dev)
     max_r = int(cnt_b.max()) if n_rows else 0
+    own_max = cnt_b.view(reps, M).amax(1) if reps > 1 and M else None
     L = to_f32(lookahead)
     for r in range(max_r):
         ets, eseed, epay = ts_s[:, r], seed_s[:, r], pay_s[:, r]
@@ -65,14 +90,20 @@ def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
         obj = {k: torch.where(m.view((-1,) + (1,) * (v.ndim - 1)),
                               new_obj[k], v) for k, v in obj.items()}
         ev_valid = emitted.valid & m[:, None]
-        lv = lv + (ev_valid & (emitted.ts < ets[:, None] + L)).sum()
-        out.dst[r] = emitted.dst
-        out.ts[r] = torch.where(ev_valid, emitted.ts, float("inf"))
-        out.seed[r] = emitted.seed
-        out.payload[r] = emitted.payload
-        out.valid[r] = ev_valid
-    flat = EventBatch(*(x.reshape(-1) for x in out))
-    return obj, flat, lv
+        lv = lv + (ev_valid & (emitted.ts < ets[:, None] + L)).sum(1)
+        dst, seed, pay = emitted.dst, emitted.seed, emitted.payload
+        if own_max is not None:
+            live = (r < own_max).repeat_interleave(M)[:, None]
+            dst, seed = torch.where(live, dst, 0), torch.where(live, seed, 0)
+            pay = torch.where(live, pay, 0.0)
+        out.dst[:, r] = dst.view(reps, M, mo)
+        out.ts[:, r] = torch.where(ev_valid, emitted.ts,
+                                   float("inf")).view(reps, M, mo)
+        out.seed[:, r] = seed.view(reps, M, mo)
+        out.payload[:, r] = pay.view(reps, M, mo)
+        out.valid[:, r] = ev_valid.view(reps, M, mo)
+    flat = EventBatch(*(x.reshape(reps, -1) for x in out))
+    return obj, flat, lv.view(reps, M).sum(1)
 
 
 def process_batch_packed(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
@@ -94,7 +125,7 @@ def process_batch_packed(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
     out = _emission_buffer((k_pad,), model.max_out, dev)
     lv = torch.zeros((), dtype=torch.int64, device=dev)
     if k_pad == 0:
-        return obj, EventBatch(*(x.reshape(-1) for x in out)), lv
+        return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)
     L = to_f32(lookahead)
     # one extra row per leaf: the sentinel the dead lanes write to.
     work = {k: torch.cat([v, v[:1]]) for k, v in obj.items()}
@@ -118,7 +149,7 @@ def process_batch_packed(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
         out.payload[sl] = emitted.payload
         out.valid[sl] = ev_valid
     obj = {k: v[:n_rows] for k, v in work.items()}
-    return obj, EventBatch(*(x.reshape(-1) for x in out)), lv
+    return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)
 
 
 @register_scheduler("batch")
@@ -127,9 +158,9 @@ class BatchRoundsScheduler(Scheduler):
 
     host_syncs = 1   # the round count
 
-    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
         return process_batch_rounds(model, obj, ts_s, seed_s, pay_s, cnt_b,
-                                    cfg.lookahead)
+                                    cfg.lookahead, reps)
 
 
 @register_scheduler("batch-model")
@@ -141,9 +172,14 @@ class ModelKernelScheduler(Scheduler):
         if not hasattr(model, "process_batch"):
             raise ValueError("batch_impl='model' needs model.process_batch")
 
-    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
-        return model.process_batch(obj, ts_s, seed_s, pay_s, cnt_b,
-                                   cfg.lookahead)
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
+        # the kernel is row-local: R * M rows are one launch, and each row's
+        # emissions are (row, slot)-ordered, so a replication's are its
+        # own run's.
+        obj, out, lv = model.process_batch(obj, ts_s, seed_s, pay_s, cnt_b,
+                                           cfg.lookahead)
+        return (obj, EventBatch(*(x.view(reps, -1) for x in out)),
+                lv.view(reps, -1).sum(1))
 
 
 @register_scheduler("batch-packed")
@@ -152,8 +188,10 @@ class PackedBatchScheduler(Scheduler):
     occupied event slots, in ``pack_tile``-wide tiles."""
 
     host_syncs = 1   # the tile count
+    stacks = False   # tiles span every row of the stack
 
-    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
+        refuse_stacking(self, reps)
         return process_batch_packed(model, obj, ts_s, seed_s, pay_s, cnt_b,
                                     cfg.lookahead, cfg.pack_tile)
 
@@ -169,8 +207,10 @@ class LtfScheduler(Scheduler):
     """
 
     host_syncs = 1   # the event total
+    stacks = False   # one global time order over every row of the stack
 
-    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b):
+    def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
+        refuse_stacking(self, reps)
         n_rows, C = ts_s.shape
         dev = ts_s.device
         rows = torch.arange(n_rows, device=dev).repeat_interleave(C)
@@ -204,4 +244,4 @@ class LtfScheduler(Scheduler):
             out.seed[i] = emitted.seed[0]
             out.payload[i] = emitted.payload[0]
             out.valid[i] = emitted.valid[0]
-        return obj, EventBatch(*(x.reshape(-1) for x in out)), lv
+        return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)

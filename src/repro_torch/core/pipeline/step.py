@@ -10,15 +10,28 @@ their fail-fast validation and returns the step function.
 Out-of-range destinations are triaged at the producer: counted in
 ``stats.oob_events`` and excluded from routing and the fallback.
 
+Stacked replications (``replicated=True``, the port of the reference's
+``jax.vmap`` of the step over R): every leaf of the state leads with R
+(:class:`~.base.EngineState`).  The per-row stages (extract, process) take
+the ``[R * M, ...]`` views of the calendar and the object state, each row
+at its replication's epoch, so the scheduler runs once for all R (one
+``event_apply`` launch under ``batch-model``); the per-simulation stages
+(route triage and selection, the fallback, deliver, the counters) work
+along dim 1 of ``[R, E]`` event batches, so each replication keeps its own
+caps, counts and event order.  The classic step is the same code on a
+stack of one.
+
 ``gated=True`` builds the step of the fused drain: it counts the events in
-flight (calendar + fallback) before the epoch and advances ``epoch`` by
-``pending > 0`` instead of by 1.  A drained state's calendar, object state
-and counters are already a fixpoint (an empty bucket processes, routes and
-delivers nothing); its fallback holds no event, but a step rewrites the
-fields of its empty slots, so the gated step keeps the old fallback when
-nothing was in flight.  A drained state is then a bit-exact fixpoint, and
-k gated epochs past the drain equal stopping at it, as the JAX engine's
-``while_loop`` does.
+flight (calendar + fallback) before the epoch, per replication, and
+advances that replication's ``epoch`` by ``pending > 0`` instead of by 1.
+A drained state's calendar, object state and counters are already a
+fixpoint (an empty bucket processes, routes and delivers nothing); its
+fallback holds no event, but a step rewrites the fields of its empty
+slots, so the gated step keeps the old fallback when nothing was in
+flight.  A drained state (or a drained replication of a stack) is then a
+bit-exact fixpoint, and k gated epochs past the drain equal stopping at
+it, as the JAX engine's ``while_loop`` does, or the freeze of its
+replicated drain (``_freeze_replications``, ``placement="equal"``).
 """
 from __future__ import annotations
 
@@ -27,24 +40,36 @@ from typing import Callable
 import torch
 
 from ..api import SimModel
-from ..calendar import Fallback, extract_sorted
+from ..calendar import Calendar, Fallback, extract_sorted
 from ..events import EventBatch, compact_mask, concat_batches, truncate
 from ..placement import Placement
 from . import routers, schedulers  # noqa: F401  (registration imports)
-from .base import EngineState, epoch_of, resolve_router, resolve_scheduler
+from .base import (EngineState, epoch_of, replica, resolve_router,
+                   resolve_scheduler, stack_of_one)
 from .config import EngineConfig
 from .deliver import deliver
 
 
 def in_flight(state: EngineState):
-    """Events parked in the calendar and the fallback (a 0-dim tensor)."""
+    """Events parked in the calendar and the fallback (a 0-dim tensor;
+    summed over the replications of a stacked state)."""
     return state.cal.cnt.sum() + state.fb.events.valid.sum()
 
 
+def pending_per_replication(state: EngineState) -> torch.Tensor:
+    """Events in flight per replication of a stacked state, i64 [R]."""
+    return (state.cal.cnt.flatten(1).sum(1)
+            + state.fb.events.valid.flatten(1).sum(1))
+
+
 def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
-              gated: bool = False) -> Callable[[EngineState], EngineState]:
+              gated: bool = False, replicated: bool = False
+              ) -> Callable[[EngineState], EngineState]:
+    """The epoch step: of one simulation, or with ``replicated`` of a
+    stacked state of any number of replications."""
     N = cfg.n_buckets
     O = placement.n_objects
+    M = placement.n_local_max
     dev = 0
 
     scheduler = resolve_scheduler(cfg)
@@ -52,29 +77,34 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     scheduler.validate(model, cfg)
     router.validate(cfg, placement)
 
-    def step(state: EngineState) -> EngineState:
-        advance = (in_flight(state) > 0).to(torch.int32) if gated else 1
-        cur = state.epoch[0]
-        pl = placement.with_boundaries(state.bounds[0])
+    def stacked(state: EngineState) -> EngineState:
+        R = state.epoch.shape[0]
+        cur = state.epoch[:, 0]
+        if gated:
+            advance = (pending_per_replication(state) > 0).to(torch.int32)
+        pl = placement.with_boundaries(state.bounds[0, 0])
 
-        # 1. extract — drain the calendar bucket of the current epoch.
-        cal, ts_s, seed_s, pay_s, cnt_b = extract_sorted(state.cal, cur)
+        # 1. extract — drain each row's bucket of its replication's epoch.
+        flat = Calendar(*(x.flatten(0, 1) for x in state.cal))
+        cal, ts_s, seed_s, pay_s, cnt_b = extract_sorted(
+            flat, cur.repeat_interleave(M))
 
         # 2.+3. process (no stealing on one device).
-        obj, out_flat, lv = scheduler.process(model, cfg, state.obj, ts_s,
-                                              seed_s, pay_s, cnt_b)
-        proc_count = cnt_b.sum()
+        obj = {k: v.flatten(0, 1) for k, v in state.obj.items()}
+        obj, out, lv = scheduler.process(model, cfg, obj, ts_s, seed_s,
+                                         pay_s, cnt_b, R)
+        proc_count = cnt_b.view(R, M).sum(1)
 
         # 4. route — producer-side triage (fresh events + fallback entries),
         # selection against the route capacity, then the exchange.
-        prod = concat_batches(out_flat, state.fb.events)
+        prod = concat_batches(out, state.fb.events)
         epochs = epoch_of(prod.ts, cfg.epoch_len)
+        c = cur[:, None]
         oob = prod.valid & ((prod.dst < 0) | (prod.dst >= O))
-        n_oob = oob.sum()
-        eligible = prod.valid & ~oob & (epochs >= cur + 1) \
-            & (epochs <= cur + N)
-        late_prod = prod.valid & ~oob & (epochs <= cur)
-        n_late_prod = late_prod.sum()
+        n_oob = oob.sum(-1)
+        eligible = prod.valid & ~oob & (epochs >= c + 1) & (epochs <= c + N)
+        late_prod = prod.valid & ~oob & (epochs <= c)
+        n_late_prod = late_prod.sum(-1)
 
         route_buf, send, route_ovf = router.select_send(prod, eligible, pl,
                                                         cfg)
@@ -82,7 +112,7 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         keep = prod.valid & ~send & ~late_prod & ~oob
         kept = compact_mask(prod, keep)
         fb = Fallback(truncate(kept, cfg.fallback_cap))
-        fb_ovf = kept.valid[cfg.fallback_cap:].sum()
+        fb_ovf = kept.valid[..., cfg.fallback_cap:].sum(-1)
 
         routed = router.exchange(route_buf, pl, cfg)
 
@@ -90,21 +120,35 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         cal, fb, cal_ovf, fb_ovf2, late2, oob2 = deliver(
             cal, fb, routed, cur, dev, pl, cfg, init=False)
 
+        def add(counter, n):
+            return counter + n[:, None]
+
         st = state.stats
         stats = st._replace(
-            processed=st.processed + proc_count,
-            cal_overflow=st.cal_overflow + cal_ovf,
-            fb_overflow=st.fb_overflow + fb_ovf + fb_ovf2,
-            route_overflow=st.route_overflow + route_ovf,
-            late_events=st.late_events + n_late_prod + late2,
-            lookahead_violations=st.lookahead_violations + lv,
-            oob_events=st.oob_events + n_oob + oob2,
+            processed=add(st.processed, proc_count),
+            cal_overflow=add(st.cal_overflow, cal_ovf),
+            fb_overflow=add(st.fb_overflow, fb_ovf + fb_ovf2),
+            route_overflow=add(st.route_overflow, route_ovf),
+            late_events=add(st.late_events, n_late_prod + late2),
+            lookahead_violations=add(st.lookahead_violations, lv),
+            oob_events=add(st.oob_events, n_oob + oob2),
         )
         if gated:
             fb = Fallback(EventBatch(*(
-                torch.where(advance > 0, new, old)
+                torch.where(advance[:, None] > 0, new, old)
                 for new, old in zip(fb.events, state.fb.events))))
-        return EngineState(cal, fb, obj, state.epoch + advance, stats,
-                           state.bounds, state.load)
+            epoch = state.epoch + advance[:, None]
+        else:
+            epoch = state.epoch + 1
+        cal = Calendar(*(x.unflatten(0, (R, M)) for x in cal))
+        obj = {k: v.unflatten(0, (R, M)) for k, v in obj.items()}
+        return EngineState(cal, fb, obj, epoch, stats, state.bounds,
+                           state.load)
+
+    if replicated:
+        return stacked
+
+    def step(state: EngineState) -> EngineState:
+        return replica(stacked(stack_of_one(state)), 0)
 
     return step

@@ -6,7 +6,10 @@ were fetched to the host (``jax.device_get``: numpy arrays, u32 seeds) into
 the port's :class:`~repro_torch.core.pipeline.base.EngineState` on a given
 device, so both engines can continue from the same mid-run state;
 :func:`engine_state_to_numpy` goes the other way.  The input is read by
-field name only, so this module imports nothing of the JAX package.
+field name only, so this module imports nothing of the JAX package.  A
+stacked state of R replications (the JAX ``init_replicated`` /
+``run_replicated_drained`` carry, every leaf with a leading R) crosses the
+same way: both packages lay it out alike, so no leaf changes shape.
 
 Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
@@ -40,7 +43,8 @@ def _to(a, device, dtype=None) -> torch.Tensor:
 
 
 def engine_state_from_numpy(tree, device="cuda") -> EngineState:
-    """A host copy of a JAX ``EngineState`` → the port's ``EngineState``."""
+    """A host copy of a JAX ``EngineState`` (one simulation or a stack of
+    replications) → the port's ``EngineState``."""
     dev = resolve_device(device)
     seed = lambda a: _to(np.asarray(a, np.uint32), dev, np.int64)  # noqa: E731
     cal = Calendar(ts=_to(tree.cal.ts, dev), seed=seed(tree.cal.seed),

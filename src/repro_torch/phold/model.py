@@ -167,7 +167,9 @@ class Phold(SimModel):
     def process_batch(self, state, ts_s, seed_s, pay_s, cnt_b, lookahead):
         """Apply each object's sorted epoch batch in one kernel call
         (:mod:`repro_torch.kernels.event_apply`).  Updates the object state
-        in place.  Drop-in for the engine's rounds loop."""
+        in place.  Drop-in for the engine's rounds loop.  The rows may be
+        several stacked replications: nothing here depends on a row's
+        index.  Returns the lookahead violations per row."""
         from ..kernels import ops
         p = self.params
         (pay2, addr2, top2, odst, ots, oseed, opay, ovalid) = ops.event_apply(
@@ -180,7 +182,7 @@ class Phold(SimModel):
         out = EventBatch(dst=odst.reshape(-1), ts=ots.reshape(-1),
                          seed=oseed.reshape(-1), payload=opay.reshape(-1),
                          valid=valid.reshape(-1))
-        lv = (valid & (ots < ts_s + ev.to_f32(lookahead))).sum()
+        lv = (valid & (ots < ts_s + ev.to_f32(lookahead))).sum(1)
         return new_state, out, lv
 
     # -- numpy mirror (sequential oracle) --------------------------------------

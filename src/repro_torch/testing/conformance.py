@@ -9,6 +9,9 @@ The port's face of ``repro/testing/conformance.py``.  A run passes when
      multiset, since the event tree is a pure function of the seeds);
   4. for dyadic workloads, the object state equals the oracle's bit for bit.
 
+:func:`check_workload_replicated` holds every replication of a stacked
+drain to the same four checks against its own seed's oracle.
+
 ``SWEEP`` holds the engine-config points this slice of the port supports.
 """
 from __future__ import annotations
@@ -118,6 +121,51 @@ def run_conformance(model: Any, overrides: dict, *, n_epochs: int,
     pend = assert_vs_oracle(eng, st, tot, ref, dyadic, ctx)
     return {"totals": tot, "pending": int(pend.shape[0]), "ref": ref,
             "config": kw, "n_epochs": n_epochs, "engine": eng, "state": st}
+
+
+def check_workload_replicated(name: str, config: str, *, replications: int,
+                              device="cuda") -> dict:
+    """Conformance-check the replicated drain (the port's face of the
+    reference's ``check_workload_replicated``).
+
+    Runs ``replications`` seeds of the workload stacked through one
+    ``run_replicated_drained`` (bounded by the workload's conformance
+    horizon), then holds every replication to the full contract against
+    its own seeded sequential oracle: clean counters, processed count,
+    pending multiset, bit-exact dyadic state.
+    """
+    spec = conformance_spec(name)
+    overrides = dict(SWEEP[config])
+    if overrides.get("batch_impl") == "model" \
+            and not spec["supports_batch_impl"]:
+        raise ValueError(f"workload {name} has no process_batch")
+    model = get_workload(name, **spec["model_kw"])
+    n_epochs = spec["n_epochs"]
+    lookahead = model.params.lookahead
+    frac = overrides.pop("epoch_len_frac", None)
+    kw = dict(lookahead=lookahead)
+    kw.update(spec["engine_kw"])
+    kw.update(overrides)
+    if frac is not None:
+        kw["epoch_len"] = lookahead * frac
+        n_epochs = int(round(n_epochs / frac))
+    cfg = EngineConfig(**kw)
+
+    eng = ParsirEngine(model, cfg, device=device)
+    seeds = list(range(replications))
+    st = eng.run_replicated_drained(eng.init_replicated(seeds), n_epochs)
+    totals = eng.totals_replicated(st)
+    processed = []
+    for r, seed in enumerate(seeds):
+        ctx = (f"[{name}/{config} R={replications} rep={r} seed={seed}: "
+               f"batch_impl={cfg.batch_impl} device={eng.device}]")
+        assert_clean(totals[r], context=ctx)
+        ref = run_sequential(model, n_epochs, cfg.epoch_len, seed=seed)
+        assert_vs_oracle(eng, eng.replication(st, r), totals[r], ref,
+                         spec["dyadic"], ctx)
+        processed.append(totals[r]["processed"])
+    return {"processed": processed, "totals": totals, "config": kw,
+            "n_epochs": n_epochs, "engine": eng, "state": st}
 
 
 def supported_configs(name: str) -> list[str]:

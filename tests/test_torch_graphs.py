@@ -13,7 +13,12 @@ without a device; JAX is not needed):
   call raises instead of falling back to the eager loop;
 * the packed and ltf schedulers, whose loop bounds are host reads, build no
   graphs and end every workload's recipe with the oracle's and the CPU's
-  bits.
+  bits;
+* the replicated drain replays graphs of the stacked step under
+  ``batch-model`` (one ``event_apply`` launch an epoch, one flag read a
+  chunk, a new set of graphs for a new R) and runs eagerly under
+  ``rounds``; each replication equals its own graphed drain, the stack the
+  CPU's bits and each replication its oracle.
 """
 import os
 import subprocess
@@ -74,8 +79,8 @@ def _engine(name, dev, **cfg_kw):
     spec = treg.conformance_spec(name)
     model = treg.get_workload(name, **spec["model_kw"])
     cfg = EngineConfig(lookahead=model.params.lookahead,
-                       **dict(spec["engine_kw"], batch_impl="model",
-                              **cfg_kw))
+                       **dict(spec["engine_kw"],
+                              **{"batch_impl": "model", **cfg_kw}))
     return teng.ParsirEngine(model, cfg, device=dev), spec
 
 
@@ -157,6 +162,54 @@ def test_launch_counter_counts_replays_on_card():
     torch.cuda.synchronize()
     warm2 = eng.graphs.warmup_steps - warm
     assert event_apply_cuda.launches - before == 60 + warm2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,impl,R", [("phold", "model", 4),
+                                         ("phold-hotspot", "model", 3),
+                                         ("wireless", "rounds", 8)])
+def test_replicated_drain_equals_independent_drains_on_card(name, impl, R):
+    dev = _card()
+    eng, spec = _engine(name, dev, batch_impl=impl)
+    n = spec["n_epochs"] + 5
+    before, syncs = event_apply_cuda.launches, eng.syncs
+    st = eng.run_replicated_drained(eng.init_replicated(range(R)), n)
+    torch.cuda.synchronize()
+    graphed = impl == "model"
+    assert (eng.rep_graphs is not None) == graphed
+    chunks = -(-n // K)
+    assert eng.syncs - syncs == chunks + (0 if graphed else n)
+    if graphed:
+        assert st is eng.rep_graphs.static
+        assert event_apply_cuda.launches - before \
+            == n + eng.rep_graphs.warmup_steps      # one launch an epoch
+    st = tgraphs.clone_state(st)
+    cpu, _ = _engine(name, "cpu", batch_impl=impl)
+    on_cpu = cpu.run_replicated_drained(cpu.init_replicated(range(R)), n)
+    for x, y in zip(tgraphs.leaves(st), tgraphs.leaves(on_cpu), strict=True):
+        assert torch.equal(x.cpu(), y), f"{name}: card != CPU"
+    for r in range(R):
+        ref = eng.run_until_drained(eng.init(seed=r), n)
+        _assert_same(eng.replication(st, r), ref, f"{name} rep {r}")
+    rep = tconf.check_workload_replicated(
+        name, "batch-model" if graphed else "batch-allgather",
+        replications=R, device=dev)
+    assert len(rep["processed"]) == R
+
+
+@pytest.mark.cuda
+def test_replicated_graphs_follow_the_replication_count_on_card():
+    dev = _card()
+    eng, _ = _engine("phold", dev)
+    st = eng.run_replicated_drained(eng.init_replicated(range(2)), 21)
+    first = eng.rep_graphs
+    assert first.captures == 3 and int(st.epoch.sum()) == 42  # 16, 4, 1
+    st = eng.run_replicated_drained(eng.init_replicated(range(2)), 37)
+    assert eng.rep_graphs is first and first.captures == 3
+    st = eng.run_replicated_drained(eng.init_replicated(range(5)), 16)
+    assert eng.rep_graphs is not first and eng.rep_graphs.captures == 1
+    assert st.epoch[:, 0].tolist() == [16] * 5
+    assert eng.graphs.captures == 0   # the classic graphs are apart
 
 
 CAPTURE_FAILS = r'''

@@ -42,6 +42,39 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_scans_cover_the_campaign_layer():
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    found = set(out.stdout.split())
+    files = set(PKG.rglob("*.py"))
+    for mod in ("campaign", "campaign.spec", "campaign.store",
+                "campaign.runner", "launch.campaign"):
+        assert f"repro_torch.{mod}" in found, mod
+        path = PKG.joinpath(*mod.split("."))
+        assert (path / "__init__.py" if path.is_dir()
+                else path.with_suffix(".py")) in files, mod
+
+
+def test_campaign_needs_a_card_unless_asked_for_the_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.campaign import CampaignSpec, ResultsStore, run_campaign
+    spec = CampaignSpec(workload="wireless", seeds=(0,),
+                        base_model_kw=dict(n_cells=6, n_channels=2,
+                                           max_calls=2, handoff_p=0),
+                        engine_kw=dict(lookahead=0.5, n_buckets=8,
+                                       bucket_cap=64, route_cap=512,
+                                       fallback_cap=512), max_epochs=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_campaign(spec, store=ResultsStore(tmp_path))
+    assert not any(tmp_path.iterdir())
+    assert run_campaign(spec, device="cpu")["undrained"] == []
+
+
 def test_sources_import_neither_jax_nor_repro():
     files = (sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
              + [ROOT / "chip_smoke.py"])

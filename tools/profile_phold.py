@@ -17,16 +17,20 @@ of device values, device busy time (sum of the device-side ops: kernels,
 memcpy, memset) and its share of the untraced wall time, device ops
 launched, and the device ops and operators with the most device time.
 ``--impl`` replaces the configuration's scheduler (``model`` for the PHOLD
-configurations, ``rounds`` for the zoo).  Run from the repository root on a
-machine with a CUDA card::
+configurations, ``rounds`` for the zoo).  ``--replications R`` runs R
+stacked replications (seeds 0..R-1) through ``run_replicated_drained``
+instead (on the card: replays of CUDA graphs of the stacked step under
+``model``, eager chunks under the host-read schedulers); its events are
+summed over the replications.  Run from the repository root on a machine
+with a CUDA card::
 
     python3 tools/profile_phold.py [--config main|hotspot|<zoo id>]
-        [--impl rounds|packed|ltf] [--mode graphed|eager] [--epochs 16]
-        [--out DIR]
+        [--impl rounds|packed|ltf] [--mode graphed|eager]
+        [--replications R] [--epochs 16] [--out DIR]
 
 ``--out`` (default ``artifacts/profile_phold``) receives
-``profile_phold_<config>[_<impl>]_<mode>.json`` and the Chrome trace
-``profile_phold_<config>[_<impl>]_<mode>_trace.json``.
+``profile_phold_<config>[_<impl>]_<mode>[_r<R>].json`` and the Chrome trace
+``profile_phold_<config>[_<impl>]_<mode>[_r<R>]_trace.json``.
 """
 from __future__ import annotations
 
@@ -63,10 +67,17 @@ def main(argv=None) -> int:
                     choices=("main", "hotspot", *all_workloads()))
     ap.add_argument("--impl", choices=tuple(IMPLS), default=None)
     ap.add_argument("--mode", choices=("graphed", "eager"), default="graphed")
+    ap.add_argument("--replications", type=int, default=None,
+                    help="stacked replications through "
+                         "run_replicated_drained (needs --mode graphed)")
     ap.add_argument("--epochs", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=16)
     ap.add_argument("--out", default=str(ROOT / "artifacts" / "profile_phold"))
     args = ap.parse_args(argv)
+    if args.replications is not None and (args.replications < 1
+                                          or args.mode != "graphed"):
+        ap.error("--replications takes R >= 1 and the engine's own loop "
+                 "(--mode graphed)")
 
     import torch
     from torch.autograd import DeviceType
@@ -92,16 +103,26 @@ def main(argv=None) -> int:
         model, cfg = bench_path(args.config, **IMPLS[args.impl or "rounds"])
     eng = ParsirEngine(model, cfg, device="cuda")
 
+    R = args.replications
+
     def run(st, n):
+        if R is not None:
+            return eng.run_replicated_drained(st, n)
         if args.mode == "graphed":
             return eng.run(st, n)
         for _ in range(n):
             st = eng.step(st)
         return st
 
-    st = run(eng.init(), args.warmup)
+    def processed(st):
+        if R is None:
+            return eng.totals(st)["processed"]
+        return sum(t["processed"] for t in eng.totals_replicated(st))
+
+    st = run(eng.init() if R is None else eng.init_replicated(range(R)),
+             args.warmup)
     if args.mode == "graphed":
-        st = eng.run(st, args.epochs)   # every graph of the window captured
+        st = run(st, args.epochs)       # every graph of the window captured
     torch.cuda.synchronize()
 
     # the same window untraced, for the wall time the profiler does not slow.
@@ -114,7 +135,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6 / args.epochs
     span_us = e0.elapsed_time(e1) * 1e3 / args.epochs
-    p0, syncs = eng.totals(st)["processed"], eng.syncs
+    p0, syncs = processed(st), eng.syncs
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -123,10 +144,13 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         traced_us = (time.perf_counter() - t0) * 1e6 / args.epochs
     syncs = (eng.syncs - syncs) / args.epochs
-    tot = eng.totals(st)
-    assert_clean(tot, context="profile_phold")
+    for tot in ([eng.totals(st)] if R is None
+                else eng.totals_replicated(st)):
+        assert_clean(tot, context="profile_phold")
+    events = processed(st) - p0
 
     n = args.epochs
+    graphs = eng.graphs if R is None else eng.rep_graphs
     kernels, ops = [], []
     for evt in prof.key_averages():
         dev_us = _self_device_us(evt)
@@ -144,9 +168,10 @@ def main(argv=None) -> int:
     report = {
         "card": smi, "torch": torch.__version__, "config": args.config,
         "scheduler": cfg.scheduler, "batch_impl": cfg.batch_impl,
-        "mode": args.mode, "graphed": eng.graphs is not None, "epochs": n,
+        "mode": args.mode, "graphed": graphs is not None, "epochs": n,
+        "replications": R,
         "host_syncs_per_epoch": syncs,
-        "events_per_epoch": (tot["processed"] - p0) / n,
+        "events_per_epoch": events / n,
         "wall_us_per_epoch": wall_us,
         "cuda_event_span_us_per_epoch": span_us,
         "traced_wall_us_per_epoch": traced_us,
@@ -158,14 +183,16 @@ def main(argv=None) -> int:
     }
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    tag = "_".join(filter(None, (args.config, args.impl, args.mode)))
+    tag = "_".join(filter(None, (args.config, args.impl, args.mode,
+                                 R and f"r{R}")))
     (out / f"profile_phold_{tag}.json").write_text(json.dumps(report, indent=1))
     prof.export_chrome_trace(str(out / f"profile_phold_{tag}_trace.json"))
 
     print(f"card: {smi}, torch {torch.__version__}; {args.config} "
           f"configuration, scheduler {cfg.scheduler}, batch_impl "
           f"{cfg.batch_impl}, {args.mode}"
-          f"{' (CUDA graphs)' if eng.graphs is not None else ''}")
+          f"{' (CUDA graphs)' if graphs is not None else ''}"
+          f"{f', {R} stacked replications' if R else ''}")
     print(f"{n} epochs: wall {wall_us:.1f} us/epoch untraced (CUDA-event "
           f"span {span_us:.1f}), {traced_us:.1f} traced, "
           f"{report['events_per_epoch']:.0f} events/epoch, host syncs/epoch "
