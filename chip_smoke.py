@@ -98,6 +98,28 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 and busy share of each; ``run_campaign`` over max_calls
                 {2, 4} x 8 seeds into a temporary store, then again,
                 resuming both points;
+  speculation. — speculation (``opt_window``; every kernel counter set to 0
+                before it and read after): PHOLD's main path through the
+                graphed speculative ``run`` at W = 0 (the baseline), 1, 2
+                and 4: 32 epochs against the oracle, 256 epochs equal to
+                the conservative graphed run (object state, calendar
+                counts, clean Stats, processed), landing on epoch 256 with
+                ceil(256 / (W + 1)) commits and no rollback, one flag read
+                per chunk and W + 1 event_apply launches a step counted
+                under replay, timed (ms/epoch by CUDA events and host
+                clock, steps, host syncs, peak memory) and profiled (busy
+                share, ops per step, event_apply µs per launch); at W = 2
+                64 graphed epochs against the same speculative steps run
+                eagerly, leaf by leaf, and the shadow's copy and the select
+                of one window timed; W = 2 with a rollback every 2 windows
+                (the meters equal the host predictor, the bits the
+                conservative run's); PHOLD's main path x 8 through the
+                speculative replicated drain at W = 2, each replication
+                equal to the conservative stacked drain; and the reference
+                bench's speculation rung at one device (wireless at bench
+                scale, max_calls=4, rounds, eager) drained at W = 0, 1, 2,
+                4 and under the adaptive controller from W = 4: the same
+                bits, fewer windows than the W = 0 drain's epochs;
   7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
@@ -1170,6 +1192,472 @@ def replications_phase(dev, ref, flush):
                         f"{t1 - t0:.1f} s, campaign rung {t2 - t1:.1f} s, "
                         f"run_campaign {t3 - t2:.1f} s")
     return ea
+
+
+# -- speculation (phase speculation) ------------------------------------------------
+
+#: the window widths on the main path; the epochs held against the
+#: conservative run and timed, held against the oracle, run eagerly
+#: against the graphs, and profiled; the injected rollback period.
+SPEC_WIDTHS, SPEC_EPOCHS, SPEC_CHECKED, SPEC_EAGER = (1, 2, 4), 256, 32, 64
+SPEC_PROFILED, SPEC_INJECT = 48, 2
+#: replicated speculation: seeds and drain bound (PHOLD main path, W = 2).
+SPEC_REP_SEEDS, SPEC_REP_EPOCHS = 8, 64
+#: the drain rung: the reference bench's ``it6_speculation`` (wireless at
+#: bench scale, max_calls=4) at D = 1, its widths, bound and the adaptive
+#: controller's starting width.
+SPEC_DRAIN_WIDTHS, SPEC_DRAIN_BOUND, SPEC_ADAPTIVE_W0 = (0, 1, 2, 4), 256, 4
+
+
+def predict_meters(chunks, W, inject):
+    """The host twin of the speculative engine's window walk: (commits,
+    rollbacks) over ``run`` calls of ``chunks`` epochs.  A committed
+    window advances ``w_eff + 1`` epochs (clamped to the call's bound), an
+    injected abort 1; injection fires on every ``inject``-th window where
+    ``w_eff > 0``."""
+    e, cm, rb = 0, 0, 0
+    for c in chunks:
+        bound = e + c
+        while e < bound:
+            w_eff = min(W, bound - e - 1)
+            if inject and (cm + rb) % inject == inject - 1 and w_eff > 0:
+                rb, e = rb + 1, e + 1
+            else:
+                cm, e = cm + 1, e + w_eff + 1
+    return cm, rb
+
+
+def predict_reads(n, W, inject):
+    """(steps, flag reads) of a speculative ``run(n)`` from epoch 0: the
+    engine's chunks of ``min(16, ceil(left / (W + 1)))`` steps, one read
+    after each, walked on the host with :func:`predict_meters`' rule."""
+    e, windows, steps, reads, left = 0, 0, 0, 0, n
+    while left > 0:
+        for _ in range(min(16, -(-left // (W + 1)))):
+            steps += 1
+            if e >= n:
+                continue
+            w_eff = min(W, n - e - 1)
+            fire = inject and windows % inject == inject - 1 and w_eff > 0
+            e += 1 if fire else w_eff + 1
+            windows += 1
+        reads += 1
+        left = n - e
+    return steps, reads
+
+
+def spec_time(eng, init, n):
+    """``run(init, n)`` timed by CUDA events and the host clock, with the
+    steps (windows), host reads, event_apply launches, replays, captures
+    and peak device memory it took.  ``init`` is consumed."""
+    import torch
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    g = eng.graphs
+    t0_tot = eng.totals(init)
+    syncs, launches = eng.syncs, event_apply_cuda.launches
+    replays, captures = g.replays, g.captures
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    st = eng.run(init, n)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tot = eng.totals(st)
+    windows = (tot["spec_commits"] + tot["rollbacks"]
+               - t0_tot["spec_commits"] - t0_tot["rollbacks"])
+    return st, dict(dev_ms=e0.elapsed_time(e1) / n, wall_ms=wall * 1e3 / n,
+                    events=tot["processed"] - t0_tot["processed"],
+                    events_per_s=(tot["processed"] - t0_tot["processed"])
+                    / wall, steps=windows or n, syncs=eng.syncs - syncs,
+                    launches=event_apply_cuda.launches - launches,
+                    replays=g.replays - replays,
+                    captures=g.captures - captures,
+                    peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+
+
+def spec_profile(eng, st, n):
+    """torch.profiler over ``run(st, n)`` (after one untraced run of the
+    same length, so that every graph it replays exists): device busy µs
+    and ops per step and per epoch, event_apply's launches and µs per
+    launch, the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    st = eng.run(st, n)
+    torch.cuda.synchronize()
+    t0_tot = eng.totals(st)
+    before = event_apply_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = eng.run(st, n)
+        torch.cuda.synchronize()
+        traced = time.perf_counter() - t0
+    tot = eng.totals(st)
+    steps = (tot["spec_commits"] + tot["rollbacks"] - t0_tot["spec_commits"]
+             - t0_tot["rollbacks"]) or n
+    rows = _device_rows(prof)
+    counted = event_apply_cuda.launches - before
+    ea = [r for r in rows if "event_apply" in r[2]]
+    if rows and sum(r[1] for r in ea) != counted:
+        raise AssertionError(f"the profiler saw {sum(r[1] for r in ea)} "
+                             f"event_apply launches, the counter {counted}")
+    busy = sum(r[0] for r in rows) if rows else None
+    return st, dict(
+        steps=steps, busy_us=busy, traced_us=traced * 1e6,
+        ops=sum(r[1] for r in rows) if rows else None,
+        ea_us=(sum(r[0] for r in ea) / counted) if ea and counted else None,
+        ea_launches=counted, rows=rows[:6])
+
+
+def _spec_same(a, b, ctx):
+    """Raise unless object state, calendar counts, epoch and the clean
+    counters and processed count of two states agree."""
+    import torch
+    from repro_torch.testing.clean import CLEAN_COUNTERS
+    for k in a.obj:
+        if not torch.equal(a.obj[k], b.obj[k]):
+            raise AssertionError(f"{ctx}: object state {k} differs")
+    if not torch.equal(a.cal.cnt, b.cal.cnt) \
+            or not torch.equal(a.epoch, b.epoch):
+        raise AssertionError(f"{ctx}: calendar counts or epoch differ")
+    for k in CLEAN_COUNTERS + ("processed",):
+        if not torch.equal(getattr(a.stats, k), getattr(b.stats, k)):
+            raise AssertionError(f"{ctx}: Stats.{k} differs")
+
+
+def spec_shadow_cost(eng, st, flush, reps=20):
+    """The shadow and the select of one window at the main path's width,
+    timed by CUDA events: the object state's copy and the window's
+    buckets (``take_buckets``), then the per-replication select of the
+    object state (in place) and of the calendar (``put_buckets`` and a
+    ``torch.where`` per field)."""
+    import torch
+    from repro_torch.core.calendar import Calendar, put_buckets, take_buckets
+    W = eng.cfg.opt_window
+    M = eng.placement.n_local_max
+    first = (st.epoch.reshape(-1) + 1).repeat_interleave(M)
+    obj = st.obj
+    keep = torch.ones((M,), dtype=torch.bool, device=st.epoch.device)
+
+    def shadow():
+        return (take_buckets(st.cal, first, W),
+                {k: v.clone() for k, v in obj.items()})
+
+    def select(sh):
+        cal_sh, obj_sh = sh
+        a = put_buckets(st.cal, first, cal_sh)
+        cal = Calendar(*(torch.where(keep.view((-1,) + (1,) * (x.ndim - 1)),
+                                     x, y) for x, y in zip(st.cal, a)))
+        for k, v in obj.items():
+            torch.where(keep.view((-1,) + (1,) * (v.ndim - 1)), v,
+                        obj_sh[k], out=v)
+        return cal
+
+    out = {}
+    sh = shadow()
+    for name, fn in (("shadow", shadow), ("select", lambda: select(sh))):
+        ts = []
+        for _ in range(reps):
+            flush.zero_()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        out[name] = statistics.median(ts)
+    nbytes = sum(v.numel() * v.element_size() for v in obj.values())
+    out["obj_bytes"] = nbytes
+    out["cal_bytes"] = sum(x.numel() * x.element_size() for x in st.cal)
+    return out
+
+
+def spec_main(dev, ref, smi):
+    """PHOLD's main path under speculation: the conservative graphed
+    run(256) as the baseline, then each width W: run(32) against the
+    oracle ``ref``, run(256) against the baseline (object state, counts,
+    clean Stats, processed; epoch 256; ceil(256 / (W + 1)) commits, no
+    rollback; one flag read per chunk, W + 1 event_apply launches a step,
+    counted under replay), timed a second time, profiled; at W = 2 the
+    graphed run against the same steps run eagerly, and the shadow's
+    cost; then injected rollbacks at W = 2."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import ParsirEngine, spec_flag
+    from repro_torch.core.graphs import clone_state
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.testing.conformance import assert_vs_oracle
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    eng0 = ParsirEngine(model, cfg, device=dev)
+    init0 = eng0.init()
+    eng0.run(clone_state(init0), SPEC_EPOCHS)               # captures
+    base, t0 = spec_time(eng0, clone_state(init0), SPEC_EPOCHS)
+    base = clone_state(base)
+    _, p0 = spec_profile(eng0, clone_state(base), SPEC_PROFILED)
+    results = {0: (t0, p0)}
+    del eng0
+    for W in SPEC_WIDTHS:
+        eng = ParsirEngine(model, dataclasses.replace(cfg, opt_window=W),
+                           device=dev)
+        if eng.graphs is None:
+            raise AssertionError("the speculative main path is not graphed")
+        init = eng.init()
+        s32 = eng.run(clone_state(init), SPEC_CHECKED)
+        tot = eng.totals(s32)
+        assert_clean(tot, context=f"speculative PHOLD W={W}")
+        assert_vs_oracle(eng, s32, tot, ref, True, f"[spec PHOLD W={W}]")
+        eng.run(clone_state(init), SPEC_EPOCHS)              # captures
+        st, t = spec_time(eng, clone_state(init), SPEC_EPOCHS)
+        tot = eng.totals(st)
+        want = -(-SPEC_EPOCHS // (W + 1))
+        _spec_same(st, base, f"speculative PHOLD W={W} run({SPEC_EPOCHS})")
+        if (tot["spec_commits"], tot["rollbacks"]) != (want, 0) \
+                or int(st.epoch[0]) != SPEC_EPOCHS:
+            raise AssertionError(f"W={W}: {tot['spec_commits']} commits, "
+                                 f"{tot['rollbacks']} rollbacks, epoch "
+                                 f"{int(st.epoch[0])}")
+        if (t["steps"], t["syncs"]) != predict_reads(SPEC_EPOCHS, W, 0) \
+                or t["launches"] != (W + 1) * want or t["captures"]:
+            raise AssertionError(f"W={W}: {t['syncs']} host reads, "
+                                 f"{t['launches']} event_apply launches, "
+                                 f"{t['captures']} captures in the timed "
+                                 f"run of {want} steps")
+        if W == 2:
+            eager = clone_state(init)
+            bound = eager.epoch.reshape(-1) + SPEC_EAGER
+            while int(spec_flag(eager, bound, False)[0]):
+                eager = eng._spec_step(eager, bound, False)
+            graphed = eng.run(clone_state(init), SPEC_EAGER)
+            _same(graphed, eager, f"speculative W=2: graphed run("
+                                  f"{SPEC_EAGER}) vs eager steps")
+            log("speculation", f"main path W=2: graphed run({SPEC_EAGER}) "
+                               f"== {SPEC_EAGER} epochs of eager "
+                               f"speculative steps, leaf by leaf")
+            del eager, graphed
+            shadow = spec_shadow_cost(eng, clone_state(st),
+                                      torch.empty(64 * 2**20,
+                                                  dtype=torch.uint8,
+                                                  device=dev))
+        _, p = spec_profile(eng, st, SPEC_PROFILED)
+        results[W] = (t, p)
+        log("speculation", f"main path W={W}: run({SPEC_CHECKED}) bit-exact "
+                           f"vs the oracle; run({SPEC_EPOCHS}) == the "
+                           f"conservative graphed run (object state, "
+                           f"calendar counts, clean Stats, processed "
+                           f"{tot['processed']}), epoch {SPEC_EPOCHS}, "
+                           f"{want} commits, 0 rollbacks; graphs captured "
+                           f"{eng.graphs.captures}")
+        del eng, st, s32, init
+        torch.cuda.empty_cache()
+
+    # injected rollbacks at W = 2, full width.
+    W = 2
+    eng = ParsirEngine(model, dataclasses.replace(
+        cfg, opt_window=W, inject_straggler_every=SPEC_INJECT), device=dev)
+    init = eng.init()
+    eng.run(clone_state(init), SPEC_EPOCHS)                  # captures
+    st, t = spec_time(eng, clone_state(init), SPEC_EPOCHS)
+    tot = eng.totals(st)
+    cm, rb = predict_meters([SPEC_EPOCHS], W, SPEC_INJECT)
+    _spec_same(st, base, f"injected W=2 run({SPEC_EPOCHS})")
+    if (tot["spec_commits"], tot["rollbacks"]) != (cm, rb) or rb == 0:
+        raise AssertionError(f"injection: {tot['spec_commits']} commits, "
+                             f"{tot['rollbacks']} rollbacks, the predictor "
+                             f"{cm}, {rb}")
+    if t["launches"] != (W + 1) * (cm + rb) or t["captures"]:
+        raise AssertionError(f"injection: {t['launches']} event_apply "
+                             f"launches in {cm + rb} steps")
+    _, p = spec_profile(eng, st, SPEC_PROFILED)
+    results["inject"] = (t, p)
+    log("speculation", f"main path W=2, a rollback every {SPEC_INJECT} "
+                       f"windows: run({SPEC_EPOCHS}) == the conservative "
+                       f"run (object state, counts, clean Stats), {cm} "
+                       f"commits and {rb} rollbacks == the host predictor, "
+                       f"event_apply launches {t['launches']} = 3 x "
+                       f"{cm + rb} steps, counted under replay")
+    del eng, st, init, base
+    torch.cuda.empty_cache()
+
+    for key, (t, p) in results.items():
+        what = ("conservative (W=0)" if key == 0 else
+                f"W=2, inject {SPEC_INJECT}" if key == "inject"
+                else f"W={key}")
+        busy = ("device busy not measured (the profiler saw no device op)"
+                if p["busy_us"] is None else
+                f"device busy {p['busy_us'] / p['steps']:.1f} us/step in "
+                f"{p['ops'] / p['steps']:.1f} ops/step "
+                f"({p['busy_us'] / SPEC_PROFILED:.1f} us/epoch, "
+                f"{p['busy_us'] / SPEC_PROFILED / (t['wall_ms'] * 1e3):.1%}"
+                f" of the timed host-clock epoch; {SPEC_PROFILED} epochs "
+                f"traced)")
+        ea = ("" if p["ea_us"] is None else
+              f"; event_apply {p['ea_us']:.2f} us/launch in the trace, "
+              f"{t['launches'] / SPEC_EPOCHS:.4f} launches/epoch")
+        log("speculation", f"main path {what}, run({SPEC_EPOCHS}): "
+                           f"{t['dev_ms']:.4f} ms/epoch (CUDA events), "
+                           f"{t['wall_ms']:.4f} ms/epoch (host clock), "
+                           f"{t['events_per_s']:.0f} events/s, {t['steps']}"
+                           f" steps, {t['syncs']} host syncs, graph "
+                           f"replays {t['replays']}, peak device memory "
+                           f"{t['peak_mib']:.0f} MiB; {busy}{ea} [{smi}]")
+        if key in (0, 2):
+            for us, cnt, name in p["rows"]:
+                log("speculation", f"  {us / p['steps']:9.2f} us/step "
+                                   f"{cnt / p['steps']:7.1f}x  {name[:80]}")
+    log("speculation", f"shadow of one window at W=2 (object state "
+                       f"{shadow['obj_bytes']} B copied, {W} of "
+                       f"{cfg.n_buckets} calendar buckets taken): "
+                       f"{shadow['shadow']:.4f} ms; select (object state "
+                       f"in place, the calendar's {shadow['cal_bytes']} B "
+                       f"by put_buckets and torch.where): "
+                       f"{shadow['select']:.4f} ms, L2 flushed [{smi}]")
+    return results
+
+
+def spec_replicated(dev, smi):
+    """PHOLD main path x SPEC_REP_SEEDS through the speculative
+    replicated drain at W = 2: each replication equals the conservative
+    stacked drain of the same seeds."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.core.graphs import clone_state
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    seeds = list(range(SPEC_REP_SEEDS))
+    eng0 = ParsirEngine(model, cfg, device=dev)
+    base = clone_state(eng0.run_replicated_drained(
+        eng0.init_replicated(seeds), SPEC_REP_EPOCHS))
+    del eng0
+    torch.cuda.empty_cache()
+    eng = ParsirEngine(model, dataclasses.replace(cfg, opt_window=2),
+                       device=dev)
+    eng.run_replicated_drained(eng.init_replicated(seeds),   # captures
+                               SPEC_REP_EPOCHS)
+    st = eng.init_replicated(seeds)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    syncs, captures = eng.syncs, eng.rep_graphs.captures
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    st = eng.run_replicated_drained(st, SPEC_REP_EPOCHS)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.rep_graphs.captures != captures:
+        raise AssertionError("the timed speculative replicated drain "
+                             "captured graphs")
+    totals = eng.totals_replicated(st)
+    for r in range(SPEC_REP_SEEDS):
+        assert_clean(totals[r], context=f"speculative PHOLD x 8 rep {r}")
+        _spec_same(eng.replication(st, r), eng.replication(base, r),
+                   f"speculative replicated drain rep {r}")
+    events = sum(t["processed"] for t in totals)
+    log("speculation", f"PHOLD main path x {SPEC_REP_SEEDS}, W=2, "
+                       f"run_replicated_drained({SPEC_REP_EPOCHS}): every "
+                       f"replication == the conservative stacked drain of "
+                       f"its seed (object state, counts, epoch, clean "
+                       f"Stats, processed); "
+                       f"{e0.elapsed_time(e1) / SPEC_REP_EPOCHS:.4f} ms/epoch "
+                       f"(CUDA events), {wall * 1e3 / SPEC_REP_EPOCHS:.4f}"
+                       f" ms/epoch (host clock), {events / wall:.0f} "
+                       f"events/s summed, {eng.syncs - syncs} host syncs, "
+                       f"{totals[0]['spec_commits']} commits per "
+                       f"replication, peak device memory "
+                       f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB"
+                       f" [{smi}]")
+
+
+def spec_drain_rung(dev, smi):
+    """The reference bench's speculation rung at D = 1: wireless at bench
+    scale (max_calls=4) drained under ``rounds`` (eager) at W = 0, 1, 2,
+    4, then with the adaptive controller from W0 = 4: the drained bits the
+    same, fewer windows than the W = 0 drain's epochs, wall time."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.testing.clean import assert_clean
+    from repro_torch.workloads import bench_path
+    model, cfg = bench_path("wireless", max_calls=4)
+    base = None
+    over = [dict(opt_window=w) for w in SPEC_DRAIN_WIDTHS] + [
+        dict(opt_window=SPEC_ADAPTIVE_W0, opt_adaptive=True)]
+    for kw in over:
+        eng = ParsirEngine(model, dataclasses.replace(cfg, **kw), device=dev)
+        st = eng.init()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.run_until_drained(st, SPEC_DRAIN_BOUND)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tot = eng.totals(st)
+        assert_clean(tot, context=f"wireless drain {kw}")
+        if eng.in_flight(st):
+            raise AssertionError(f"wireless drain {kw} did not drain")
+        windows = (tot["spec_commits"] + tot["rollbacks"]
+                   if kw["opt_window"] else int(st.epoch[0]))
+        if base is None:
+            base = dict(obj={k: v.clone() for k, v in st.obj.items()},
+                        processed=tot["processed"], epochs=windows)
+        else:
+            for k, v in base["obj"].items():
+                if not torch.equal(st.obj[k], v):
+                    raise AssertionError(f"wireless drain {kw}: object "
+                                         f"state {k} differs from W=0")
+            if tot["processed"] != base["processed"] \
+                    or windows >= base["epochs"]:
+                raise AssertionError(f"wireless drain {kw}: processed "
+                                     f"{tot['processed']}, {windows} "
+                                     f"windows against {base['epochs']} "
+                                     f"epochs at W=0")
+        trail = (f", widths per chunk {eng.window_trail}"
+                 if kw.get("opt_adaptive") else "")
+        log("speculation", f"wireless drain rung ({model.n_objects} objects"
+                           f" at bench scale, max_calls=4, rounds, eager) "
+                           f"{kw}: drained at epoch {int(st.epoch[0])} in "
+                           f"{windows} {'windows' if kw['opt_window'] else 'epochs'}"
+                           f", processed {tot['processed']}, object state "
+                           f"== W=0, {wall:.3f} s, {eng.syncs} host syncs, "
+                           f"{eng.dispatches - 1} dispatches{trail} [{smi}]")
+        del eng, st
+
+
+def speculation_phase(dev, ref):
+    """Phase speculation: PHOLD's main path speculating at W = 1, 2, 4 and
+    with injected rollbacks, the speculative replicated drain, and the
+    wireless drain rung.  Every kernel counter is set to 0 before it and
+    read after."""
+    import torch
+    from repro_torch.kernels.ops import KERNELS
+    smi = nvidia_smi("name,power.limit")
+    for fn in KERNELS:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    spec_main(dev, ref, smi)
+    t1 = time.perf_counter()
+    spec_replicated(dev, smi)
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    spec_drain_rung(dev, smi)
+    t3 = time.perf_counter()
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    if not counts["event_apply_cuda"]:
+        raise AssertionError("the speculative main path launched no "
+                             "event_apply")
+    log("speculation", f"kernel launches in the phase: {counts}")
+    log("speculation", f"phase time {t3 - t0:.1f} s: main path "
+                       f"{t1 - t0:.1f} s, replicated {t2 - t1:.1f} s, drain "
+                       f"rung {t3 - t2:.1f} s")
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -2341,6 +2829,10 @@ def main() -> int:
 
     # replications. PHOLD x R, event_apply at R * M rows, the campaigns -----------
     replications_phase(dev, ref, flush)
+    torch.cuda.empty_cache()
+
+    # speculation. opt_window on the main path, replicated, the drain rung ------
+    speculation_phase(dev, ref)
     del ref
     torch.cuda.empty_cache()
 

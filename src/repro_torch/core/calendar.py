@@ -133,9 +133,16 @@ def bucket_occupancy(cal: Calendar, epoch: torch.Tensor) -> torch.Tensor:
     return torch.gather(cal.cnt, 1, _bucket(cal, epoch)).squeeze(1)
 
 
-def extract_sorted(cal: Calendar, epoch: torch.Tensor):
+def extract_sorted(cal: Calendar, epoch: torch.Tensor,
+                   take: torch.Tensor | None = None):
     """Drain the bucket for ``epoch`` (one epoch, or one per row):
     per-object events sorted by (ts, seed).
+
+    ``take`` (bool [n_local]) masks the extract per row: a row it leaves
+    out reads a count of 0 and keeps its bucket as it was, so that the
+    engine can skip an epoch for some rows without a host read (the
+    speculative step's sub-epochs past a replication's window, or a
+    replication at its bound).
 
     Returns (calendar-with-cleared-bucket, ts, seed, payload, cnt_b), the
     event arrays [n_local, cap] with invalid slots at ts=+inf.
@@ -143,10 +150,12 @@ def extract_sorted(cal: Calendar, epoch: torch.Tensor):
     n_local, n_buckets, cap = cal.ts.shape
     b = _bucket(cal, epoch)
     slots = b[:, :, None].expand(n_local, 1, cap)
-    ts = torch.gather(cal.ts, 1, slots).squeeze(1)
+    raw_ts = torch.gather(cal.ts, 1, slots).squeeze(1)
     seed = torch.gather(cal.seed, 1, slots).squeeze(1)
     pay = torch.gather(cal.payload, 1, slots).squeeze(1)
-    cnt_b = torch.gather(cal.cnt, 1, b).squeeze(1)
+    raw_cnt = torch.gather(cal.cnt, 1, b).squeeze(1)
+    cnt_b = raw_cnt if take is None else torch.where(take, raw_cnt, 0)
+    ts = raw_ts
 
     live = torch.arange(cap, device=ts.device)[None, :] < cnt_b[:, None]
     ts = torch.where(live, ts, float("inf"))
@@ -162,10 +171,51 @@ def extract_sorted(cal: Calendar, epoch: torch.Tensor):
     seed = torch.gather(seed, 1, order)
     pay = torch.gather(pay, 1, order)
 
-    # clear the bucket for reuse (epoch + n_buckets).
-    new_cnt = cal.cnt.scatter(1, b, 0)
-    new_ts = cal.ts.scatter(1, slots, float("inf"))
+    # clear the bucket for reuse (epoch + n_buckets); a row left out keeps
+    # its own.
+    if take is None:
+        new_cnt = cal.cnt.scatter(1, b, 0)
+        new_ts = cal.ts.scatter(1, slots, float("inf"))
+    else:
+        new_cnt = cal.cnt.scatter(1, b, (raw_cnt - cnt_b)[:, None])
+        new_ts = cal.ts.scatter(1, slots, torch.where(
+            take[:, None], float("inf"), raw_ts)[:, None, :])
     return cal._replace(ts=new_ts, cnt=new_cnt), ts, seed, pay, cnt_b
+
+
+def _window(cal: Calendar, first_epoch: torch.Tensor, n: int) -> torch.Tensor:
+    """Bucket indices of epochs ``first_epoch .. first_epoch + n - 1``,
+    i64 [n_local, n] (``first_epoch``: one epoch, or one per row)."""
+    e = first_epoch.to(torch.int64).reshape(-1, 1) + torch.arange(
+        n, dtype=torch.int64, device=cal.cnt.device)
+    return (e % cal.n_buckets).expand(cal.n_local, n)
+
+
+def take_buckets(cal: Calendar, first_epoch: torch.Tensor, n: int
+                 ) -> Calendar:
+    """Snapshot ``n`` consecutive epoch buckets from ``first_epoch`` (one
+    epoch, or one per row): a Calendar [n_local, n, cap] in window order
+    (bucket index w holds epoch ``first_epoch + w``).  The shadow copy of
+    the speculative step (:mod:`.pipeline.speculate`)."""
+    idx = _window(cal, first_epoch, n)
+    slots = idx[:, :, None].expand(-1, -1, cal.cap)
+    return Calendar(torch.gather(cal.ts, 1, slots),
+                    torch.gather(cal.seed, 1, slots),
+                    torch.gather(cal.payload, 1, slots),
+                    torch.gather(cal.cnt, 1, idx))
+
+
+def put_buckets(cal: Calendar, first_epoch: torch.Tensor, shadow: Calendar
+                ) -> Calendar:
+    """Restore a :func:`take_buckets` snapshot wholesale (the rollback):
+    every slot of the window's buckets is overwritten from the shadow, the
+    other buckets are untouched."""
+    idx = _window(cal, first_epoch, shadow.n_buckets)
+    slots = idx[:, :, None].expand(-1, -1, cal.cap)
+    return Calendar(cal.ts.scatter(1, slots, shadow.ts),
+                    cal.seed.scatter(1, slots, shadow.seed),
+                    cal.payload.scatter(1, slots, shadow.payload),
+                    cal.cnt.scatter(1, idx, shadow.cnt))
 
 
 class Fallback(NamedTuple):

@@ -34,11 +34,31 @@ own drain epoch (the gated step, per replication), so each one equals its
 own ``run_until_drained``, leaf by leaf.  ``batch_impl="packed"`` and
 ``scheduler="ltf"`` refuse R > 1 (:func:`~.pipeline.refuse_stacking`).
 
+Speculation (``opt_window = W > 0``, :mod:`.pipeline.speculate`).  The
+speculative step takes an exclusive epoch bound per replication and leaps
+up to ``W + 1`` epochs a window, so ``run`` and the drains no longer know
+their step count: they run chunks of at most ``DRAIN_CHUNK`` steps, each as
+long as the farthest replication could need if every window commits
+(``ceil(epochs left / (W + 1))``), and read one flag after each chunk (how
+many replications are still short of their bound, or hold events in a
+drain, and the epochs the farthest has left).  A replication at its bound,
+or drained in a drain, is a bit-exact fixpoint of the step, so ``run(n)``
+lands on exactly ``epoch + n`` and a drain's cap is the epoch counter, as
+in the JAX engine.  On the card under ``batch-model`` the chunks are
+replays of CUDA graphs of the speculative step, whose bound is the
+runner's static tensor (:attr:`~.graphs.StepGraphs.bound`); the commit or
+abort of a window never reaches the host.  ``step`` stays conservative.
+With ``opt_adaptive`` the drain runs the reference's controller
+(:meth:`ParsirEngine._run_drain_adaptive`), one speculative drain of a
+width per chunk.  With ``opt_window = 0`` nothing speculative is built.
+
 Counters: ``dispatches`` counts the JAX engine's way, one per ``init``,
 ``init_replicated``, ``step``, ``run``, ``run_until_drained`` and
-``run_replicated_drained``; ``syncs`` counts host reads of device values
-made while running epochs (the loop bound of the rounds, packed and ltf
-schedulers, one per epoch, and the drain flag, one per chunk).
+``run_replicated_drained`` (and one per chunk of the adaptive drain);
+``syncs`` counts host reads of device values made while running epochs
+(the loop bound of the rounds, packed and ltf schedulers, one per epoch or
+per sub-epoch of a speculative step, the drain flag or the speculative
+loops' flag, one per chunk, and the adaptive controller's reads).
 
 State ownership: like the JAX engine's donated buffers, ``step``/``run``
 consume their input state — the ``model`` scheduler updates the object state
@@ -50,6 +70,8 @@ keep it.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -60,12 +82,27 @@ from .device import resolve_device
 from .events import EventBatch
 from .graphs import DRAIN_CHUNK, StepGraphs, split
 from .pipeline import (EngineConfig, EngineState, deliver, in_flight,
-                       make_step, map_tree, pending_per_replication,
-                       refuse_stacking, replica, resolve_scheduler,
-                       stack_of_one, zero_stats)
+                       make_spec_step, make_step, map_tree,
+                       pending_per_replication, refuse_stacking, replica,
+                       resolve_scheduler, stack_of_one, zero_stats)
 from .placement import Placement, equal_placement
 
 __all__ = ["DRAIN_CHUNK", "EngineConfig", "EngineState", "ParsirEngine"]
+
+
+def spec_flag(state: EngineState, bound: torch.Tensor, drain: bool
+              ) -> torch.Tensor:
+    """The speculative loops' flag, i64 [2]: the replications still short
+    of their ``bound`` (and, with ``drain``, holding events in flight), and
+    the most epochs one of them has left."""
+    e = state.epoch.reshape(-1)
+    active = e < bound
+    if drain:
+        pending = (pending_per_replication(state) if state.epoch.ndim == 2
+                   else in_flight(state).reshape(1))
+        active = active & (pending > 0)
+    return torch.stack([active.sum(),
+                        torch.where(active, bound - e, 0).amax().long()])
 
 
 class ParsirEngine:
@@ -82,6 +119,17 @@ class ParsirEngine:
         self._gated = make_step(model, cfg, self.placement, gated=True)
         self._rep_gated = make_step(model, cfg, self.placement, gated=True,
                                     replicated=True)
+        #: the speculative steps per live window width, built lazily (the
+        #: adaptive controller builds only the widths it visits); with
+        #: ``opt_window == 0`` nothing speculative is built.
+        self._drain_variants: dict[int, object] = {}
+        self._spec_step = self._rep_spec_step = None
+        if cfg.opt_window > 0:
+            self._spec_step = self._drain_variant(cfg.opt_window)
+            self._rep_spec_step = make_spec_step(model, cfg, self.placement,
+                                                 replicated=True)
+        #: the window width of each chunk of the last adaptive drain.
+        self.window_trail: list[int] = []
         self._scheduler = resolve_scheduler(cfg)
         self._step_syncs = self._scheduler.host_syncs
         #: host reads of device values made while running epochs (the
@@ -198,17 +246,22 @@ class ParsirEngine:
                 f"{int(n_epochs) * per_epoch:,} > {cap:,}); split the horizon")
 
     def step(self, state: EngineState) -> EngineState:
-        """Advance exactly one epoch (eagerly)."""
+        """Advance exactly one epoch (eagerly; always the conservative
+        step, speculation engages inside ``run`` and the drains)."""
         self.dispatches += 1
         self.syncs += self._step_syncs
         return self._step(state)
 
     def run(self, state: EngineState, n_epochs: int) -> EngineState:
         """Advance exactly ``n_epochs`` epochs: replays of the step's graphs
-        on the card (no host read), a loop of steps elsewhere."""
+        on the card (no host read), a loop of steps elsewhere.  Under
+        speculation, chunks of the speculative step that land on exactly
+        ``epoch + n_epochs``, one flag read per chunk."""
         n = int(n_epochs)
         self.check_stats_bound(n)
         self.dispatches += 1
+        if self._spec_step is not None:
+            return self._spec_loop(state, n, self.cfg.opt_window, drain=False)
         if self.graphs is None:
             for _ in range(n):
                 self.syncs += self._step_syncs
@@ -229,11 +282,17 @@ class ParsirEngine:
         state as it is, epoch counter included, so the result equals the
         JAX engine's ``while_loop``, which stops at the drain epoch, and a
         workload that never drains runs exactly ``max_epochs`` epochs, equal
-        to ``run(state, max_epochs)``.
+        to ``run(state, max_epochs)``.  Under speculation the drain runs
+        the speculative step (its cap is the epoch counter), or with
+        ``opt_adaptive`` the adaptive controller.
         """
         n = int(max_epochs)
         self.check_stats_bound(n)
+        if self._spec_step is not None and self.cfg.opt_adaptive:
+            return self._run_drain_adaptive(state, n)
         self.dispatches += 1
+        if self._spec_step is not None:
+            return self._spec_loop(state, n, self.cfg.opt_window, drain=True)
         return self._drain(state, n, self._gated, self.graphs)
 
     def run_replicated_drained(self, state: EngineState,
@@ -245,6 +304,9 @@ class ParsirEngine:
         is drained or ``max_epochs`` epochs have run.  Each replication
         stops at its own drain epoch, so replication r of the result equals
         ``run_until_drained(init(seed=seeds[r]), max_epochs)`` leaf by leaf.
+        Under speculation the stacked speculative step runs instead, each
+        replication with its own bound ``epoch + max_epochs``: it stops
+        when it drains or reaches it.
         On the card the result is the runner's static stacked state (the
         next call overwrites it).  Read it with :meth:`replication`,
         :meth:`totals_replicated` and :meth:`in_flight_replicated`.
@@ -259,7 +321,96 @@ class ParsirEngine:
             self.rep_graphs = None       # free the last R's state and pool
             self.rep_graphs = StepGraphs({True: self._rep_gated},
                                          self.device)
+        if self._rep_spec_step is not None:
+            return self._spec_loop(state, n, self.cfg.opt_window, drain=True,
+                                   stacked=True)
         return self._drain(state, n, self._rep_gated, self.rep_graphs)
+
+    def _drain_variant(self, w: int):
+        """The speculative step of live window width ``w`` (of one
+        simulation), built and kept on first use: the state carries nothing
+        W-shaped, so the same state runs through any width."""
+        if w not in self._drain_variants:
+            cfg_w = dataclasses.replace(self.cfg, opt_window=w,
+                                        opt_adaptive=False)
+            self._drain_variants[w] = make_spec_step(self.model, cfg_w,
+                                                     self.placement)
+        return self._drain_variants[w]
+
+    def _spec_loop(self, state: EngineState, n: int, w: int, drain: bool,
+                   stacked: bool = False) -> EngineState:
+        """``n`` epochs (a bound per replication, ``epoch + n``) of the
+        speculative step of width ``w``: chunks of at most ``DRAIN_CHUNK``
+        steps, each as long as the farthest replication needs if every
+        window commits, and one read of :func:`spec_flag` after each;
+        replays of the step's CUDA graphs where the engine has them."""
+        graphs = self.rep_graphs if stacked else self.graphs
+        step = self._rep_spec_step if stacked else self._drain_variant(w)
+        variant = ("spec", w, drain)
+        if graphs is not None:
+            state = graphs.adopt(state)
+            bound = graphs.bound
+            graphs.add(variant, lambda s: step(s, bound, drain),
+                       lambda s: spec_flag(s, bound, drain))
+            bound.copy_(state.epoch.reshape(-1) + n)
+        else:
+            bound = state.epoch.reshape(-1) + n
+        left = n
+        while left > 0:
+            steps = min(DRAIN_CHUNK, -(-left // (w + 1)))
+            if graphs is None:
+                for _ in range(steps):
+                    self.syncs += self._step_syncs * (w + 1)
+                    state = step(state, bound, drain)
+                active, left = spec_flag(state, bound, drain).tolist()
+            else:
+                for length in split(steps):
+                    graphs.replay(variant, length)
+                active, left = graphs.read(variant)
+            self.syncs += 1
+            if active == 0:
+                break
+        return state
+
+    def _run_drain_adaptive(self, state: EngineState, max_epochs: int
+                            ) -> EngineState:
+        """The reference's adaptive-W drain: chunks of ``max(8, 4 * (W0 +
+        1))`` epochs, each one speculative drain of the live width ``w``
+        (one dispatch).  After a chunk the host reads its rollback ratio
+        ``rollbacks / (rollbacks + spec_commits)``: above 1/2 the width
+        shrinks (floor 1), below 1/10 it grows (cap ``opt_window``).  Any
+        width sequence drains to the same bits.  The widths go to
+        :attr:`window_trail`."""
+        W0 = self.cfg.opt_window
+        w = W0
+        chunk = max(8, 4 * (W0 + 1))
+        self.window_trail = []
+        start = int(state.epoch[0])
+        tot = self.totals(state)
+        self.syncs += 2
+        prev_cm, prev_rb = tot["spec_commits"], tot["rollbacks"]
+        epochs_run = 0
+        while True:
+            n = min(chunk, max_epochs - epochs_run)
+            self.dispatches += 1
+            self.window_trail.append(w)
+            state = self._spec_loop(state, max(n, 0), w, drain=True)
+            epochs_run = int(state.epoch[0]) - start
+            pending = self.in_flight(state)
+            self.syncs += 2
+            if epochs_run >= max_epochs or n <= 0 or pending == 0:
+                return state
+            tot = self.totals(state)
+            self.syncs += 1
+            d_cm = tot["spec_commits"] - prev_cm
+            d_rb = tot["rollbacks"] - prev_rb
+            prev_cm, prev_rb = tot["spec_commits"], tot["rollbacks"]
+            if d_cm + d_rb:
+                ratio = d_rb / (d_rb + d_cm)
+                if ratio > 0.5 and w > 1:
+                    w -= 1
+                elif ratio < 0.1 and w < W0:
+                    w += 1
 
     def _drain(self, state: EngineState, n: int, gated, graphs
                ) -> EngineState:
@@ -277,7 +428,7 @@ class ParsirEngine:
             else:
                 for length in split(chunk):
                     graphs.replay(True, length)
-                pending = graphs.in_flight()
+                pending = graphs.read(True)
             self.syncs += 1
             if pending == 0:
                 break

@@ -3,26 +3,35 @@
 The JAX engine runs ``run`` as one compiled ``fori_loop`` and
 ``run_until_drained`` as one ``while_loop``.  On a CUDA device the port
 captures the step into CUDA graphs of fixed lengths (1, 2, 4, ...,
-``DRAIN_CHUNK`` epochs) and replays them, so a horizon of any length is a
+``DRAIN_CHUNK`` steps) and replays them, so a horizon of any length is a
 sequence of replays and never a new capture.  Each graph reads and writes one static
 :class:`EngineState` that the runner owns: its steps run from that state,
 and its last operations copy the final state back into it (the kernel
-updates the object state in place) and write the events still in flight to
-a one-element flag.  ``run`` replays ungated graphs and reads nothing;
-``run_until_drained`` replays graphs of the gated step and reads the flag
-once per ``DRAIN_CHUNK`` epochs.
+updates the object state in place) and write the variant's flag (by
+default the events still in flight) to a small static tensor.  ``run``
+replays ungated graphs and reads nothing; ``run_until_drained`` replays
+graphs of the gated step and reads the flag once per ``DRAIN_CHUNK``
+epochs.
+
+A step variant is any hashable key with its step function (and, where it
+is not the events in flight, its flag function).  The speculative step
+(``opt_window > 0``) takes an exclusive epoch bound per replication: the
+runner owns it as a static i32 tensor (:attr:`StepGraphs.bound`), written
+with ``copy_`` before the replays, so one graph serves every bound; its
+flag says how many replications are still short of their bound (and, in a
+drain, hold events) and how many epochs the farthest has left.
 
 Capture launches nothing, so the kernels' ``launches`` counters are put
 back after a capture and the launches it recorded are added once per
 replay (:func:`capture`, :func:`replay`; the serving session's decode
 graph, ``serve/engine.py``, keeps the same rules).  A failed capture or
-replay raises; nothing falls back to the eager loop.  At most ``2 * len(LENGTHS)`` graphs exist per runner,
-all in one memory pool (their scratch is dead at every graph's end, so they
-may share it in any order).
+replay raises; nothing falls back to the eager loop.  A runner holds at
+most ``len(LENGTHS)`` graphs per variant, all in one memory pool (their
+scratch is dead at every graph's end, so they may share it in any order).
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Hashable
 
 import torch
 
@@ -97,42 +106,61 @@ def replay(graph, launched) -> None:
 
 
 class StepGraphs:
-    """Captured graphs of one engine's ungated and gated steps (or of the
-    gated step alone, for a stacked state of replications: the flag is
-    then the sum of their events in flight)."""
+    """Captured graphs of one engine's step variants (the ungated and gated
+    conservative steps, the speculative steps; or, for a stacked state of
+    replications, their stacked forms, whose flags sum over the
+    replications)."""
 
-    def __init__(self, steps: dict[bool, Callable[[EngineState], EngineState]],
+    def __init__(self, steps: dict[Hashable, Callable[[EngineState],
+                                                     EngineState]],
                  device: torch.device):
-        self.steps, self.device = steps, device
+        self.steps, self.device = dict(steps), device
         #: the state every graph reads and writes (None until first use).
         self.static: EngineState | None = None
-        self._flag = torch.zeros((), dtype=torch.int64, device=device)
+        #: the speculative steps' exclusive epoch bound, i32 [R] (one per
+        #: replication; [1] for one simulation), made with the state.
+        self.bound: torch.Tensor | None = None
+        self._flag_fns: dict[Hashable, Callable] = {}
+        self._flags: dict[Hashable, torch.Tensor] = {}
         self._pool = None
-        self._graphs: dict[tuple[bool, int], tuple] = {}
-        self._warm: set[bool] = set()
+        self._graphs: dict[tuple[Hashable, int], tuple] = {}
+        self._warm: set[Hashable] = set()
         #: graphs captured, graphs replayed, and eager warm-up steps run
         #: (one per step variant, on a copy of the state, before its first
         #: capture).
         self.captures = self.replays = self.warmup_steps = 0
+
+    def add(self, variant: Hashable, step: Callable[[EngineState],
+                                                    EngineState],
+            flag: Callable[[EngineState], torch.Tensor] | None = None
+            ) -> None:
+        """Register a step variant (once) and the flag its graphs write
+        (by default the events in flight)."""
+        if variant not in self.steps:
+            self.steps[variant] = step
+            if flag is not None:
+                self._flag_fns[variant] = flag
 
     def adopt(self, state: EngineState) -> EngineState:
         """The static state, holding ``state``'s values (copied in unless
         ``state`` already is it)."""
         if self.static is None:
             self.static = clone_state(state)
+            self.bound = torch.zeros_like(self.static.epoch.reshape(-1))
         elif any(a is not b for a, b in zip(leaves(state),
                                             leaves(self.static), strict=True)):
             copy_into(self.static, state)
         return self.static
 
-    def replay(self, gated: bool, length: int) -> None:
-        """Advance the static state by one replay of ``length`` epochs."""
-        replay(*self._graph(gated, length))
+    def replay(self, variant: Hashable, length: int) -> None:
+        """Advance the static state by one replay of ``length`` steps."""
+        replay(*self._graph(variant, length))
         self.replays += 1
 
-    def in_flight(self) -> int:
-        """Events in flight after the last gated replay (a host read)."""
-        return int(self._flag)
+    def read(self, variant: Hashable):
+        """The flag the last replay of ``variant`` wrote (a host read):
+        an int, or a list for a flag of several numbers."""
+        return self._flags[variant].tolist()
 
     def _warm_up(self, step) -> None:
         """Run ``step`` once on a copy of the static state, on a side
@@ -145,17 +173,19 @@ class StepGraphs:
         torch.cuda.current_stream(self.device).wait_stream(side)
         self.warmup_steps += 1
 
-    def _graph(self, gated: bool, length: int):
-        key = (gated, length)
+    def _graph(self, variant: Hashable, length: int):
+        key = (variant, length)
         if key in self._graphs:
             return self._graphs[key]
         if length not in LENGTHS:
-            raise ValueError(f"no graph of {length} epochs (lengths "
+            raise ValueError(f"no graph of {length} steps (lengths "
                              f"{LENGTHS})")
-        step = self.steps[gated]
-        if gated not in self._warm:
+        step = self.steps[variant]
+        flag = self._flag_fns.get(variant, in_flight)
+        if variant not in self._warm:
             self._warm_up(step)
-            self._warm.add(gated)
+            self._warm.add(variant)
+            self._flags[variant] = flag(self.static).clone()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
 
@@ -164,7 +194,7 @@ class StepGraphs:
             for _ in range(length):
                 s = step(s)
             copy_into(self.static, s)
-            self._flag.copy_(in_flight(s))
+            self._flags[variant].copy_(flag(s))
         graph, launched, _ = capture(run, self._pool)
         self._graphs[key] = (graph, launched)
         self.captures += 1

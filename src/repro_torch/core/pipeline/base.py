@@ -181,6 +181,18 @@ class Router(abc.ABC):
                  cfg: "EngineConfig") -> EventBatch:
         """Run the collective; return the events visible to this device."""
 
+    def sender_ids(self, placement: Placement, cfg: "EngineConfig",
+                   device) -> torch.Tensor:
+        """Source device of each slot of an :meth:`exchange` output, i32.
+
+        The speculative step filters speculative arrivals by their
+        sender's verdict with it (``opt_commit='device'``); a router that
+        cannot say where a slot came from does not compose with it.
+        """
+        raise NotImplementedError(
+            f"router {self.name!r} does not expose sender identity; "
+            "override sender_ids() to compose with opt_commit='device'")
+
 
 # ---------------------------------------------------------------------------
 # registries

@@ -7,8 +7,13 @@ A valid configuration that needs a stage this slice of the port does not
 have yet raises ``NotImplementedError`` naming the slice that brings it:
 
   * ``steal=True``, ``placement`` other than ``"equal"``, ``route="a2a"``,
-    any device count above 1 — the multi-device slice;
-  * ``opt_window > 0`` — the speculation slice.
+    any device count above 1 — the multi-device slice (with them the
+    speculation points that need one: ``spec-a2a``, ``spec-steal``,
+    ``spec-weighted``, ``spec-adaptive``).
+
+``opt_window > 0`` (speculation, :mod:`.speculate`) runs at one device
+under every scheduler; ``opt_stage_cap`` defaults to ``route_cap`` there,
+as in the JAX package.
 
 Bit-exactness contract: no field of this record changes simulation
 semantics; capacities bound buffers, and overflow is counted in ``Stats``.
@@ -19,17 +24,11 @@ import dataclasses
 
 from .names import (BATCH_IMPLS, PLACEMENTS, ROUTES, SELECTABLE_SCHEDULERS)
 
-_LATER = {
-    "multi": "the multi-device slice (placement, routing across devices, "
-             "stealing, rebalancing)",
-    "speculation": "the speculation slice (opt_window)",
-}
-
-
-def _not_yet(what: str, slice_key: str) -> NotImplementedError:
+def _not_yet(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with "
-        f"{_LATER[slice_key]}")
+        f"{what} is not in the PyTorch port yet; it comes with the "
+        f"multi-device slice (placement, routing across devices, stealing, "
+        f"rebalancing)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,15 +181,13 @@ class EngineConfig:
 
         # valid, but not ported yet.
         if self.steal:
-            raise _not_yet("steal=True", "multi")
+            raise _not_yet("steal=True")
         if self.route == "a2a":
-            raise _not_yet("route='a2a'", "multi")
+            raise _not_yet("route='a2a'")
         if self.placement != "equal":
-            raise _not_yet(f"placement={self.placement!r}", "multi")
-        if self.opt_window > 0:
-            raise _not_yet(f"opt_window={self.opt_window}", "speculation")
+            raise _not_yet(f"placement={self.placement!r}")
 
     def validate(self, n_devices: int) -> None:
         """Device-count-dependent fail-fast checks (engine construction)."""
         if n_devices != 1:
-            raise _not_yet(f"n_devices={n_devices}", "multi")
+            raise _not_yet(f"n_devices={n_devices}")

@@ -39,3 +39,8 @@ class AllGatherRouter(Router):
 
     def exchange(self, buf, placement, cfg):
         return buf
+
+    def sender_ids(self, placement, cfg, device):
+        # one device: every slot of the route buffer is its own.
+        return torch.zeros((cfg.route_cap,), dtype=torch.int32,
+                           device=device)

@@ -26,7 +26,8 @@ rows of R replications at once and hand back each replication's emissions
 in its own order.  ``batch-packed`` and ``ltf`` order their emissions
 across all rows (tiles of the round-major work list, global time), which
 the stack would mix, so they take one replication only (``stacks =
-False``) and the engine refuses R > 1 under them by name.
+False``) and the engine refuses R > 1 under them with a
+``NotImplementedError`` naming the missing per-replication order.
 """
 from __future__ import annotations
 
@@ -46,11 +47,12 @@ def refuse_stacking(scheduler: Scheduler, reps: int) -> None:
     if reps > 1 and not scheduler.stacks:
         what = ("batch_impl='packed'" if scheduler.name == "batch-packed"
                 else f"scheduler={scheduler.name!r}")
-        raise ValueError(
-            f"{what} does not run R={reps} stacked replications: its "
-            f"emission order spans every row of the stack, so a replication "
-            f"would not keep its own order; run the seeds one by one, or "
-            f"under batch_impl='rounds' or 'model'")
+        raise NotImplementedError(
+            f"{what} with R={reps} stacked replications is not in the "
+            f"PyTorch port yet: its emission order spans every row of the "
+            f"stack, so it comes with a per-replication emission order for "
+            f"packed/ltf (the replication slice's leftover); run the seeds "
+            f"one by one, or under batch_impl='rounds' or 'model'")
 
 
 def _emission_buffer(lead: tuple, mo: int, dev) -> EventBatch:

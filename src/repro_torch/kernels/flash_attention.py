@@ -29,6 +29,22 @@ HEAD_DIMS = (16, 32, 64, 128)
 MAX_SMEM = 232448
 
 
+def check_heads(D: int, Hq: int, Hkv: int) -> None:
+    """Refuse the head shapes the kernel does not take: ``ValueError``
+    where the JAX package's ``ops.mha`` refuses them too (Hq not a multiple
+    of Hkv), ``NotImplementedError`` for a head dim the kernel is not
+    compiled for, which the JAX kernel takes (``stablelm_12b``'s D = 160
+    comes with the port's stablelm slice)."""
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"flash_attention: needs Hq a multiple of Hkv "
+                         f"(Hq={Hq}, Hkv={Hkv})")
+    if D not in HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: head dim D={D} is not in the PyTorch port's "
+            f"kernel yet (it is compiled for D in {HEAD_DIMS}); other head "
+            f"dims come with the stablelm slice of the LM substrate")
+
+
 def attention_ref(q, k, v, *, causal: bool = True):
     """Plain PyTorch version: exact softmax in f32, GQA by a reshape of the
     query heads into [B, Hkv, G, Tq, D] (K and V are not repeated), the
@@ -117,9 +133,7 @@ def flash_cuda(q, k, v, *, causal: bool = True):
     strides = [*_check("q", q, q.dtype, (B, Hq, Tq, D), dev),
                *_check("k", k, q.dtype, (B, Hkv, Tk, D), dev),
                *_check("v", v, q.dtype, (B, Hkv, Tk, D), dev)]
-    if D not in HEAD_DIMS or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"flash_attention: needs D in {HEAD_DIMS} and Hq a "
-                         f"multiple of Hkv (D={D}, Hq={Hq}, Hkv={Hkv})")
+    check_heads(D, Hq, Hkv)
     bf16 = int(q.dtype == torch.bfloat16)
     smem = _lib().flash_attention_smem_bytes(D, bf16)
     if smem > MAX_SMEM:

@@ -12,7 +12,8 @@ The port's face of ``repro/testing/conformance.py``.  A run passes when
 :func:`check_workload_replicated` holds every replication of a stacked
 drain to the same four checks against its own seed's oracle.
 
-``SWEEP`` holds the engine-config points this slice of the port supports.
+``SWEEP`` holds the engine-config points the port supports: the
+reference's single-device points, speculation among them.
 """
 from __future__ import annotations
 
@@ -36,6 +37,16 @@ SWEEP: dict[str, dict] = {
     # a tiny tile forces many tiles per round (and round-boundary padding)
     # at conformance scale, where the default tile would be one per round.
     "batch-packed": dict(batch_impl="packed", pack_tile=4),
+    # speculation (pipeline/speculate.py): windows of opt_window epochs past
+    # the safe horizon commit or roll back to exactly the conservative bits,
+    # so every check is unchanged.  At one device every window commits but
+    # the injected ones: spec-inject forces every 2nd down the rollback
+    # path; spec-global pins the global verdict beside the per-device one.
+    "spec-w1": dict(opt_window=1),
+    "spec-w2": dict(opt_window=2),
+    "spec-w4": dict(opt_window=4),
+    "spec-global": dict(opt_window=2, opt_commit="global"),
+    "spec-inject": dict(opt_window=2, inject_straggler_every=2),
 }
 
 

@@ -167,3 +167,86 @@ def test_ring_reuse_and_invalid_events():
     _, ts_s, seed_s, _, cnt = tcal.extract_sorted(cal, torch.tensor(N))
     assert int(cnt[0]) == 1 and float(ts_s[0, 0]) == N + 0.5
     assert int(seed_s[0, 0]) == 3
+
+
+@pytest.mark.parametrize("first,n", [(0, 2), (3, 3), (6, 4), (13, 5)])
+def test_take_and_put_buckets_match_jax(first, n):
+    """The speculation window's shadow: take_buckets gathers n buckets from
+    ``first`` in window order (wrapping round the ring) as the JAX package
+    does; damaging them and putting the shadow back restores the window
+    and leaves every other bucket as the damage left it."""
+    rng = np.random.default_rng(first + 10 * n)
+    n_local, n_buckets, cap = 5, 6, 8
+    tc = tcal.make_calendar(n_local, n_buckets, cap, "cpu")
+    jc = jcal.make_calendar(n_local, n_buckets, cap)
+    tc, jc, _, _ = _insert_both(
+        tc, jc, _random_events(rng, 70, n_local, n_buckets))
+    first_t = torch.tensor(first, dtype=torch.int32)
+    shadow = tcal.take_buckets(tc, first_t, n)
+    jshadow = jcal.take_buckets(jc, jnp.int32(first), n)
+    _assert_cal_equal(shadow, jshadow)
+    assert tuple(shadow.ts.shape) == (n_local, n, cap)
+    # damage: drain every bucket, then insert a second batch.
+    for e in range(n_buckets):
+        tc = tcal.extract_sorted(tc, torch.tensor(e))[0]
+        jc = jcal.extract_sorted(jc, jnp.int32(e))[0]
+    tc, jc, _, _ = _insert_both(
+        tc, jc, _random_events(rng, 40, n_local, n_buckets))
+    damaged = tc
+    tc = tcal.put_buckets(tc, first_t, shadow)
+    jc = jcal.put_buckets(jc, jnp.int32(first), jshadow)
+    _assert_cal_equal(tc, jc)
+    window = [(first + w) % n_buckets for w in range(n)]
+    for b in range(n_buckets):
+        src = shadow if b in window else damaged
+        i = window.index(b) if b in window else b
+        for x, y in zip(tc, src):
+            assert torch.equal(x[:, b], y[:, i]), b
+
+
+def test_take_and_put_buckets_per_row_epochs():
+    """Stacked replications hand the [R * M] view with one first epoch per
+    row: each row's window starts at its own epoch."""
+    rng = np.random.default_rng(5)
+    n_local, n_buckets, cap = 6, 5, 4
+    tc = tcal.make_calendar(n_local, n_buckets, cap, "cpu")
+    jc = jcal.make_calendar(n_local, n_buckets, cap)
+    tc, _, _, _ = _insert_both(
+        tc, jc, _random_events(rng, 50, n_local, n_buckets))
+    firsts = torch.tensor([0, 0, 0, 3, 3, 3], dtype=torch.int32)
+    got = tcal.take_buckets(tc, firsts, 2)
+    for r in range(n_local):
+        one = tcal.take_buckets(tcal.Calendar(*(x[r:r + 1] for x in tc)),
+                                firsts[r], 2)
+        for x, y in zip(got, one):
+            assert torch.equal(x[r:r + 1], y)
+    back = tcal.put_buckets(tcal.make_calendar(n_local, n_buckets, cap,
+                                               "cpu"), firsts, got)
+    assert torch.equal(tcal.take_buckets(back, firsts, 2).cnt, got.cnt)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_masked_extract_leaves_rows_out(seed):
+    """extract_sorted with ``take``: the rows taken equal the unmasked
+    extract; a row left out reads a count of 0 and +inf timestamps, and
+    keeps its bucket as it was."""
+    rng = np.random.default_rng(seed)
+    n_local, n_buckets, cap = 6, 4, 12
+    tc = tcal.make_calendar(n_local, n_buckets, cap, "cpu")
+    jc = jcal.make_calendar(n_local, n_buckets, cap)
+    tc, _, _, _ = _insert_both(
+        tc, jc, _random_events(rng, 60, n_local, n_buckets))
+    take = torch.tensor([True, False, True, True, False, False])
+    epoch = torch.tensor(1, dtype=torch.int32)
+    full = tcal.extract_sorted(tc, epoch)
+    part = tcal.extract_sorted(tc, epoch, take)
+    for x, y, z in zip(part[0], full[0], tc):
+        assert torch.equal(x[take], y[take])
+        assert torch.equal(x[~take], z[~take])
+    for x, y in zip(part[1:], full[1:]):
+        assert torch.equal(x[take], y[take])
+    assert not part[4][~take].any() and part[1][~take].isinf().all()
+    assert int(full[4][~take].sum()) > 0     # there was something to keep
+    every = tcal.extract_sorted(tc, epoch, torch.ones(n_local, dtype=bool))
+    for x, y in zip(every[0] + tuple(every[1:]), full[0] + tuple(full[1:])):
+        assert torch.equal(x, y)

@@ -196,10 +196,9 @@ CONFIGS = [
     dict(opt_stage_cap=4), dict(opt_commit="global"),
     dict(opt_adaptive=True), dict(inject_straggler_every=2),
     dict(opt_window=8, n_buckets=8), dict(opt_window=2, steal=True),
+    dict(scheduler="ltf"), dict(batch_impl="packed"), dict(opt_window=2),
     # valid, but later slices of the port
-    dict(scheduler="ltf"), dict(batch_impl="packed"), dict(steal=True),
-    dict(route="a2a"),
-    dict(placement="weighted"), dict(opt_window=2),
+    dict(steal=True), dict(route="a2a"), dict(placement="weighted"),
     dict(placement="adaptive", rebalance_every=8, migrate_cap=8),
 ]
 

@@ -20,8 +20,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.flash_attention import (attention_ref,  # noqa: E402
-                                                 flash_cuda, kernel_strides)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS, attention_ref, check_heads, flash_cuda, kernel_strides)
 
 # (B, Hq, Hkv, Tq, Tk, D): the JAX tests' shapes (GQA group 2, group 4, MHA,
 # ragged 96), then Tq < Tk.
@@ -326,7 +326,7 @@ def test_kernel_matches_plain_on_card(shape, causal, dtype, layout):
 def test_kernel_refuses_what_it_cannot_take():
     _card()
     q, k, v = _torch(_inputs(1, 2, 2, 64, 64, 48, seed=0), device="cuda")
-    with pytest.raises(ValueError, match="D in"):
+    with pytest.raises(NotImplementedError, match="D=48.*stablelm"):
         flash_cuda(q, k, v)
     q, k, v = _torch(_inputs(1, 2, 2, 64, 64, 32, seed=0), device="cuda")
     with pytest.raises(ValueError, match="not contiguous"):
@@ -337,4 +337,31 @@ def test_kernel_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="aligned"):
         flash_cuda(q, k, torch.empty(k.numel() + 1, device="cuda")[1:]
                    .view(k.shape))
+    assert flash_cuda.launches == before
+
+
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_head_dims_the_kernel_is_built_for_are_taken(D):
+    assert check_heads(D, 8, 2) is None
+
+
+@pytest.mark.parametrize("D,Hq,Hkv,err", [
+    (160, 4, 2, NotImplementedError), (48, 2, 2, NotImplementedError),
+    (64, 3, 2, ValueError), (160, 3, 2, ValueError), (64, 2, 0, ValueError)])
+def test_head_refusals_name_the_slice_or_the_reference_rule(D, Hq, Hkv, err):
+    # a head dim the reference takes (stablelm_12b: D = 160) is a port gap
+    # and names the slice that brings it; a GQA ratio the reference refuses
+    # too stays a ValueError.
+    with pytest.raises(err, match="stablelm" if err is NotImplementedError
+                       else "multiple of Hkv"):
+        check_heads(D, Hq, Hkv)
+
+
+@pytest.mark.cuda
+def test_stablelm_head_dim_is_refused_by_name_on_card():
+    _card()
+    q, k, v = _torch(_inputs(1, 4, 2, 64, 64, 160, seed=1), device="cuda")
+    before = flash_cuda.launches
+    with pytest.raises(NotImplementedError, match="D=160.*stablelm"):
+        ops.mha(q, k, v)
     assert flash_cuda.launches == before

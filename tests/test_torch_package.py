@@ -59,6 +59,22 @@ def test_scans_cover_the_campaign_layer():
                 else path.with_suffix(".py")) in files, mod
 
 
+def test_scans_cover_the_speculation_slice():
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    found = set(out.stdout.split())
+    files = set(PKG.rglob("*.py"))
+    path = PKG / "core" / "pipeline" / "speculate.py"
+    assert "repro_torch.core.pipeline.speculate" in found
+    assert path in files
+    assert not FORBIDDEN.findall(path.read_text())
+    assert "make_spec_step" in path.read_text()
+
+
 def test_campaign_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

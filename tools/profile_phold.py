@@ -21,16 +21,20 @@ configurations, ``rounds`` for the zoo).  ``--replications R`` runs R
 stacked replications (seeds 0..R-1) through ``run_replicated_drained``
 instead (on the card: replays of CUDA graphs of the stacked step under
 ``model``, eager chunks under the host-read schedulers); its events are
-summed over the replications.  Run from the repository root on a machine
-with a CUDA card::
+summed over the replications.  ``--opt-window W`` speculates (``run`` and
+the replicated drain run the speculative step, W epochs past the safe one
+a window; on the card under ``model`` replays of its CUDA graphs), and
+``--inject N`` rolls every N-th window back (``inject_straggler_every``).
+Run from the repository root on a machine with a CUDA card::
 
     python3 tools/profile_phold.py [--config main|hotspot|<zoo id>]
         [--impl rounds|packed|ltf] [--mode graphed|eager]
-        [--replications R] [--epochs 16] [--out DIR]
+        [--replications R] [--opt-window W [--inject N]] [--epochs 16]
+        [--out DIR]
 
 ``--out`` (default ``artifacts/profile_phold``) receives
-``profile_phold_<config>[_<impl>]_<mode>[_r<R>].json`` and the Chrome trace
-``profile_phold_<config>[_<impl>]_<mode>[_r<R>]_trace.json``.
+``profile_phold_<config>[_<impl>]_<mode>[_r<R>][_w<W>[_inj<N>]].json``
+and the Chrome trace of the same name with ``_trace`` before ``.json``.
 """
 from __future__ import annotations
 
@@ -70,6 +74,11 @@ def main(argv=None) -> int:
     ap.add_argument("--replications", type=int, default=None,
                     help="stacked replications through "
                          "run_replicated_drained (needs --mode graphed)")
+    ap.add_argument("--opt-window", type=int, default=0,
+                    help="speculate W epochs past the safe one (needs "
+                         "--mode graphed)")
+    ap.add_argument("--inject", type=int, default=0,
+                    help="roll every N-th speculative window back")
     ap.add_argument("--epochs", type=int, default=16)
     ap.add_argument("--warmup", type=int, default=16)
     ap.add_argument("--out", default=str(ROOT / "artifacts" / "profile_phold"))
@@ -78,6 +87,12 @@ def main(argv=None) -> int:
                                           or args.mode != "graphed"):
         ap.error("--replications takes R >= 1 and the engine's own loop "
                  "(--mode graphed)")
+    if (args.opt_window or args.inject) and (args.opt_window < 1
+                                             or args.inject < 0
+                                             or args.mode != "graphed"):
+        ap.error("--opt-window takes W >= 1 and the engine's own loop "
+                 "(--mode graphed; step() stays conservative), --inject "
+                 "N >= 0 and --opt-window")
 
     import torch
     from torch.autograd import DeviceType
@@ -101,6 +116,9 @@ def main(argv=None) -> int:
             cfg = dataclasses.replace(cfg, **IMPLS[args.impl])
     else:
         model, cfg = bench_path(args.config, **IMPLS[args.impl or "rounds"])
+    if args.opt_window:
+        cfg = dataclasses.replace(cfg, opt_window=args.opt_window,
+                                  inject_straggler_every=args.inject)
     eng = ParsirEngine(model, cfg, device="cuda")
 
     R = args.replications
@@ -169,7 +187,8 @@ def main(argv=None) -> int:
         "card": smi, "torch": torch.__version__, "config": args.config,
         "scheduler": cfg.scheduler, "batch_impl": cfg.batch_impl,
         "mode": args.mode, "graphed": graphs is not None, "epochs": n,
-        "replications": R,
+        "replications": R, "opt_window": cfg.opt_window,
+        "inject_straggler_every": cfg.inject_straggler_every,
         "host_syncs_per_epoch": syncs,
         "events_per_epoch": events / n,
         "wall_us_per_epoch": wall_us,
@@ -184,7 +203,9 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     tag = "_".join(filter(None, (args.config, args.impl, args.mode,
-                                 R and f"r{R}")))
+                                 R and f"r{R}",
+                                 args.opt_window and f"w{args.opt_window}",
+                                 args.inject and f"inj{args.inject}")))
     (out / f"profile_phold_{tag}.json").write_text(json.dumps(report, indent=1))
     prof.export_chrome_trace(str(out / f"profile_phold_{tag}_trace.json"))
 
@@ -192,7 +213,9 @@ def main(argv=None) -> int:
           f"configuration, scheduler {cfg.scheduler}, batch_impl "
           f"{cfg.batch_impl}, {args.mode}"
           f"{' (CUDA graphs)' if graphs is not None else ''}"
-          f"{f', {R} stacked replications' if R else ''}")
+          f"{f', {R} stacked replications' if R else ''}"
+          f"{f', opt_window {cfg.opt_window}' if cfg.opt_window else ''}"
+          f"{f', a rollback every {args.inject} windows' if args.inject else ''}")
     print(f"{n} epochs: wall {wall_us:.1f} us/epoch untraced (CUDA-event "
           f"span {span_us:.1f}), {traced_us:.1f} traced, "
           f"{report['events_per_epoch']:.0f} events/epoch, host syncs/epoch "
