@@ -120,6 +120,26 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 scale, max_calls=4, rounds, eager) drained at W = 0, 1, 2,
                 4 and under the adaptive controller from W = 4: the same
                 bits, fewer windows than the W = 0 drain's epochs;
+  multidevice. — the engine split over ranks of a process group, spawned
+                from the script (``repro_torch.core.dist.spawn``; each
+                rank counts its own kernel launches): D = 2 ranks sharing
+                cuda:0 over gloo, every exchange staged through the host,
+                PHOLD's main path under ``batch-model`` with ``allgather``
+                and then ``a2a``: ``run(32)`` bit-exact against the
+                oracle, ``run(256)`` equal to the one-device graphed run
+                (object state, calendar counts, pending multiset,
+                processed, clean Stats), 1 event_apply launch per rank per
+                epoch, 224 epochs timed per rank (ms/epoch by CUDA events
+                and host clock, the exchange's µs and bytes per epoch,
+                collectives and host syncs per epoch, peak memory);
+                phold-hotspot at the reference bench's scale (``rounds``)
+                under its ``steal_on`` and ``placement_adaptive`` rungs, 16
+                epochs against the oracle with loans and rebalances > 0;
+                the main path under ``spec-a2a`` at W = 2 drained to 32
+                epochs, equal to the conservative a2a drain.  Where the
+                machine shows two or more cards, the same over NCCL with
+                D = min(cards, 4), one card per rank; on one card a line
+                says the NCCL part did not run;
   7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
@@ -520,22 +540,60 @@ def log_timing(name, mode, n, t):
                   f"device memory {t['peak_mib']:.0f} MiB")
 
 
+#: profiles of one window before the profiler's event_apply count and the
+#: launch counter disagreeing fails the run.
+PROFILE_TRIES = 3
+
+
+def profile_counted(run, st, mark):
+    """torch.profiler (CPU and CUDA) over ``st = run(st)``, with the
+    event_apply launches the trace saw held to the launch counter.
+
+    A trace of a graphed speculative window once lacked one kernel record
+    (the profiler saw 49 launches, the counter 50, where 96 profiles of
+    that window on the card agreed): a window whose counts differ is run
+    and profiled again, up to PROFILE_TRIES times in all, each try held to
+    the same exact equality.  A counter that disagrees with the device's
+    work disagrees with every trace, and the run fails.  ``mark(st)`` is
+    read before each try.  Returns ``(prof, st, mark before the accepted
+    try, launches counted, [(seen, counted) of each rejected try])``; a
+    trace with no device op is accepted as it is (its time is "not
+    measured")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    misses = []
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        before, m = event_apply_cuda.launches, mark(st)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            st = run(st)
+            torch.cuda.synchronize()
+        counted = event_apply_cuda.launches - before
+        rows = _device_rows(prof)
+        seen = sum(r[1] for r in rows if "event_apply" in r[2])
+        if not rows or seen == counted:
+            return prof, st, m, counted, misses
+        misses.append((seen, counted))
+    raise AssertionError(f"the profiler saw {seen} event_apply launches, "
+                         f"the counter {counted}, in each of "
+                         f"{PROFILE_TRIES} profiles: {misses}")
+
+
+def _retried(misses) -> str:
+    """The rejected tries of :func:`profile_counted`, for a log line."""
+    return "".join(f"; a trace rejected (saw {a} of {b} launches), the "
+                   f"window profiled again" for a, b in misses)
+
+
 def profile_graphed(eng, st, name, n=16):
     """torch.profiler over ``n`` epochs of the graphed ``run``: device busy
     time and ops per epoch, and the event_apply launches it saw against the
     launch counter."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.event_apply import event_apply_cuda
     st = eng.run(st, n)                  # the graphs exist before the trace
-    torch.cuda.synchronize()
-    before = event_apply_cuda.launches
-    p0 = eng.totals(st)["processed"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st = eng.run(st, n)
-        torch.cuda.synchronize()
-    counted = event_apply_cuda.launches - before
+    prof, st, p0, counted, misses = profile_counted(
+        lambda s: eng.run(s, n), st, lambda s: eng.totals(s)["processed"])
     events = eng.totals(st)["processed"] - p0
     rows = _device_rows(prof)
     busy_us = sum(r[0] for r in rows) / n
@@ -544,14 +602,14 @@ def profile_graphed(eng, st, name, n=16):
         log("profile", f"{name} graphed: device time not measured (the "
                        f"profiler saw no device op inside the graphs)")
         return st, None
-    if seen != counted or counted != n:
-        raise AssertionError(f"{name}: the profiler saw {seen} event_apply "
-                             f"launches in {n} graphed epochs, the counter "
-                             f"{counted}")
+    if counted != n:
+        raise AssertionError(f"{name}: {counted} event_apply launches "
+                             f"counted in {n} graphed epochs")
     log("profile", f"{name} graphed, {n} epochs: device busy {busy_us:.1f} "
                    f"us/epoch in {sum(r[1] for r in rows) / n:.1f} device "
                    f"ops/epoch, {events / n:.0f} events/epoch; event_apply "
-                   f"launches seen {seen} == counted {counted}")
+                   f"launches seen {seen} == counted {counted}"
+                   f"{_retried(misses)}")
     for us, cnt, key in rows[:8]:
         log("profile", f"  {us / n:9.2f} us/epoch {cnt / n:6.1f}x  "
                        f"{key[:90]}")
@@ -875,7 +933,6 @@ def rep_phold(dev, R, ref):
     profile of REP_PROFILED epochs.  Returns the timing and the engine and
     its state for the kernel check."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import DRAIN_CHUNK, ParsirEngine
     from repro_torch.kernels.event_apply import event_apply_cuda
     from repro_torch.testing.clean import assert_clean
@@ -939,17 +996,11 @@ def rep_phold(dev, R, ref):
                         + (f"; replication 0 after {MAIN_EPOCHS_CHECKED} "
                            f"epochs bit-exact vs the oracle" if R == REP_ALL
                            else ""))
-    torch.cuda.synchronize()
-    before = event_apply_cuda.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        st = eng.run_replicated_drained(st, REP_PROFILED)
-        torch.cuda.synchronize()
-    busy, ops, seen = _busy_us(prof)
-    counted = event_apply_cuda.launches - before
-    if busy is not None and seen != counted:
-        raise AssertionError(f"PHOLD x {R}: the profiler saw {seen} "
-                             f"event_apply launches, the counter {counted}")
+    prof, st, _, _, misses = profile_counted(
+        lambda s: eng.run_replicated_drained(s, REP_PROFILED), st,
+        lambda s: None)
+    busy, ops, _ = _busy_us(prof)
+    t["retried"] = _retried(misses)
     t["busy_us"] = None if busy is None else busy / REP_PROFILED
     t["ops"] = None if ops is None else ops / REP_PROFILED
     t["rows"] = _device_rows(prof)[:6]
@@ -1157,7 +1208,7 @@ def replications_phase(dev, ref, flush):
                             f"(0 per epoch, 1 per chunk), graph replays "
                             f"{t['replays']}, captures {t['captures']}, "
                             f"peak device memory {t['peak_mib']:.0f} MiB; "
-                            f"{busy}")
+                            f"{busy}{t['retried']}")
         for us, cnt, key in t["rows"]:
             log("replications", f"  {us / REP_PROFILED:9.2f} us/epoch "
                                 f"{cnt / REP_PROFILED:6.1f}x  {key[:80]}")
@@ -1284,34 +1335,20 @@ def spec_profile(eng, st, n):
     same length, so that every graph it replays exists): device busy µs
     and ops per step and per epoch, event_apply's launches and µs per
     launch, the top device ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.event_apply import event_apply_cuda
     st = eng.run(st, n)
-    torch.cuda.synchronize()
-    t0_tot = eng.totals(st)
-    before = event_apply_cuda.launches
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = eng.run(st, n)
-        torch.cuda.synchronize()
-        traced = time.perf_counter() - t0
+    prof, st, t0_tot, counted, misses = profile_counted(
+        lambda s: eng.run(s, n), st, eng.totals)
     tot = eng.totals(st)
     steps = (tot["spec_commits"] + tot["rollbacks"] - t0_tot["spec_commits"]
              - t0_tot["rollbacks"]) or n
     rows = _device_rows(prof)
-    counted = event_apply_cuda.launches - before
     ea = [r for r in rows if "event_apply" in r[2]]
-    if rows and sum(r[1] for r in ea) != counted:
-        raise AssertionError(f"the profiler saw {sum(r[1] for r in ea)} "
-                             f"event_apply launches, the counter {counted}")
     busy = sum(r[0] for r in rows) if rows else None
     return st, dict(
-        steps=steps, busy_us=busy, traced_us=traced * 1e6,
+        steps=steps, busy_us=busy,
         ops=sum(r[1] for r in rows) if rows else None,
         ea_us=(sum(r[0] for r in ea) / counted) if ea and counted else None,
-        ea_launches=counted, rows=rows[:6])
+        ea_launches=counted, rows=rows[:6], retried=_retried(misses))
 
 
 def _spec_same(a, b, ctx):
@@ -1506,7 +1543,8 @@ def spec_main(dev, ref, smi):
                            f"{t['events_per_s']:.0f} events/s, {t['steps']}"
                            f" steps, {t['syncs']} host syncs, graph "
                            f"replays {t['replays']}, peak device memory "
-                           f"{t['peak_mib']:.0f} MiB; {busy}{ea} [{smi}]")
+                           f"{t['peak_mib']:.0f} MiB; {busy}{ea}"
+                           f"{p['retried']} [{smi}]")
         if key in (0, 2):
             for us, cnt, name in p["rows"]:
                 log("speculation", f"  {us / p['steps']:9.2f} us/step "
@@ -1658,6 +1696,335 @@ def speculation_phase(dev, ref):
     log("speculation", f"phase time {t3 - t0:.1f} s: main path "
                        f"{t1 - t0:.1f} s, replicated {t2 - t1:.1f} s, drain "
                        f"rung {t3 - t2:.1f} s")
+
+
+# -- multi-device (phase multidevice) -------------------------------------------------
+
+#: the main path across ranks: epochs held against the oracle, then run on
+#: (timed) to the epoch held against the one-device graphed run.
+MD_CHECKED, MD_EPOCHS = MAIN_EPOCHS_CHECKED, 256
+#: phold-hotspot at the reference bench's scale (``bench_path``, rounds)
+#: under the bench's ``steal_on`` and ``placement_adaptive`` rungs
+#: (``testing.multidevice.BENCH_HOT_RUNGS``), held to the oracle with
+#: route_cap 32768: at D = 2 the bench's 8192 leaves an a2a pair buffer of
+#: 4096, short of an epoch's traffic to the rank holding the hot objects.
+#: At 8192 the ranks' counters (route overflow, late events ...) are held
+#: to the JAX engine's on 2 devices (``BENCH_HOT_JAX``).  Epochs run.
+MD_HOT_EPOCHS, MD_HOT_CAP = 16, 32768
+#: speculation across ranks (main path, spec-a2a at W = 2): drain bound.
+MD_SPEC_BOUND = 32
+#: seconds a rank waits in one collective; the whole spawn.
+MD_COLLECTIVE_TIMEOUT, MD_SPAWN_TIMEOUT = 300, 600
+
+
+def md_digest(tree) -> str:
+    """sha256 of a dict of arrays in key order, each in a canonical dtype
+    (floats as f32, integers as i64), so that the gathered engine state and
+    the oracle's stacked state digest alike."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = np.asarray(tree[k])
+        v = v.astype(np.float32 if v.dtype.kind == "f" else np.int64)
+        h.update(k.encode() + str(v.shape).encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def _md_snapshot(eng, st) -> dict:
+    """What the parent compares, gathered from every rank (collective)."""
+    from repro_torch.testing.conformance import engine_pending
+    g = eng.global_state(st)
+    return {"totals": eng.totals(st), "pending": engine_pending(eng, st),
+            "obj": md_digest(eng.global_object_state(st)),
+            "cnt": md_digest({"cnt": g.cal.cnt.cpu().numpy()}),
+            "epoch": int(st.epoch[0])}
+
+
+def _md_main(rank, group, dev, route):
+    """The main path over the group under ``route``: init + MD_CHECKED
+    epochs (snapshot), then on to MD_EPOCHS, timed (snapshot)."""
+    import dataclasses
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.kernels.event_apply import event_apply_cuda
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    cfg = dataclasses.replace(cfg, route=route)
+    for fn in KERNELS:
+        fn.launches = 0
+    eng = ParsirEngine(model, cfg, device=dev, group=group)
+    if eng.graphs is not None:
+        raise AssertionError("a step across devices must not be graphed")
+    st = eng.run(eng.init(), MD_CHECKED)
+    checked = _md_snapshot(eng, st)
+    launches_checked = event_apply_cuda.launches
+    n = MD_EPOCHS - MD_CHECKED
+    c = eng.comm
+    torch.cuda.synchronize(dev)
+    calls, nbytes, secs, syncs = c.calls, c.bytes, c.seconds, eng.syncs
+    launches = event_apply_cuda.launches
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    st = eng.run(st, n)
+    e1.record()
+    torch.cuda.synchronize(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    timing = {"ms_events": e0.elapsed_time(e1) / n, "ms_host": host_ms,
+              "exchange_us": (c.seconds - secs) * 1e6 / n,
+              "exchange_bytes": (c.bytes - nbytes) / n,
+              "collectives": (c.calls - calls) / n,
+              "syncs": (eng.syncs - syncs) / n,
+              "launches": (event_apply_cuda.launches - launches) / n,
+              "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    final = _md_snapshot(eng, st)
+    return {"checked": checked, "launches_checked": launches_checked,
+            "final": final, "timing": timing,
+            "launches": {fn.__name__: fn.launches for fn in KERNELS}}
+
+
+def _md_hotspot(rank, group, dev, config, route_cap=None):
+    """phold-hotspot at bench scale under ``BENCH_HOT_RUNGS[config]``,
+    rounds, at ``route_cap`` (the bench's own where None): the snapshot
+    and this rank's own counters."""
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.testing.multidevice import BENCH_HOT_JAX, BENCH_HOT_RUNGS
+    from repro_torch.workloads.registry import bench_path
+    over = dict(BENCH_HOT_RUNGS[config])
+    if route_cap is not None:
+        over["route_cap"] = route_cap
+    model, cfg = bench_path("phold-hotspot", **over)
+    eng = ParsirEngine(model, cfg, device=dev, group=group)
+    t0 = time.perf_counter()
+    st = eng.run(eng.init(), MD_HOT_EPOCHS)
+    wall = time.perf_counter() - t0
+    out = _md_snapshot(eng, st)
+    out.update(wall=wall, syncs=eng.syncs, collectives=eng.comm.calls,
+               own={k: int(getattr(st.stats, k).sum())
+                    for k in BENCH_HOT_JAX[config]})
+    return out
+
+
+def _md_spec(rank, group, dev):
+    """The main path under spec-a2a (W = 2) and conservatively under a2a,
+    both drained to MD_SPEC_BOUND epochs."""
+    import dataclasses
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    out = {}
+    for w in (2, 0):
+        eng = ParsirEngine(model, dataclasses.replace(
+            cfg, route="a2a", opt_window=w), device=dev, group=group)
+        t0 = time.perf_counter()
+        st = eng.run_until_drained(eng.init(), MD_SPEC_BOUND)
+        out[w] = dict(_md_snapshot(eng, st), wall=time.perf_counter() - t0,
+                      syncs=eng.syncs)
+    return out
+
+
+def md_rank(rank, group, backend):
+    """One rank of the multi-device phase (run by ``dist.spawn``): the main
+    path under allgather and a2a, phold-hotspot under loans and adaptive
+    placement, speculation across ranks.  Ranks share ``cuda:0`` over gloo,
+    or own ``cuda:rank`` over NCCL."""
+    import torch
+    from repro_torch.testing.multidevice import BENCH_HOT_RUNGS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    out = {"main": {r: _md_main(rank, group, dev, r)
+                    for r in ("allgather", "a2a")}}
+    torch.cuda.empty_cache()
+    out["hot"] = {c: _md_hotspot(rank, group, dev, c, MD_HOT_CAP)
+                  for c in BENCH_HOT_RUNGS}
+    if torch.distributed.get_world_size(group) == 2:
+        out["hot_bench_cap"] = {c: _md_hotspot(rank, group, dev, c)
+                                for c in BENCH_HOT_RUNGS}
+    out["spec"] = _md_spec(rank, group, dev)
+    return out
+
+
+def _md_same(got, want, ctx, cnt=True):
+    """A rank's snapshot against a reference snapshot (or the oracle's)."""
+    import numpy as np
+    if got["totals"]["processed"] != want["processed"]:
+        raise AssertionError(f"{ctx}: processed {got['totals']['processed']}"
+                             f" != {want['processed']}")
+    np.testing.assert_array_equal(got["pending"], want["pending"],
+                                  err_msg=f"{ctx}: pending multiset")
+    if got["obj"] != want["obj"]:
+        raise AssertionError(f"{ctx}: object state differs")
+    if cnt and got["cnt"] != want["cnt"]:
+        raise AssertionError(f"{ctx}: calendar counts differ")
+
+
+def _md_oracle(model, n, epoch_len):
+    """The oracle's processed count, pending multiset and state digest."""
+    from repro_torch.core.ref_engine import run_sequential
+    from repro_torch.testing.conformance import stack_oracle_state
+    ref = run_sequential(model, n, epoch_len)
+    return {"processed": ref.total_processed,
+            "pending": ref.pending_sorted(),
+            "obj": md_digest(stack_oracle_state(ref.obj_state))}
+
+
+def md_check(ranks, D, backend, smi, ref_main, d1, hot_refs):
+    """Hold the ranks' results to the oracle and the one-device run; log."""
+    from repro_torch.testing.clean import assert_clean
+    r0 = ranks[0]
+    where = f"D={D} ranks over {backend}"
+    if backend == "gloo":
+        where += " on one card, host-staged"
+    for route, res in r0["main"].items():
+        ctx = f"[multidevice] main path {route} {where}"
+        for snap in (res["checked"], res["final"]):
+            assert_clean(snap["totals"], context=ctx)
+        _md_same(res["checked"], ref_main, ctx + f" run({MD_CHECKED}) vs "
+                 f"the oracle", cnt=False)
+        _md_same(res["final"], d1, ctx + f" run({MD_EPOCHS}) vs the "
+                 f"one-device graphed run")
+        per_rank = [r["main"][route]["launches_checked"] for r in ranks]
+        rates = [r["main"][route]["timing"]["launches"] for r in ranks]
+        if per_rank != [MD_CHECKED] * D or rates != [1.0] * D:
+            raise AssertionError(f"{ctx}: event_apply launches per rank "
+                                 f"{per_rank} in {MD_CHECKED} epochs, "
+                                 f"{rates} per epoch (want 1 per rank per "
+                                 f"epoch)")
+        log("multidevice", f"main path (1024 objects x 4000 nodes x 6 "
+                           f"lanes, batch-model) {route}, {where}: "
+                           f"run({MD_CHECKED}) bit-exact vs the oracle "
+                           f"(processed {res['checked']['totals']['processed']}"
+                           f"), run({MD_EPOCHS}) == the one-device graphed "
+                           f"run (object state, calendar counts, pending "
+                           f"multiset, processed "
+                           f"{res['final']['totals']['processed']}), clean; "
+                           f"event_apply 1 launch per rank per epoch "
+                           f"({per_rank} in {MD_CHECKED} epochs)")
+        for rank, r in enumerate(ranks):
+            t = r["main"][route]["timing"]
+            log("multidevice", f"main path {route}, {where}, rank {rank}, "
+                               f"{MD_EPOCHS - MD_CHECKED} epochs: "
+                               f"{t['ms_events']:.4f} ms/epoch (CUDA "
+                               f"events), {t['ms_host']:.4f} (host clock); "
+                               f"exchange {t['exchange_us']:.1f} us and "
+                               f"{t['exchange_bytes']:.0f} B per epoch in "
+                               f"{t['collectives']:.2f} collectives; host "
+                               f"syncs {t['syncs']:.2f} per epoch; "
+                               f"event_apply {t['launches']:.2f} launches "
+                               f"per epoch; peak {t['peak_mib']:.0f} MiB; "
+                               f"{smi}")
+    from repro_torch.testing.multidevice import BENCH_HOT_JAX
+    for c in BENCH_HOT_JAX:
+        res = r0["hot"][c]
+        ctx = f"[multidevice] phold-hotspot bench scale {c} {where}"
+        assert_clean(res["totals"], context=ctx)
+        _md_same(res, hot_refs, ctx + " vs the oracle", cnt=False)
+        tot = res["totals"]
+        key = "stolen" if c.startswith("steal") else "rebalances"
+        if tot[key] <= 0:
+            raise AssertionError(f"{ctx}: {key} = {tot[key]}")
+        log("multidevice", f"phold-hotspot at bench scale (512 objects, "
+                           f"rounds) {c}, {where}: {MD_HOT_EPOCHS} epochs "
+                           f"bit-exact vs the oracle (processed "
+                           f"{tot['processed']}), stolen {tot['stolen']}, "
+                           f"rebalances {tot['rebalances']}, migrated "
+                           f"{tot['migrated']}; {res['wall']:.2f} s, "
+                           f"{res['syncs']} host syncs, "
+                           f"{res['collectives']} collectives (rank 0), "
+                           f"route_cap {MD_HOT_CAP}")
+        if D != 2:
+            continue
+        got = [r["hot_bench_cap"][c]["own"] for r in ranks]
+        for k, want in BENCH_HOT_JAX[c].items():
+            if [g[k] for g in got] != want:
+                raise AssertionError(f"{ctx} at the bench's route_cap: "
+                                     f"{k} per rank {[g[k] for g in got]}, "
+                                     f"the JAX engine's {want}")
+        log("multidevice", f"phold-hotspot at bench scale {c} at the "
+                           f"bench's route_cap 8192, {where}: per rank "
+                           + ", ".join(f"{k} {[g[k] for g in got]}"
+                                       for k in BENCH_HOT_JAX[c])
+                           + " == the JAX engine's on 2 devices")
+    spec, cons = r0["spec"][2], r0["spec"][0]
+    ctx = f"[multidevice] main path spec-a2a W=2 {where}"
+    assert_clean(spec["totals"], context=ctx)
+    _md_same(spec, {"processed": cons["totals"]["processed"],
+                    "pending": cons["pending"], "obj": cons["obj"],
+                    "cnt": cons["cnt"]}, ctx + " vs the conservative drain")
+    if spec["epoch"] != cons["epoch"]:
+        raise AssertionError(f"{ctx}: drained to epoch {spec['epoch']}, "
+                             f"conservatively {cons['epoch']}")
+    tot = spec["totals"]
+    log("multidevice", f"main path spec-a2a W=2, {where}: "
+                       f"run_until_drained({MD_SPEC_BOUND}) == the "
+                       f"conservative a2a drain (object state, calendar "
+                       f"counts, pending, processed {tot['processed']}), "
+                       f"commits {tot['spec_commits']}, rollbacks "
+                       f"{tot['rollbacks']}, speculated {tot['speculated']} "
+                       f"(summed over ranks); {spec['wall']:.2f} s against "
+                       f"{cons['wall']:.2f} s")
+
+
+def multidevice_phase(dev, ref):
+    """Phase multidevice: the engine split over ranks of a process group.
+    (a) D = 2 ranks on cuda:0 over gloo, exchanges staged through the host;
+    (b) where the machine shows two or more cards, D = min(cards, 4) ranks
+    over NCCL, one card each.  The ranks' kernel counters are their own."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import torch
+    from repro_torch.core.dist import spawn
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.testing.conformance import stack_oracle_state
+    from repro_torch.workloads.phold import main_path
+    from repro_torch.workloads.registry import bench_path
+    smi = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    # the oracle of the bench-scale hotspot (one model for both rungs)
+    # runs beside the ranks, in a process of its own.
+    hmodel, hcfg = bench_path("phold-hotspot")
+    pool = cf.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    hot_ref = pool.submit(_md_oracle, hmodel, MD_HOT_EPOCHS, hcfg.epoch_len)
+    ref_main = {"processed": ref.total_processed,
+                "pending": ref.pending_sorted(),
+                "obj": md_digest(stack_oracle_state(ref.obj_state))}
+    # the one-device graphed run the ranks are held to.
+    model, cfg = main_path()
+    eng = ParsirEngine(model, cfg, device=dev)
+    st = eng.run(eng.init(), MD_EPOCHS)
+    d1 = _md_snapshot(eng, st)
+    d1 = {"processed": d1["totals"]["processed"], "pending": d1["pending"],
+          "obj": d1["obj"], "cnt": d1["cnt"]}
+    del eng, st
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    ranks = spawn(md_rank, 2, "gloo", backend="gloo",
+                  timeout=MD_COLLECTIVE_TIMEOUT,
+                  join_timeout=MD_SPAWN_TIMEOUT)
+    t2 = time.perf_counter()
+    hot_refs = hot_ref.result()
+    pool.shutdown()
+    md_check(ranks, 2, "gloo", smi, ref_main, d1, hot_refs)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        D = min(cards, 4)
+        ranks = spawn(md_rank, D, "nccl", backend="nccl",
+                      timeout=MD_COLLECTIVE_TIMEOUT,
+                      join_timeout=MD_SPAWN_TIMEOUT)
+        md_check(ranks, D, "nccl", smi, ref_main, d1, hot_refs)
+    else:
+        log("multidevice", f"NCCL part not run: the machine shows {cards} "
+                           f"CUDA device (NCCL needs one card per rank); "
+                           f"NCCL is unverified")
+    t3 = time.perf_counter()
+    log("multidevice", f"phase time {t3 - t0:.1f} s: the one-device "
+                       f"reference {t1 - t0:.1f} s, gloo ranks {t2 - t1:.1f} "
+                       f"s, checks and NCCL {t3 - t2:.1f} s")
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -2833,6 +3200,10 @@ def main() -> int:
 
     # speculation. opt_window on the main path, replicated, the drain rung ------
     speculation_phase(dev, ref)
+    torch.cuda.empty_cache()
+
+    # multidevice. the main path, loans, rebalancing, speculation over ranks --
+    multidevice_phase(dev, ref)
     del ref
     torch.cuda.empty_cache()
 

@@ -6,9 +6,12 @@ ports ``repro/core/calendar.py``).  This package imports ``torch`` and never
 the card unless the caller asks for the CPU; there the hand-written CUDA
 kernels are replaced by their plain PyTorch versions.
 
-Ported so far: one PHOLD simulation on one device under the conservative
-engine, through the ``batch`` rounds scheduler or the hand-written
-``event_apply`` kernel (``EngineConfig(batch_impl="model")``); and
-zamba2-1.2b serving (``serve.engine.ServeSession``: greedy prefill + decode
-on one device), whose prefill runs the hand-written ``ssd_scan`` kernel.
+Ported so far: the PARSIR engine with its stage pipeline (the seven
+workloads, four schedulers, the fused drain as CUDA graphs, replications
+and campaigns, speculation) on one device or over D ranks of a
+``torch.distributed`` group (placement, the allgather and a2a routers, loan
+stealing, adaptive rebalancing), PHOLD through the hand-written
+``event_apply`` kernel (``EngineConfig(batch_impl="model")``); zamba2-1.2b
+and llama3.2-3b serving and llama3.2-3b's forward and loss, through the
+hand-written ``ssd_scan`` and ``flash_attention`` kernels.
 """

@@ -66,7 +66,7 @@ def run_campaign(spec: CampaignSpec, store: ResultsStore | None = None,
     With a ``store``, completed grid points are skipped (their stored result
     is reused in the summary) and fresh results are written as they finish.
     ``spec.devices > 1`` (the reference's replication-sharded layout) is
-    refused: the port runs on one device until the multi-device slice.
+    refused: it comes with the rep-sharded slice.
 
     The summary reports, per the clean-run contract, every replication with
     nonzero overflow/causality counters (``unclean``) and every grid point
@@ -78,7 +78,9 @@ def run_campaign(spec: CampaignSpec, store: ResultsStore | None = None,
     if spec.devices != 1:
         raise NotImplementedError(
             f"a campaign over devices={spec.devices} is not in the PyTorch "
-            f"port yet; it comes with the multi-device slice (rep_shards)")
+            f"port yet; it comes with the rep-sharded slice of the "
+            f"multi-device port (rep_shards: the replications laid over "
+            f"devices); run it with devices=1")
     device = resolve_device(device)
     say = log or (lambda msg: None)
     if store is not None:

@@ -67,6 +67,12 @@ class SimModel(abc.ABC):
         """Bootstrap events as flat numpy arrays
         {dst:i32[K], ts:f32[K], seed:u32[K], payload:f32[K]}."""
 
+    def object_weights(self) -> np.ndarray | None:
+        """Optional per-object expected-load hint, f64[n_objects], for
+        ``placement="weighted"`` (and the start of ``"adaptive"``); None
+        means no skew is known and the engine splits equally."""
+        return None
+
     @abc.abstractmethod
     def process_events(self, state: dict[str, torch.Tensor], ts: torch.Tensor,
                        seed: torch.Tensor, payload: torch.Tensor

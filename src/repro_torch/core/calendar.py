@@ -15,6 +15,9 @@ each group by a binary search for the group's start, so every event lands
 at ``cnt + rank`` — a conflict-free scatter.  Overflow is counted and
 returned, never silent.
 
+Whole rows move with :func:`take_rows` / :func:`put_rows` /
+:func:`clear_rows` (the adaptive rebalance's migration).
+
 Torch has no ``mode="drop"`` scatter: dropped entries are scattered into one
 extra sentinel slot that is sliced off afterwards.  The functions here
 return new tensors and leave their inputs unchanged.
@@ -181,6 +184,39 @@ def extract_sorted(cal: Calendar, epoch: torch.Tensor,
         new_ts = cal.ts.scatter(1, slots, torch.where(
             take[:, None], float("inf"), raw_ts)[:, None, :])
     return cal._replace(ts=new_ts, cnt=new_cnt), ts, seed, pay, cnt_b
+
+
+def take_rows(cal: Calendar, idx: torch.Tensor) -> Calendar:
+    """Whole per-object calendar rows (every bucket and slot) at ``idx``:
+    the bulk extract of a migration (:mod:`.pipeline.rebalance`).  Bucket
+    indices are absolute epochs modulo ``n_buckets`` on every device, so a
+    row stays valid wherever it lands."""
+    idx = idx.long()
+    return Calendar(cal.ts[idx], cal.seed[idx], cal.payload[idx],
+                    cal.cnt[idx])
+
+
+def put_rows(cal: Calendar, idx: torch.Tensor, rows: Calendar,
+             mask: torch.Tensor) -> Calendar:
+    """Overwrite the calendar rows at ``idx`` where ``mask`` holds with
+    ``rows`` (the reinsert of a migration); masked-off rows go to a
+    sentinel row that is sliced off."""
+    safe = torch.where(mask, idx.long(), cal.n_local)
+
+    def put(dst, src):
+        buf = torch.cat([dst, dst[:1]])
+        buf[safe] = src
+        return buf[:-1]
+    return Calendar(put(cal.ts, rows.ts), put(cal.seed, rows.seed),
+                    put(cal.payload, rows.payload), put(cal.cnt, rows.cnt))
+
+
+def clear_rows(cal: Calendar, dead: torch.Tensor) -> Calendar:
+    """Deaden the rows where ``dead`` holds: counts 0, timestamps +inf
+    (slots that no longer back a live object)."""
+    cnt = torch.where(dead[:, None], 0, cal.cnt)
+    ts = torch.where(dead[:, None, None], float("inf"), cal.ts)
+    return cal._replace(ts=ts, cnt=cnt)
 
 
 def _window(cal: Calendar, first_epoch: torch.Tensor, n: int) -> torch.Tensor:

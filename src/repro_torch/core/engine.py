@@ -1,12 +1,35 @@
 """The PARSIR epoch-synchronous conservative engine (paper §II), PyTorch.
 
-Port of ``repro/core/engine.py`` for one device.  An engine step processes
-exactly one epoch through the stage pipeline of
-:mod:`repro_torch.core.pipeline`: extract the current bucket sorted by
-(ts, seed), process every object's batch (the ``batch`` rounds loop, or the
-model's kernel with ``batch_impl="model"``), route the emissions (the
-identity on one device) and deliver them into the calendar or the fallback
-list.  Every overflow/causality condition is counted in ``Stats``.
+Port of ``repro/core/engine.py``.  An engine step processes exactly one
+epoch through the stage pipeline of :mod:`repro_torch.core.pipeline`:
+extract the current bucket sorted by (ts, seed), optionally loan hot
+objects' batches to underloaded devices, process every object's batch (the
+``batch`` rounds loop, or the model's kernel with ``batch_impl="model"``),
+optionally rebalance the placement, route the emissions and deliver them
+into the calendar or the fallback list.  Every overflow/causality
+condition is counted in ``Stats``.
+
+Devices.  One engine is one device.  Without a process group it is the
+whole simulation; with one (``ParsirEngine(..., group=g)``, a
+``torch.distributed`` group of D ranks, each building its engine with the
+same model and config) it is rank ``r`` of D devices that share one
+simulation, as the JAX engine's ``shard_map`` over a D-device mesh: the
+rank holds its contiguous range of objects in ``n_local_max`` padded rows
+(its calendar, fallback, object state, epoch, Stats, the replicated
+boundaries and the load, the reference's per-device shard), and the
+stages' collectives run over the group (:mod:`.dist`).  Placement is
+``equal``, ``weighted`` (the model's ``object_weights`` hint) or
+``adaptive`` (padded by ``placement_slack``, the boundaries moved by the
+rebalance stage).  Every call is collective: every rank calls ``init``,
+``step``, ``run``, the drains and the inspection helpers in the same
+order.  ``totals`` and ``in_flight`` are summed over the ranks;
+``global_state``, ``global_row_of`` and ``global_object_state`` gather to
+every rank.  Across devices the loops run eagerly (no CUDA graphs: gloo
+cannot be captured, and NCCL capture waits for a machine with several
+cards to check it); the drain's flag is one ``all_sum`` per
+``DRAIN_CHUNK``, the reference's ``psum``, and the gated step sums the
+events in flight over the ranks every epoch.  Stacked replications stay on
+one device (R > 1 with D > 1 is refused, naming the rep-sharded slice).
 
 The fused loops.  The JAX engine runs :meth:`ParsirEngine.run` as one
 compiled ``fori_loop`` and :meth:`ParsirEngine.run_until_drained` as one
@@ -71,6 +94,7 @@ keep it.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -79,46 +103,71 @@ from .api import SimModel
 from .calendar import (Calendar, bucket_occupancy, make_calendar,
                        make_fallback)
 from .device import resolve_device
+from .dist import Comm
 from .events import EventBatch
 from .graphs import DRAIN_CHUNK, StepGraphs, split
 from .pipeline import (EngineConfig, EngineState, deliver, in_flight,
                        make_spec_step, make_step, map_tree,
                        pending_per_replication, refuse_stacking, replica,
                        resolve_scheduler, stack_of_one, zero_stats)
-from .placement import Placement, equal_placement
+from .pipeline.step import refuse_reps_across_devices, step_host_syncs
+from .placement import Placement, equal_placement, weighted_placement
 
 __all__ = ["DRAIN_CHUNK", "EngineConfig", "EngineState", "ParsirEngine"]
 
 
-def spec_flag(state: EngineState, bound: torch.Tensor, drain: bool
-              ) -> torch.Tensor:
+def build_placement(model: SimModel, cfg: EngineConfig, D: int) -> Placement:
+    """``cfg.placement`` as the engine's initial Placement: ``weighted``
+    and ``adaptive`` read the model's ``object_weights`` hint (the equal
+    split without one); ``adaptive`` widens the row pad by
+    ``placement_slack`` so the boundaries have room to skew."""
+    O = model.n_objects
+    if cfg.placement == "equal":
+        return equal_placement(O, D)
+    w = model.object_weights()
+    pl = equal_placement(O, D) if w is None else weighted_placement(w, D)
+    if cfg.placement == "adaptive":
+        pad = min(O, int(math.ceil(O / D * cfg.placement_slack)))
+        pl = pl.padded(max(pl.n_local_max, pad))
+    return pl
+
+
+def spec_flag(state: EngineState, bound: torch.Tensor, drain: bool,
+              comm: Comm | None = None) -> torch.Tensor:
     """The speculative loops' flag, i64 [2]: the replications still short
-    of their ``bound`` (and, with ``drain``, holding events in flight), and
-    the most epochs one of them has left."""
+    of their ``bound`` (and, with ``drain``, holding events in flight,
+    summed over ``comm``'s devices), and the most epochs one of them has
+    left."""
     e = state.epoch.reshape(-1)
     active = e < bound
     if drain:
         pending = (pending_per_replication(state) if state.epoch.ndim == 2
                    else in_flight(state).reshape(1))
+        if comm is not None:
+            pending = comm.all_sum(pending)
         active = active & (pending > 0)
     return torch.stack([active.sum(),
                         torch.where(active, bound - e, 0).amax().long()])
 
 
 class ParsirEngine:
-    """Build, initialize and run a PARSIR simulation on one device."""
+    """Build, initialize and run a PARSIR simulation: on one device, or as
+    one rank of ``group``'s devices."""
 
     def __init__(self, model: SimModel, cfg: EngineConfig,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", group=None):
         self.device = resolve_device(device)
         self.model, self.cfg = model, cfg
-        self.D = 1
+        #: the device axis: this engine's rank of D (one device by default).
+        self.comm = Comm(group)
+        self.D, self.rank = self.comm.size, self.comm.rank
         cfg.validate(self.D)
-        self.placement: Placement = equal_placement(model.n_objects, self.D)
-        self._step = make_step(model, cfg, self.placement)
-        self._gated = make_step(model, cfg, self.placement, gated=True)
+        self.placement: Placement = build_placement(model, cfg, self.D)
+        kw = dict(comm=self.comm)
+        self._step = make_step(model, cfg, self.placement, **kw)
+        self._gated = make_step(model, cfg, self.placement, gated=True, **kw)
         self._rep_gated = make_step(model, cfg, self.placement, gated=True,
-                                    replicated=True)
+                                    replicated=True, **kw)
         #: the speculative steps per live window width, built lazily (the
         #: adaptive controller builds only the widths it visits); with
         #: ``opt_window == 0`` nothing speculative is built.
@@ -127,11 +176,11 @@ class ParsirEngine:
         if cfg.opt_window > 0:
             self._spec_step = self._drain_variant(cfg.opt_window)
             self._rep_spec_step = make_spec_step(model, cfg, self.placement,
-                                                 replicated=True)
+                                                 replicated=True, **kw)
         #: the window width of each chunk of the last adaptive drain.
         self.window_trail: list[int] = []
         self._scheduler = resolve_scheduler(cfg)
-        self._step_syncs = self._scheduler.host_syncs
+        self._step_syncs = step_host_syncs(cfg, self.D)
         #: host reads of device values made while running epochs (the
         #: inspection helpers below are not counted).
         self.syncs = 0
@@ -139,8 +188,9 @@ class ParsirEngine:
         #: count of program launches).
         self.dispatches = 0
         #: the CUDA graphs of the step, where the step reads nothing on the
-        #: host; None where the loops run eagerly.
-        self._graphed = self.device.type == "cuda" and self._step_syncs == 0
+        #: host and runs on one device; None where the loops run eagerly.
+        self._graphed = (self.device.type == "cuda" and self._step_syncs == 0
+                         and self.D == 1)
         self.graphs = (StepGraphs({False: self._step, True: self._gated},
                                   self.device) if self._graphed else None)
         #: the graphs of the stacked gated step, with their own static
@@ -151,20 +201,21 @@ class ParsirEngine:
     # -- lifecycle -------------------------------------------------------------
 
     def _fresh_state(self, R: int | None = None) -> EngineState:
-        """The zeroed pre-ingest state; ``R`` stacks R copies of it."""
-        D, M, cfg, dev = self.D, self.placement.n_local_max, self.cfg, \
-            self.device
-        obj = self.model.init_object_state(self.placement.padded_gids(), dev)
-        cal = make_calendar(D * M, cfg.n_buckets, cfg.bucket_cap, dev)
-        fb = make_fallback(D * cfg.fallback_cap, dev)
+        """This device's zeroed pre-ingest state (the reference's shard of
+        device ``rank``); ``R`` stacks R copies of it."""
+        M, cfg, dev = self.placement.n_local_max, self.cfg, self.device
+        gids = self.placement.padded_gids()[self.rank * M:(self.rank + 1) * M]
+        obj = self.model.init_object_state(gids, dev)
+        cal = make_calendar(M, cfg.n_buckets, cfg.bucket_cap, dev)
+        fb = make_fallback(cfg.fallback_cap, dev)
         b = torch.as_tensor(np.asarray(self.placement.boundaries, np.int32),
                             device=dev)
         state = EngineState(
             cal, fb, obj,
-            epoch=torch.zeros((D,), dtype=torch.int32, device=dev),
+            epoch=torch.zeros((1,), dtype=torch.int32, device=dev),
             stats=zero_stats(dev),
             bounds=b[None, :].clone(),
-            load=torch.zeros((D * M,), dtype=torch.int32, device=dev))
+            load=torch.zeros((M,), dtype=torch.int32, device=dev))
         if R is None:
             return state
         return map_tree(lambda t: t.unsqueeze(0).repeat(
@@ -193,8 +244,8 @@ class ParsirEngine:
         pl = self.placement.with_boundaries(state.bounds[0, 0])
         flat = Calendar(*(x.flatten(0, 1) for x in state.cal))
         cal, fb, cal_ovf, fb_ovf, late, oob = deliver(
-            flat, state.fb, batch, state.epoch[:, 0], 0, pl, self.cfg,
-            init=True)
+            flat, state.fb, batch, state.epoch[:, 0], self.rank, pl,
+            self.cfg, init=True, replicated=True)
         st = state.stats
         stats = st._replace(cal_overflow=st.cal_overflow + cal_ovf[:, None],
                             fb_overflow=st.fb_overflow + fb_ovf[:, None],
@@ -220,6 +271,7 @@ class ParsirEngine:
         if not seeds:
             raise ValueError("init_replicated needs at least one seed")
         refuse_stacking(self._scheduler, len(seeds))
+        refuse_reps_across_devices(len(seeds), self.D)
         self.dispatches += 1
         batches = [self._initial_batch(s) for s in seeds]
         batch = EventBatch(*(torch.stack(x) for x in zip(*batches)))
@@ -237,8 +289,10 @@ class ParsirEngine:
         ``run_replicated_drained`` check it before they run.
         """
         cap = torch.iinfo(torch.int64).max
-        per_epoch = max(self.placement.n_local_max * self.cfg.bucket_cap,
-                        self.cfg.route_cap, self.cfg.fallback_cap)
+        per_epoch = self.placement.n_local_max * self.cfg.bucket_cap
+        if self.cfg.steal:
+            per_epoch += self.cfg.claim_cap * self.cfg.bucket_cap
+        per_epoch = max(per_epoch, self.cfg.route_cap, self.cfg.fallback_cap)
         if int(n_epochs) * per_epoch > cap:
             raise ValueError(
                 f"{n_epochs} epochs could overflow the int64 Stats counters "
@@ -315,6 +369,7 @@ class ParsirEngine:
         self.check_stats_bound(n)
         R = state.epoch.shape[0]
         refuse_stacking(self._scheduler, R)
+        refuse_reps_across_devices(R, self.D)
         self.dispatches += 1
         if self._graphed and (self.rep_graphs is None
                               or self.rep_graphs.static.epoch.shape[0] != R):
@@ -333,8 +388,8 @@ class ParsirEngine:
         if w not in self._drain_variants:
             cfg_w = dataclasses.replace(self.cfg, opt_window=w,
                                         opt_adaptive=False)
-            self._drain_variants[w] = make_spec_step(self.model, cfg_w,
-                                                     self.placement)
+            self._drain_variants[w] = make_spec_step(
+                self.model, cfg_w, self.placement, comm=self.comm)
         return self._drain_variants[w]
 
     def _spec_loop(self, state: EngineState, n: int, w: int, drain: bool,
@@ -362,7 +417,8 @@ class ParsirEngine:
                 for _ in range(steps):
                     self.syncs += self._step_syncs * (w + 1)
                     state = step(state, bound, drain)
-                active, left = spec_flag(state, bound, drain).tolist()
+                active, left = spec_flag(state, bound, drain,
+                                         self.comm).tolist()
             else:
                 for length in split(steps):
                     graphs.replay(variant, length)
@@ -424,7 +480,7 @@ class ParsirEngine:
                 for _ in range(chunk):
                     self.syncs += self._step_syncs
                     state = gated(state)
-                pending = int(in_flight(state))
+                pending = int(self.comm.all_sum(in_flight(state)))
             else:
                 for length in split(chunk):
                     graphs.replay(True, length)
@@ -454,11 +510,13 @@ class ParsirEngine:
         return pending_per_replication(state).cpu().numpy().astype(np.int64)
 
     def totals(self, state: EngineState) -> dict[str, int]:
-        flat = torch.stack([v.sum() for v in state.stats]).tolist()
-        return dict(zip(state.stats._fields, (int(v) for v in flat)))
+        """Stats summed over the replications of a stack and the devices."""
+        flat = self.comm.all_sum(torch.stack([v.sum() for v in state.stats]))
+        return dict(zip(state.stats._fields, (int(v) for v in flat.tolist())))
 
     def in_flight(self, state: EngineState) -> int:
-        return int(in_flight(state))
+        """Events in flight, summed over the devices."""
+        return int(self.comm.all_sum(in_flight(state)))
 
     def occupancy(self, state: EngineState) -> dict[str, np.ndarray | int]:
         """Width-packing diagnostics for the *current* epoch's bucket.
@@ -470,18 +528,36 @@ class ParsirEngine:
         per-round tile rounding).  The padded-row tax is the gap.
         """
         M = self.placement.n_local_max
-        depth = bucket_occupancy(state.cal, state.epoch[0]).cpu().numpy() \
-            .reshape(self.D, M)
+        depth = self.comm.all_gather(bucket_occupancy(
+            state.cal, state.epoch[0])).cpu().numpy().reshape(self.D, M)
         events = depth.sum(axis=1)
         max_depth = depth.max(axis=1, initial=0)
         return {"events": events, "max_depth": max_depth,
                 "padded_lanes": max_depth * M, "packed_lanes": events,
                 "n_local_max": M}
 
+    def global_state(self, state: EngineState) -> EngineState:
+        """Every device's state gathered to every rank, in the JAX engine's
+        global layout: each leaf's shards concatenated along dim 0
+        (``cal`` [D * M, ...], ``fb`` [D * F], ``epoch`` and each Stats
+        field [D], ``bounds`` [D, D + 1], ``load`` [D * M]).  The state
+        itself on one device."""
+        if self.D == 1:
+            return state
+        return map_tree(lambda t: t.flatten(0, 1),
+                        self.comm.all_gather(state))
+
+    def boundaries_of(self, state: EngineState) -> np.ndarray:
+        """The live placement boundaries, i64[D + 1] (the same on every
+        device; they move under ``placement='adaptive'``)."""
+        return state.bounds[0].cpu().numpy().astype(np.int64)
+
     def global_row_of(self, state: EngineState
                       ) -> tuple[np.ndarray, np.ndarray]:
-        """(gid, live) per padded row, each [D * n_local_max]."""
-        b = state.bounds[0].cpu().numpy().astype(np.int64)
+        """(gid, live) per padded row of every device, each [D *
+        n_local_max]: ``gid[r]`` the global object id row ``r`` backs,
+        ``live[r]`` False for pad rows."""
+        b = self.boundaries_of(state)
         M = self.placement.n_local_max
         d = np.arange(self.D * M) // M
         i = np.arange(self.D * M) % M
@@ -490,9 +566,12 @@ class ParsirEngine:
         return np.where(live, gid, 0), live
 
     def global_object_state(self, state: EngineState) -> dict[str, np.ndarray]:
-        """Per-object state in global id order, leading dim ``n_objects``."""
+        """Per-object state in global id order, leading dim ``n_objects``,
+        gathered from every device."""
         gid, live = self.global_row_of(state)
         order = np.nonzero(live)[0]
         if not np.array_equal(gid[order], np.arange(self.model.n_objects)):
             raise RuntimeError("live rows do not cover the object ids")
-        return {k: v.cpu().numpy()[order] for k, v in state.obj.items()}
+        obj = self.comm.all_gather(state.obj)
+        return {k: v.flatten(0, 1).cpu().numpy()[order]
+                for k, v in obj.items()}

@@ -5,18 +5,25 @@
     fail-fast validation);
   * :mod:`schedulers`  — ``batch`` (PARSIR rounds), ``batch-model`` (model
     kernel);
-  * :mod:`routers`     — ``allgather`` (single device);
+  * :mod:`routers`     — ``allgather`` and ``a2a`` (over the engine's
+    :class:`~repro_torch.core.dist.Comm`);
+  * :mod:`steal`       — ``none`` and ``loan`` (epoch-granular loans);
+  * :mod:`rebalance`   — ``none`` and ``adaptive`` (boundary moves with
+    calendar-row migration);
   * :mod:`deliver`     — owner-side calendar/fallback insertion;
   * :mod:`step`        — :func:`make_step`, the wiring (one simulation, or
     R stacked replications);
   * :mod:`speculate`   — :func:`make_spec_step`, the bounded-optimism step
     (``opt_window``), stacked the same way.
 """
-from . import routers, schedulers  # noqa: F401  (registration imports)
-from .base import (ROUTERS, SCHEDULERS, EngineState, Router, Scheduler, Stats,
-                   epoch_of, map_tree, register_router, register_scheduler,
-                   replica, resolve_router, resolve_scheduler, stack_of_one,
-                   zero_stats)
+from . import rebalance, routers, schedulers, steal  # noqa: F401  (registration)
+from .base import (REBALANCERS, ROUTERS, SCHEDULERS, STEAL_POLICIES,
+                   EngineState, RebalancePolicy, Router, Scheduler,
+                   StealPolicy, Stats, epoch_of, map_tree,
+                   register_rebalancer, register_router, register_scheduler,
+                   register_steal_policy, replica, resolve_rebalance,
+                   resolve_router, resolve_scheduler, resolve_steal,
+                   stack_of_one, zero_stats)
 from .config import EngineConfig
 from .deliver import deliver
 from .schedulers import refuse_stacking
@@ -24,10 +31,12 @@ from .speculate import make_spec_step
 from .step import in_flight, make_step, pending_per_replication
 
 __all__ = [
-    "ROUTERS", "SCHEDULERS", "EngineConfig", "EngineState", "Router",
-    "Scheduler", "Stats", "deliver", "epoch_of", "in_flight",
-    "make_spec_step", "make_step", "map_tree", "pending_per_replication",
-    "refuse_stacking",
-    "register_router", "register_scheduler", "replica", "resolve_router",
-    "resolve_scheduler", "stack_of_one", "zero_stats",
+    "REBALANCERS", "ROUTERS", "SCHEDULERS", "STEAL_POLICIES", "EngineConfig",
+    "EngineState", "RebalancePolicy", "Router", "Scheduler", "StealPolicy",
+    "Stats", "deliver", "epoch_of", "in_flight", "make_spec_step",
+    "make_step", "map_tree", "pending_per_replication", "refuse_stacking",
+    "register_rebalancer", "register_router", "register_scheduler",
+    "register_steal_policy", "replica", "resolve_rebalance",
+    "resolve_router", "resolve_scheduler", "resolve_steal", "stack_of_one",
+    "zero_stats",
 ]

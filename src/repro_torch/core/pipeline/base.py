@@ -1,11 +1,18 @@
 """Stage interfaces, registries and shared engine types (PyTorch).
 
-Port of ``repro/core/pipeline/base.py`` for the stages this slice runs: the
-:class:`Scheduler` (how a device's epoch batch is executed) and the
-:class:`Router` (how emitted events reach their owners).  Stage
+Port of ``repro/core/pipeline/base.py``: the narrow interfaces of the
+pluggable stages of the epoch pipeline
+
+    extract → steal → process → rebalance → route → deliver
+
+the :class:`Scheduler` (how a device's epoch batch is executed), the
+:class:`Router` (how emitted events reach their owners), the
+:class:`StealPolicy` (epoch-granular loans before processing) and the
+:class:`RebalancePolicy` (moving the placement boundaries).  Stage
 implementations are small registered classes; :class:`EngineConfig`
 selects them by name and :func:`~repro_torch.core.pipeline.step.make_step`
-wires them together.
+wires them together.  The stages that talk across devices take the
+engine's :class:`~repro_torch.core.dist.Comm` (the reference's ``AXIS``).
 
 Bit-exactness contract (unchanged): a stage chooses *how*, never *what* —
 every registered implementation leaves the processed-event multiset and,
@@ -27,6 +34,7 @@ from ..placement import Placement
 from .names import BATCH_IMPLS
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
+    from ..dist import Comm
     from .config import EngineConfig
 
 
@@ -160,9 +168,16 @@ class Router(abc.ABC):
     Contract: routing moves events, never invents, drops or reorders them;
     what does not fit the route buffer is handed back to the caller's
     fallback and counted.
+
+    ``replicated`` declares the exchange's output: True if every device
+    sees the same routed batch (allgather; an out-of-bounds event is then
+    counted once, on device 0), False if each device receives its own
+    slice (a2a; counted where it lands).
     """
 
     name: str
+    #: True if exchange() presents an identical batch on every device.
+    replicated: bool = True
 
     def validate(self, cfg: "EngineConfig", placement: Placement) -> None:
         """Fail fast at engine construction on bad capacity/topology."""
@@ -178,8 +193,9 @@ class Router(abc.ABC):
 
     @abc.abstractmethod
     def exchange(self, buf: EventBatch, placement: Placement,
-                 cfg: "EngineConfig") -> EventBatch:
-        """Run the collective; return the events visible to this device."""
+                 cfg: "EngineConfig", comm: "Comm") -> EventBatch:
+        """Run the collective over ``comm``; return the events visible to
+        this device (``[R, E']`` for route buffers ``[R, E]``)."""
 
     def sender_ids(self, placement: Placement, cfg: "EngineConfig",
                    device) -> torch.Tensor:
@@ -194,12 +210,62 @@ class Router(abc.ABC):
             "override sender_ids() to compose with opt_commit='device'")
 
 
+class StealPolicy(abc.ABC):
+    """Load-balancing strategy (pipeline stage 2, paper §II-A)."""
+
+    name: str
+
+    @abc.abstractmethod
+    def process(self, model: SimModel, scheduler: Scheduler,
+                cfg: "EngineConfig", placement: Placement, comm: "Comm",
+                obj: Any, ts_s: torch.Tensor, seed_s: torch.Tensor,
+                pay_s: torch.Tensor, cnt_b: torch.Tensor, reps: int = 1
+                ) -> tuple[Any, EventBatch, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+        """Run stages 2+3: (obj, emitted EventBatch [reps, E], lookahead
+        violations [reps], stolen-batch count [reps], processed-event
+        count [reps])."""
+
+
+class RebalancePolicy(abc.ABC):
+    """Placement-rebalancing strategy (epoch-boundary stage, paper §II-C).
+
+    Where a :class:`StealPolicy` loans a batch and returns it, a rebalance
+    moves ownership: it recomputes the contiguous boundaries from measured
+    load and migrates object state and calendar rows to the new owners.
+    It runs between process and route, so the epoch's emissions (and every
+    fallback re-offer, which carries global ids) are routed against the
+    new boundaries.
+    """
+
+    name: str
+
+    def host_syncs(self, n_devices: int) -> int:
+        """Host reads one ``rebalance`` call makes on ``n_devices``."""
+        return 0
+
+    @abc.abstractmethod
+    def rebalance(self, cfg: "EngineConfig", placement: Placement,
+                  comm: "Comm", cur: torch.Tensor, bounds: torch.Tensor,
+                  load: torch.Tensor, cal: Calendar, obj: Any,
+                  gate: torch.Tensor | None = None):
+        """Maybe move the boundaries and migrate rows.
+
+        ``cur`` [R] the epochs, ``bounds`` the live i32 [R, D + 1]
+        boundaries, ``load`` [R, M] the per-row processed counts since the
+        last firing (this epoch's included), ``cal``/``obj`` the ``[R * M,
+        ...]`` rows; ``gate`` (bool [R]) keeps a replication from firing.
+        Returns (bounds, load, cal, obj, rows received [R], fired [R])."""
+
+
 # ---------------------------------------------------------------------------
 # registries
 # ---------------------------------------------------------------------------
 
 SCHEDULERS: dict[str, Scheduler] = {}
 ROUTERS: dict[str, Router] = {}
+STEAL_POLICIES: dict[str, StealPolicy] = {}
+REBALANCERS: dict[str, RebalancePolicy] = {}
 
 
 def _register(registry: dict, kind: str, name: str) -> Callable:
@@ -222,6 +288,16 @@ def register_router(name: str):
     return _register(ROUTERS, "router", name)
 
 
+def register_steal_policy(name: str):
+    """Class decorator: register a :class:`StealPolicy` under ``name``."""
+    return _register(STEAL_POLICIES, "steal policy", name)
+
+
+def register_rebalancer(name: str):
+    """Class decorator: register a :class:`RebalancePolicy` under ``name``."""
+    return _register(REBALANCERS, "rebalancer", name)
+
+
 def resolve_scheduler(cfg: "EngineConfig") -> Scheduler:
     """EngineConfig → Scheduler (``batch`` is split by ``batch_impl``)."""
     if cfg.scheduler == "batch":
@@ -231,3 +307,15 @@ def resolve_scheduler(cfg: "EngineConfig") -> Scheduler:
 
 def resolve_router(name: str) -> Router:
     return ROUTERS[name]
+
+
+def resolve_steal(cfg: "EngineConfig", n_devices: int) -> StealPolicy:
+    if cfg.steal and n_devices > 1:
+        return STEAL_POLICIES["loan"]
+    return STEAL_POLICIES["none"]
+
+
+def resolve_rebalance(cfg: "EngineConfig") -> RebalancePolicy:
+    if cfg.placement == "adaptive":
+        return REBALANCERS["adaptive"]
+    return REBALANCERS["none"]

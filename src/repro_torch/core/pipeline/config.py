@@ -1,19 +1,12 @@
 """EngineConfig: the stage-selection + capacity record of the pipeline.
 
 Port of ``repro/core/pipeline/config.py`` with the same fields, defaults and
-validation rules (see that module for each field's units and range).  A
-configuration the JAX engine rejects raises the same ``ValueError`` here.
-A valid configuration that needs a stage this slice of the port does not
-have yet raises ``NotImplementedError`` naming the slice that brings it:
-
-  * ``steal=True``, ``placement`` other than ``"equal"``, ``route="a2a"``,
-    any device count above 1 — the multi-device slice (with them the
-    speculation points that need one: ``spec-a2a``, ``spec-steal``,
-    ``spec-weighted``, ``spec-adaptive``).
-
-``opt_window > 0`` (speculation, :mod:`.speculate`) runs at one device
-under every scheduler; ``opt_stage_cap`` defaults to ``route_cap`` there,
-as in the JAX package.
+validation rules (see that module for each field's units and range): a
+configuration the JAX engine accepts is accepted here, one it rejects
+raises the same ``ValueError`` with the same words, at construction or, for
+the checks that need the device count (``route_cap`` against D for
+``a2a``), in :meth:`EngineConfig.validate`.  ``opt_stage_cap`` defaults to
+``route_cap`` when speculating, as in the JAX package.
 
 Bit-exactness contract: no field of this record changes simulation
 semantics; capacities bound buffers, and overflow is counted in ``Stats``.
@@ -23,12 +16,6 @@ from __future__ import annotations
 import dataclasses
 
 from .names import (BATCH_IMPLS, PLACEMENTS, ROUTES, SELECTABLE_SCHEDULERS)
-
-def _not_yet(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the PyTorch port yet; it comes with the "
-        f"multi-device slice (placement, routing across devices, stealing, "
-        f"rebalancing)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,15 +166,16 @@ class EngineConfig:
                 f"scheduler={self.scheduler!r}, "
                 f"batch_impl={self.batch_impl!r})")
 
-        # valid, but not ported yet.
-        if self.steal:
-            raise _not_yet("steal=True")
-        if self.route == "a2a":
-            raise _not_yet("route='a2a'")
-        if self.placement != "equal":
-            raise _not_yet(f"placement={self.placement!r}")
-
     def validate(self, n_devices: int) -> None:
         """Device-count-dependent fail-fast checks (engine construction)."""
-        if n_devices != 1:
-            raise _not_yet(f"n_devices={n_devices}")
+        if self.route == "a2a":
+            if self.route_cap < n_devices:
+                raise ValueError(
+                    f"route_cap={self.route_cap} must be >= n_devices="
+                    f"{n_devices} for a2a routing — the per-pair sub-buffer "
+                    "(route_cap // n_devices) would be empty and every event "
+                    "would spill to fallback instead of being exchanged")
+            if self.route_cap % n_devices:
+                raise ValueError(
+                    f"route_cap={self.route_cap} must be divisible by mesh "
+                    f"size {n_devices} for a2a")

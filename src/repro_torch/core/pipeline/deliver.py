@@ -7,8 +7,12 @@ beyond-horizon events in the fallback buffer.  Capacity overflow, late
 never silent.  The per-epoch step and the initial ingest share this code
 (``init=True`` widens the window to include the current epoch).
 
-Out-of-range ``dst`` are excluded from ``mine`` and counted.  On one device
-the batch is seen once, so each is counted once.
+Out-of-range ``dst`` are excluded from ``mine`` (the owner searchsorted
+would land them on an edge device's wrong row) and counted with the
+reference's replication-aware rule: a batch that is the same on every
+device (the initial ingest, an ``allgather`` exchange) counts them once,
+on device 0, since the per-device Stats are summed; a per-device slice
+(``a2a``) counts them where they land.
 
 The stage works on stacked replications: R batches ``[R, E]``, each with
 its own epoch, delivered into the ``[R * M, ...]`` view of R calendars
@@ -26,12 +30,14 @@ from .base import epoch_of
 
 
 def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
-            placement: Placement, cfg, init: bool):
+            placement: Placement, cfg, init: bool, replicated: bool = True):
     """Insert my in-horizon events; park my beyond-horizon events in fallback.
 
     ``cal`` is the [R * M, N, C] view of R calendars, ``fb`` R fallback
     buffers [R, F], ``batch`` R event batches [R, E], ``cur`` the R current
-    epochs [R], ``dev`` this device's index.  Returns (cal, fb,
+    epochs [R], ``dev`` this device's index.  ``replicated`` says whether
+    ``batch`` is the same on every device (out-of-bounds events counted on
+    device 0 only) or this device's own slice.  Returns (cal, fb,
     n_cal_overflow, n_fb_overflow, n_late, n_oob), each count [R].
     """
     N = cfg.n_buckets
@@ -44,6 +50,8 @@ def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
     oob = batch.valid & ((batch.dst < 0)
                          | (batch.dst >= placement.n_objects))
     n_oob = oob.sum(-1)
+    if replicated and dev != 0:
+        n_oob = torch.zeros_like(n_oob)
     owner = placement.owner(batch.dst)
     mine = batch.valid & ~oob & (owner == dev)
     lo = torch.zeros_like(cur) if init else cur + 1

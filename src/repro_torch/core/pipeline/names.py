@@ -1,11 +1,9 @@
 """Selectable stage names of the engine pipeline (stdlib only).
 
 The port's own copy of ``repro/core/pipeline/names.py``: the user-facing
-choice sets of :class:`~repro_torch.core.pipeline.config.EngineConfig`.  A
-name listed here but not yet in a registry of
-:mod:`repro_torch.core.pipeline.base` belongs to a later slice of the port;
-the config rejects it with ``NotImplementedError``.  ``tests/test_torch_engine.py``
-holds this copy equal to the JAX package's.
+choice sets of :class:`~repro_torch.core.pipeline.config.EngineConfig`,
+each a registry key of :mod:`repro_torch.core.pipeline.base`.
+``tests/test_torch_engine.py`` holds this copy equal to the JAX package's.
 """
 from __future__ import annotations
 

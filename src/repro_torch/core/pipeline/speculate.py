@@ -1,6 +1,6 @@
 """Bounded-optimism speculation: the Time Warp-lite epoch step (opt_window).
 
-Port of ``repro/core/pipeline/speculate.py`` at one device.  With
+Port of ``repro/core/pipeline/speculate.py``.  With
 ``EngineConfig.opt_window = W > 0`` one step commits the *safe* epoch
 ``e0`` conservatively and then speculates up to ``W`` further epochs
 against a shadow copy of the touched state: the object state and the ``W``
@@ -25,7 +25,17 @@ staging overflow rule; this port follows it step for step:
 At one device no event is remote, so no straggler can arrive and every
 window commits unless ``inject_straggler_every`` forces it down the abort
 path (every n-th window, counted per replication by ``spec_commits +
-rollbacks``, where ``W_eff > 0``).
+rollbacks``, where ``W_eff > 0``).  Across devices (the engine's
+:class:`~repro_torch.core.dist.Comm`, one simulation per device) the two
+exchanges carry events, the verdict is one ``all_gather`` of every
+device's ``[m_local, v_local]``, and a speculative arrival is kept only if
+its sender keeps its window (``keep_vec[sender_ids]``).  Loans
+(``steal=True``, only under ``opt_commit='global'``) run in the safe
+sub-epoch and every speculative one; the adaptive rebalance fires only in
+the safe sub-epoch, the window clamped to stop short of the next firing
+epoch, and the load the window measured is kept only on commit.  The
+window, the flags and the verdict are the same on every device, so every
+rank runs the same collectives in the same order.
 
 What differs from the reference, and why:
 
@@ -72,15 +82,17 @@ import torch
 from ..api import SimModel
 from ..calendar import (Calendar, Fallback, extract_sorted, fallback_put,
                         insert, put_buckets, take_buckets)
+from ..dist import Comm
 from ..events import (EventBatch, compact, compact_mask, concat_batches,
                       empty_batch, truncate)
 from ..placement import Placement
-from . import routers, schedulers  # noqa: F401  (registration imports)
-from .base import (EngineState, epoch_of, replica, resolve_router,
-                   resolve_scheduler, stack_of_one)
+from . import rebalance, routers, schedulers, steal  # noqa: F401  (registration)
+from .base import (EngineState, epoch_of, replica, resolve_rebalance,
+                   resolve_router, resolve_scheduler, resolve_steal,
+                   stack_of_one)
 from .config import EngineConfig
 from .deliver import deliver
-from .step import pending_per_replication
+from .step import pending_per_replication, refuse_reps_across_devices
 
 #: "no in-window arrival" marker for the earliest-straggler epoch.
 NO_STRAGGLER = torch.iinfo(torch.int32).max
@@ -102,7 +114,7 @@ def _pick(keep: torch.Tensor, a: torch.Tensor, b: torch.Tensor
 
 
 def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
-                   replicated: bool = False
+                   replicated: bool = False, comm: Comm | None = None
                    ) -> Callable[..., EngineState]:
     """The speculative step ``step(state, bound, drain=False)``.
 
@@ -112,8 +124,9 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     exactly epoch ``n``, and a replication at or past it is left as it is.
     With ``drain`` a replication with no event in flight is left as it is
     too (the drain's gate).  With ``replicated`` the step takes a stacked
-    state of any number of replications.
+    state of any number of replications (on one device).
     """
+    comm = comm or Comm()
     N = cfg.n_buckets
     O = placement.n_objects
     M = placement.n_local_max
@@ -121,10 +134,15 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     W = cfg.opt_window
     if W < 1:
         raise ValueError("make_spec_step needs opt_window > 0 (use make_step)")
-    dev = 0
+    if comm.size != D:
+        raise ValueError(f"placement over {D} devices, comm of {comm.size}")
+    dev = comm.rank
 
     scheduler = resolve_scheduler(cfg)
     router = resolve_router(cfg.route)
+    policy = resolve_steal(cfg, D)
+    rebalancer = resolve_rebalance(cfg)
+    adaptive = cfg.placement == "adaptive"
     per_device = cfg.opt_commit == "device"
     inject = cfg.inject_straggler_every
     scheduler.validate(model, cfg)
@@ -133,13 +151,22 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     def stacked(state: EngineState, bound: torch.Tensor,
                 drain: bool = False) -> EngineState:
         R = state.epoch.shape[0]
+        refuse_reps_across_devices(R, D)
         device = state.epoch.device
         e0 = state.epoch[:, 0]
         active = e0 < bound.reshape(-1)
         if drain:
-            active = active & (pending_per_replication(state) > 0)
+            active = active & (comm.all_sum(pending_per_replication(state))
+                               > 0)
         w_eff = torch.where(active, (bound.reshape(-1) - 1 - e0).clamp(0, W),
                             0).to(e0.dtype)
+        if adaptive:
+            # never speculate onto (or leap over) a rebalance firing epoch:
+            # firings run only in the safe sub-epoch.
+            RE = cfg.rebalance_every
+            d_fire = (RE - 1 - e0 % RE) % RE
+            w_eff = torch.minimum(w_eff, torch.where(d_fire == 0, RE - 1,
+                                                     d_fire - 1))
         pl = placement.with_boundaries(state.bounds[0, 0])
         boundaries = torch.as_tensor(pl.boundaries, device=device).to(
             torch.int32)
@@ -153,9 +180,21 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         cal, ts_s, seed_s, pay_s, cnt_b = extract_sorted(cal, rows(e0),
                                                          rows(active))
         obj = {k: v.flatten(0, 1) for k, v in state.obj.items()}
-        obj, out, lv0 = scheduler.process(model, cfg, obj, ts_s, seed_s,
-                                          pay_s, cnt_b, R)
-        proc0 = cnt_b.view(R, M).sum(1)
+        obj, out, lv0, stolen0, proc0 = policy.process(
+            model, scheduler, cfg, pl, comm, obj, ts_s, seed_s, pay_s,
+            cnt_b, R)
+
+        bounds, load = state.bounds, state.load
+        zero = torch.zeros((R,), dtype=torch.int64, device=device)
+        migrated = fired = zero
+        if adaptive:
+            b, load, cal, obj, migrated, fired = rebalancer.rebalance(
+                cfg, placement, comm, e0, bounds[:, 0],
+                load + cnt_b.view(R, M), cal, obj, active)
+            pl = placement.with_boundaries(b[0])
+            bounds = b[:, None, :]
+            boundaries = torch.as_tensor(pl.boundaries, device=device).to(
+                torch.int32)
 
         old_fb = state.fb.events
         prod = concat_batches(out, old_fb._replace(
@@ -175,7 +214,7 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         fb_ovf0 = kept.valid[..., cfg.fallback_cap:].sum(-1)
         cal, fb, cal_ovf0, fb_ovf0b, late0b, _ = deliver(
             cal, fb, prod._replace(valid=local), e0, dev, pl, cfg,
-            init=False)
+            init=False, replicated=False)
 
         # -- 2. the shadow: the window's buckets and the object state -------
         first = rows(e0 + 1)
@@ -183,16 +222,17 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         shadow_obj = {k: v.clone() for k, v in obj.items()}
 
         # -- 3. the speculative sub-epochs, each masked past W_eff ----------
-        zero = torch.zeros((R,), dtype=torch.int64, device=device)
         staging = empty_batch(cfg.opt_stage_cap, R, device=device)
         spec_proc = spec_lv = spec_late = spec_oob = spec_covf = zero
-        stage_ovf = zero
+        stage_ovf = spec_stolen = zero
+        load_sp = torch.zeros_like(load)
         for w in range(1, W + 1):
             cur = e0 + w
             cal, ts_w, seed_w, pay_w, cnt_w = extract_sorted(
                 cal, rows(cur), rows(w <= w_eff))
-            obj, out_w, lv_w = scheduler.process(model, cfg, obj, ts_w,
-                                                 seed_w, pay_w, cnt_w, R)
+            obj, out_w, lv_w, stl_w, proc_w = policy.process(
+                model, scheduler, cfg, pl, comm, obj, ts_w, seed_w, pay_w,
+                cnt_w, R)
             ep_w = epoch_of(out_w.ts, cfg.epoch_len)
             oob_w = out_w.valid & ((out_w.dst < 0) | (out_w.dst >= O))
             late_w = out_w.valid & ~oob_w & (ep_w <= cur[:, None])
@@ -209,7 +249,9 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             cal = new
             staging, sovf_w = _stage_put(staging,
                                          compact_mask(out_w, good_w & ~ins))
-            spec_proc = spec_proc + cnt_w.view(R, M).sum(1)
+            spec_proc = spec_proc + proc_w
+            spec_stolen = spec_stolen + stl_w
+            load_sp = load_sp + cnt_w.view(R, M)
             spec_lv = spec_lv + lv_w
             spec_late = spec_late + late_w.sum(-1)
             spec_oob = spec_oob + oob_w.sum(-1)
@@ -217,13 +259,13 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             stage_ovf = stage_ovf + sovf_w
 
         # -- 4. the two exchanges -------------------------------------------
-        routed_safe = router.exchange(safe_buf, pl, cfg)
+        routed_safe = router.exchange(safe_buf, pl, cfg, comm)
         ep_st = epoch_of(staging.ts, cfg.epoch_len)
         stage_remote = staging.valid & (pl.owner(staging.dst) != dev)
         horizon = (e0 + w_eff)[:, None]
         spec_buf, spec_send, spec_route_ovf = router.select_send(
             staging, stage_remote & (ep_st <= horizon + N), pl, cfg)
-        routed_spec = router.exchange(spec_buf, pl, cfg)
+        routed_spec = router.exchange(spec_buf, pl, cfg, comm)
 
         # -- 5. the verdict ---------------------------------------------------
         def violations(batch: EventBatch):
@@ -248,8 +290,10 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             v_local = v_local + fire
             m_local = torch.where(fire, torch.minimum(m_local, e0 + 1),
                                   m_local)
-        # the all_gather of [m_local, v_local] over the D = 1 devices.
-        m_all, v_all = m_local[:, None], v_local[:, None]       # [R, D]
+        # the verdict's inputs of every device: one all_gather.
+        g = comm.all_gather(torch.stack([m_local.to(torch.int64),
+                                         v_local.to(torch.int64)], -1))
+        m_all, v_all = g[..., 0].T, g[..., 1].T                  # [R, D]
         m_global = m_all.amin(1)
         all_commit = m_global == NO_STRAGGLER
         guard = (e0 + w_eff) <= m_global
@@ -266,32 +310,37 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             valid=routed_spec.valid & keep_vec[:, senders])
 
         # -- 6. commit and abort, both computed; each replication keeps one
+        rep = router.replicated
         c, f, co1, fo1, l1, _ = deliver(cal, fb, routed_safe, cur_c, dev, pl,
-                                        cfg, init=False)
+                                        cfg, init=False, replicated=rep)
         c, f, co2, fo2, l2, _ = deliver(c, f, spec_arrivals, cur_c, dev, pl,
-                                        cfg, init=False)
+                                        cfg, init=False, replicated=rep)
         # staged leftovers: local beyond the window deliver (insert or
         # park); remote beyond the horizon park in the fallback.
         leftover = staging.valid & ~spec_send
         lo_local = leftover & (pl.owner(staging.dst) == dev)
         c, f, co3, fo3, l3, _ = deliver(c, f, staging._replace(
-            valid=lo_local), cur_c, dev, pl, cfg, init=False)
+            valid=lo_local), cur_c, dev, pl, cfg, init=False,
+            replicated=False)
         f, fo4 = fallback_put(f, staging._replace(
             valid=leftover & ~lo_local))
         commit = dict(proc=spec_proc, lv=spec_lv, late=spec_late,
                       oob=spec_oob, covf=spec_covf + co1 + co2 + co3,
                       fovf=fo1 + fo2 + fo3 + fo4, late2=l1 + l2 + l3,
-                      rb=zero, cm=zero + 1, spec=spec_proc)
+                      rb=zero, cm=zero + 1, spec=spec_proc,
+                      stolen=spec_stolen)
 
         a = put_buckets(cal, first, shadow_cal)
         a, fa, ao1, fao1, la1, _ = deliver(a, fb, routed_safe, cur_c, dev,
-                                           pl, cfg, init=False)
+                                           pl, cfg, init=False,
+                                           replicated=rep)
         # keepers' committed speculative emissions still arrive.
         a, fa, ao2, fao2, la2, _ = deliver(a, fa, spec_arrivals, cur_c, dev,
-                                           pl, cfg, init=False)
+                                           pl, cfg, init=False,
+                                           replicated=rep)
         abort = dict(proc=zero, lv=zero, late=zero, oob=zero,
                      covf=ao1 + ao2, fovf=fao1 + fao2, late2=la1 + la2,
-                     rb=zero + 1, cm=zero, spec=zero)
+                     rb=zero + 1, cm=zero, spec=zero, stolen=zero)
 
         rk = rows(keep)
         cal = Calendar(*(_pick(rk, x, y) for x, y in zip(c, a)))
@@ -313,7 +362,10 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
                             + d["late"] + d["late2"]),
             lookahead_violations=add(st.lookahead_violations,
                                      lv0 + d["lv"]),
+            stolen=add(st.stolen, stolen0 + d["stolen"]),
             oob_events=add(st.oob_events, oob_p.sum(-1) + d["oob"]),
+            rebalances=add(st.rebalances, fired),
+            migrated=add(st.migrated, migrated),
             rollbacks=add(st.rollbacks, d["rb"]),
             speculated=add(st.speculated, d["spec"]),
             spec_commits=add(st.spec_commits, d["cm"]),
@@ -328,8 +380,9 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         epoch = torch.where(active, e_next, e0)[:, None]
         cal = Calendar(*(x.unflatten(0, (R, M)) for x in cal))
         obj = {k: v.unflatten(0, (R, M)) for k, v in obj.items()}
-        return EngineState(cal, fb, obj, epoch, stats, state.bounds,
-                           state.load)
+        if adaptive:
+            load = load + torch.where(keep[:, None], load_sp, 0)
+        return EngineState(cal, fb, obj, epoch, stats, bounds, load)
 
     if replicated:
         return stacked

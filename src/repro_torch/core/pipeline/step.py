@@ -1,11 +1,17 @@
 """The per-device epoch step: pure wiring of the pipeline stages.
 
-    extract → process → route → deliver  (+ stats)
+    extract → steal → process → rebalance → route → deliver  (+ stats)
 
-Port of ``repro/core/pipeline/step.py`` for a single device without
-stealing or rebalancing (those stages come with the multi-device slice).
-:func:`make_step` resolves the configured Scheduler and Router once, runs
-their fail-fast validation and returns the step function.
+Port of ``repro/core/pipeline/step.py``.  :func:`make_step` resolves the
+configured Scheduler, Router, StealPolicy and RebalancePolicy once, runs
+their fail-fast validation and returns the step function of one device:
+rank ``comm.rank`` of the engine's :class:`~repro_torch.core.dist.Comm`
+(the reference's ``axis_index(AXIS)``; one device without a group).
+
+Placement boundaries are state: every step rebuilds the live
+:class:`~repro_torch.core.placement.Placement` from ``state.bounds``, so
+the adaptive rebalance can move the cuts; it runs between process and
+route, so the epoch's emissions are routed against the new boundaries.
 
 Out-of-range destinations are triaged at the producer: counted in
 ``stats.oob_events`` and excluded from routing and the fallback.
@@ -19,11 +25,14 @@ at its replication's epoch, so the scheduler runs once for all R (one
 (route triage and selection, the fallback, deliver, the counters) work
 along dim 1 of ``[R, E]`` event batches, so each replication keeps its own
 caps, counts and event order.  The classic step is the same code on a
-stack of one.
+stack of one.  Across devices the step takes one simulation (R = 1):
+stacking replications over several devices comes with the rep-sharded
+slice and is refused by name.
 
 ``gated=True`` builds the step of the fused drain: it counts the events in
-flight (calendar + fallback) before the epoch, per replication, and
-advances that replication's ``epoch`` by ``pending > 0`` instead of by 1.
+flight (calendar + fallback) before the epoch, per replication (summed
+over the devices), and advances that replication's ``epoch`` by ``pending
+> 0`` instead of by 1; a rebalance fires only where it advances.
 A drained state's calendar, object state and counters are already a
 fixpoint (an empty bucket processes, routes and delivers nothing); its
 fallback holds no event, but a step rewrites the fields of its empty
@@ -41,11 +50,13 @@ import torch
 
 from ..api import SimModel
 from ..calendar import Calendar, Fallback, extract_sorted
+from ..dist import Comm
 from ..events import EventBatch, compact_mask, concat_batches, truncate
 from ..placement import Placement
-from . import routers, schedulers  # noqa: F401  (registration imports)
-from .base import (EngineState, epoch_of, replica, resolve_router,
-                   resolve_scheduler, stack_of_one)
+from . import rebalance, routers, schedulers, steal  # noqa: F401  (registration)
+from .base import (EngineState, epoch_of, replica, resolve_rebalance,
+                   resolve_router, resolve_scheduler, resolve_steal,
+                   stack_of_one)
 from .config import EngineConfig
 from .deliver import deliver
 
@@ -62,26 +73,54 @@ def pending_per_replication(state: EngineState) -> torch.Tensor:
             + state.fb.events.valid.flatten(1).sum(1))
 
 
+def refuse_reps_across_devices(R: int, D: int) -> None:
+    """Raise, naming the slice that brings it, for R > 1 stacked
+    replications on D > 1 devices."""
+    if R > 1 and D > 1:
+        raise NotImplementedError(
+            f"R={R} stacked replications over D={D} devices is not in the "
+            f"PyTorch port yet: it comes with the rep-sharded slice "
+            f"(rep_shards, and campaigns over devices > 1); run the "
+            f"replications on one device, or one simulation over D devices")
+
+
+def step_host_syncs(cfg: EngineConfig, n_devices: int) -> int:
+    """Host reads of device values one step makes (the scheduler's loop
+    bound, the adaptive rebalance's firing test across devices)."""
+    return (resolve_scheduler(cfg).host_syncs
+            + resolve_rebalance(cfg).host_syncs(n_devices))
+
+
 def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
-              gated: bool = False, replicated: bool = False
+              gated: bool = False, replicated: bool = False,
+              comm: Comm | None = None
               ) -> Callable[[EngineState], EngineState]:
     """The epoch step: of one simulation, or with ``replicated`` of a
-    stacked state of any number of replications."""
+    stacked state of any number of replications (on one device)."""
+    comm = comm or Comm()
     N = cfg.n_buckets
     O = placement.n_objects
     M = placement.n_local_max
-    dev = 0
+    D = placement.n_devices
+    if comm.size != D:
+        raise ValueError(f"placement over {D} devices, comm of {comm.size}")
+    dev = comm.rank
 
     scheduler = resolve_scheduler(cfg)
     router = resolve_router(cfg.route)
+    policy = resolve_steal(cfg, D)
+    rebalancer = resolve_rebalance(cfg)
+    adaptive = cfg.placement == "adaptive"
     scheduler.validate(model, cfg)
     router.validate(cfg, placement)
 
     def stacked(state: EngineState) -> EngineState:
         R = state.epoch.shape[0]
+        refuse_reps_across_devices(R, D)
         cur = state.epoch[:, 0]
+        advance = None
         if gated:
-            advance = (pending_per_replication(state) > 0).to(torch.int32)
+            advance = comm.all_sum(pending_per_replication(state)) > 0
         pl = placement.with_boundaries(state.bounds[0, 0])
 
         # 1. extract — drain each row's bucket of its replication's epoch.
@@ -89,11 +128,24 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         cal, ts_s, seed_s, pay_s, cnt_b = extract_sorted(
             flat, cur.repeat_interleave(M))
 
-        # 2.+3. process (no stealing on one device).
+        # 2.+3. steal + process — the policy runs the scheduler (on
+        # loan-augmented rows under ``loan``).
         obj = {k: v.flatten(0, 1) for k, v in state.obj.items()}
-        obj, out, lv = scheduler.process(model, cfg, obj, ts_s, seed_s,
-                                         pay_s, cnt_b, R)
-        proc_count = cnt_b.view(R, M).sum(1)
+        obj, out, lv, stolen, proc_count = policy.process(
+            model, scheduler, cfg, pl, comm, obj, ts_s, seed_s, pay_s,
+            cnt_b, R)
+
+        # 3b. rebalance — adaptive placement moves the boundaries and
+        # migrates rows; routing and delivery see the new cuts.
+        bounds, load = state.bounds, state.load
+        if adaptive:
+            b, load, cal, obj, migrated, fired = rebalancer.rebalance(
+                cfg, placement, comm, cur, bounds[:, 0],
+                load + cnt_b.view(R, M), cal, obj, advance)
+            pl = placement.with_boundaries(b[0])
+            bounds = b[:, None, :]
+        else:
+            migrated = fired = torch.zeros_like(proc_count)
 
         # 4. route — producer-side triage (fresh events + fallback entries),
         # selection against the route capacity, then the exchange.
@@ -114,11 +166,14 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
         fb = Fallback(truncate(kept, cfg.fallback_cap))
         fb_ovf = kept.valid[..., cfg.fallback_cap:].sum(-1)
 
-        routed = router.exchange(route_buf, pl, cfg)
+        routed = router.exchange(route_buf, pl, cfg, comm)
 
-        # 5. deliver — the owner inserts into calendar buckets / fallback.
+        # 5. deliver — owners insert into calendar buckets / fallback; a
+        # broadcast batch counts its oob events once, an a2a slice where
+        # it lands.
         cal, fb, cal_ovf, fb_ovf2, late2, oob2 = deliver(
-            cal, fb, routed, cur, dev, pl, cfg, init=False)
+            cal, fb, routed, cur, dev, pl, cfg, init=False,
+            replicated=router.replicated)
 
         def add(counter, n):
             return counter + n[:, None]
@@ -131,19 +186,21 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             route_overflow=add(st.route_overflow, route_ovf),
             late_events=add(st.late_events, n_late_prod + late2),
             lookahead_violations=add(st.lookahead_violations, lv),
+            stolen=add(st.stolen, stolen),
             oob_events=add(st.oob_events, n_oob + oob2),
+            rebalances=add(st.rebalances, fired),
+            migrated=add(st.migrated, migrated),
         )
         if gated:
             fb = Fallback(EventBatch(*(
-                torch.where(advance[:, None] > 0, new, old)
+                torch.where(advance[:, None], new, old)
                 for new, old in zip(fb.events, state.fb.events))))
-            epoch = state.epoch + advance[:, None]
+            epoch = state.epoch + advance[:, None].to(state.epoch.dtype)
         else:
             epoch = state.epoch + 1
         cal = Calendar(*(x.unflatten(0, (R, M)) for x in cal))
         obj = {k: v.unflatten(0, (R, M)) for k, v in obj.items()}
-        return EngineState(cal, fb, obj, epoch, stats, state.bounds,
-                           state.load)
+        return EngineState(cal, fb, obj, epoch, stats, bounds, load)
 
     if replicated:
         return stacked

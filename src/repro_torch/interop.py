@@ -11,6 +11,14 @@ stacked state of R replications (the JAX ``init_replicated`` /
 ``run_replicated_drained`` carry, every leaf with a leading R) crosses the
 same way: both packages lay it out alike, so no leaf changes shape.
 
+A state of the JAX engine run over D devices is global: every leaf is the
+D devices' shards concatenated along dim 0 (``cal`` [D * n_local_max, ...],
+``epoch`` and each Stats field [D], ``bounds`` [D, D + 1]).
+:func:`split_engine_state` cuts such a host tree into the D per-rank
+states of the port's engine (rank r's leaves are shard r), and
+:func:`join_engine_states` concatenates them back, so that the two engines
+can be compared rank by rank and leaf by leaf.
+
 Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
 on); every other leaf keeps its dtype.
@@ -74,6 +82,64 @@ def engine_state_to_numpy(state: EngineState) -> EngineState:
         epoch=np_(state.epoch),
         stats=Stats(*(np_(v) for v in state.stats)),
         bounds=np_(state.bounds), load=np_(state.load))
+
+
+def _numpy_tree(tree) -> EngineState:
+    """A JAX or port ``EngineState`` of host arrays, read by field name, as
+    the port's ``EngineState`` of numpy arrays."""
+    e = tree.fb.events
+    return EngineState(
+        cal=Calendar(*(np.asarray(getattr(tree.cal, f))
+                       for f in Calendar._fields)),
+        fb=Fallback(EventBatch(*(np.asarray(getattr(e, f))
+                                 for f in EventBatch._fields))),
+        obj={k: np.asarray(v) for k, v in tree.obj.items()},
+        epoch=np.asarray(tree.epoch),
+        stats=Stats(*(np.asarray(getattr(tree.stats, f))
+                      for f in Stats._fields)),
+        bounds=np.asarray(tree.bounds), load=np.asarray(tree.load))
+
+
+def split_engine_state(tree, n_devices: int) -> list[EngineState]:
+    """A host copy of a D-device engine state (global leaves) → the D
+    per-rank states (numpy), each leaf cut into D equal shards along dim
+    0."""
+    g = _numpy_tree(tree)
+    shards = [[] for _ in range(n_devices)]
+    for leaf in numpy_leaves(g):
+        for r, part in enumerate(np.split(leaf, n_devices, axis=0)):
+            shards[r].append(part)
+    return [_rebuild(g, parts) for parts in shards]
+
+
+def join_engine_states(states) -> EngineState:
+    """The per-rank states (numpy, in rank order) → the global state, each
+    leaf's shards concatenated along dim 0."""
+    trees = [_numpy_tree(s) for s in states]
+    cols = zip(*(numpy_leaves(t) for t in trees))
+    return _rebuild(trees[0], [np.concatenate(c, axis=0) for c in cols])
+
+
+def numpy_leaves(tree) -> list:
+    """The arrays of a tree of numpy arrays (NamedTuples and dicts, dict
+    keys in sorted order)."""
+    if isinstance(tree, np.ndarray):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in numpy_leaves(tree[k])]
+    return [x for t in tree for x in numpy_leaves(t)]
+
+
+def _rebuild(tree, new: list):
+    it = iter(new)
+
+    def walk(node):
+        if isinstance(node, np.ndarray):
+            return next(it)
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return type(node)(*(walk(x) for x in node))
+    return walk(tree)
 
 
 def _flatten(tree) -> dict:

@@ -67,13 +67,9 @@ def all_workloads() -> list[str]:
     return list(WORKLOADS)
 
 
-def bench_path(name: str, **over):
-    """``name`` at the reference's bench scale: ``(model, EngineConfig)``.
-
-    ``over`` keys that are ``EngineConfig`` fields (``batch_impl``,
-    ``scheduler``, ``pack_tile``, capacities ...) go to the config, every
-    other key to the model (``max_calls=4``, ``n_objects=128`` ...); the
-    config's lookahead is the model's."""
+def bench_kw(name: str, **over) -> tuple[dict, dict]:
+    """The keyword arguments of :func:`bench_path`: ``(model_kw,
+    cfg_kw)``, the config's without its lookahead (the model's)."""
     cfg_keys = {f.name for f in dataclasses.fields(EngineConfig)}
     cfg_keys.discard("lookahead")
     model_kw = dict(BENCH_BASE)
@@ -81,7 +77,18 @@ def bench_path(name: str, **over):
         model_kw.update(BENCH_PHOLD)
     model_kw.update(BENCH_MODEL_KW.get(name, {}))
     model_kw.update({k: v for k, v in over.items() if k not in cfg_keys})
-    model = get_workload(name, **model_kw)
     cfg_kw = dict(BENCH_ENGINE, **{k: v for k, v in over.items()
                                    if k in cfg_keys})
+    return model_kw, cfg_kw
+
+
+def bench_path(name: str, **over):
+    """``name`` at the reference's bench scale: ``(model, EngineConfig)``.
+
+    ``over`` keys that are ``EngineConfig`` fields (``batch_impl``,
+    ``scheduler``, ``pack_tile``, capacities ...) go to the config, every
+    other key to the model (``max_calls=4``, ``n_objects=128`` ...); the
+    config's lookahead is the model's."""
+    model_kw, cfg_kw = bench_kw(name, **over)
+    model = get_workload(name, **model_kw)
     return model, EngineConfig(lookahead=model.params.lookahead, **cfg_kw)

@@ -250,3 +250,34 @@ def test_masked_extract_leaves_rows_out(seed):
     every = tcal.extract_sorted(tc, epoch, torch.ones(n_local, dtype=bool))
     for x, y in zip(every[0] + tuple(every[1:]), full[0] + tuple(full[1:])):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_take_put_and_clear_rows_match_jax(seed):
+    """The migration's row moves: whole rows gathered (take_rows), put in
+    place where a mask holds and dropped elsewhere (put_rows), and rows
+    deadened (clear_rows: counts 0, +inf timestamps), as the JAX package
+    does, on calendars with live events; the input calendar unchanged."""
+    rng = np.random.default_rng(seed)
+    n_local, n_buckets, cap, k = 7, 4, 6, 5
+    tc = tcal.make_calendar(n_local, n_buckets, cap, "cpu")
+    jc = jcal.make_calendar(n_local, n_buckets, cap)
+    tc, jc, _, _ = _insert_both(
+        tc, jc, _random_events(rng, 60, n_local, n_buckets))
+    before = [x.clone() for x in tc]
+    src = rng.integers(0, n_local, k).astype(np.int32)
+    rows_t = tcal.take_rows(tc, torch.from_numpy(src))
+    rows_j = jcal.take_rows(jc, jnp.asarray(src))
+    _assert_cal_equal(rows_t, rows_j)
+    dst = rng.permutation(n_local)[:k].astype(np.int32)
+    mask = rng.random(k) < 0.6
+    mask[0] = True
+    put_t = tcal.put_rows(tc, torch.from_numpy(dst), rows_t,
+                          torch.from_numpy(mask))
+    put_j = jcal.put_rows(jc, jnp.asarray(dst), rows_j, jnp.asarray(mask))
+    _assert_cal_equal(put_t, put_j)
+    dead = rng.random(n_local) < 0.4
+    _assert_cal_equal(tcal.clear_rows(put_t, torch.from_numpy(dead)),
+                      jcal.clear_rows(put_j, jnp.asarray(dead)))
+    for x, y in zip(tc, before):
+        assert torch.equal(x, y)

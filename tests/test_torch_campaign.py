@@ -177,8 +177,9 @@ def test_campaign_manifest_guards_against_digest_mismatch(tmp_path):
 
 def test_campaign_over_devices_is_refused(tmp_path):
     store = ResultsStore(tmp_path)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    with pytest.raises(NotImplementedError, match="multi-device") as e:
         run_campaign(_tiny_spec(devices=2), store=store, device="cpu")
+    assert "rep-sharded" in str(e.value)
     assert not any(tmp_path.iterdir())      # refused before the manifest
 
 

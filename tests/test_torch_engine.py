@@ -197,9 +197,14 @@ CONFIGS = [
     dict(opt_adaptive=True), dict(inject_straggler_every=2),
     dict(opt_window=8, n_buckets=8), dict(opt_window=2, steal=True),
     dict(scheduler="ltf"), dict(batch_impl="packed"), dict(opt_window=2),
-    # valid, but later slices of the port
+    # the multi-device stages, accepted at any device count
     dict(steal=True), dict(route="a2a"), dict(placement="weighted"),
     dict(placement="adaptive", rebalance_every=8, migrate_cap=8),
+    dict(steal=True, batch_impl="packed", route="a2a"),
+    dict(steal=True, scheduler="ltf"),
+    dict(route="a2a", opt_window=2, steal=True, opt_commit="global"),
+    dict(placement="adaptive", rebalance_every=8, migrate_cap=8,
+         opt_window=2),
 ]
 
 
@@ -215,24 +220,34 @@ def _outcome(cls, kw):
 
 @pytest.mark.parametrize("kw", CONFIGS, ids=[str(c) for c in CONFIGS])
 def test_engine_config_matches_jax_validation(kw):
+    # every configuration the JAX engine accepts, the port accepts; every
+    # one it rejects, the port rejects with the same words.
     j, jres = _outcome(JConfig, kw)
     t, tres = _outcome(TConfig, kw)
-    if t == "later":
-        assert j == "accept", (kw, tres)
-        assert "later" not in tres and "port" in tres
-    else:
-        assert t == j, (kw, jres, tres)
+    assert t == j, (kw, jres, tres)
+    if t == "reject":
+        assert tres == jres
     if t == "accept":
         for f in dataclasses.fields(TConfig):
             assert getattr(tres, f.name) == getattr(jres, f.name), f.name
 
 
 def test_config_validate_per_device_count():
-    assert TConfig(lookahead=0.5).validate(1) is None
-    with pytest.raises(NotImplementedError):
-        TConfig(lookahead=0.5).validate(2)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        TConfig(lookahead=0.5, route="a2a")
+    for D in (1, 2, 3, 4):
+        assert TConfig(lookahead=0.5).validate(D) is None
+    for route_cap, D in ((4096, 4), (6, 3), (8, 8), (7, 8), (10, 4), (1, 2)):
+        t = TConfig(lookahead=0.5, route="a2a", route_cap=route_cap)
+        j = JConfig(lookahead=0.5, route="a2a", route_cap=route_cap)
+        try:
+            j.validate(D)
+        except ValueError as want:
+            with pytest.raises(ValueError) as got:
+                t.validate(D)
+            assert str(got.value) == str(want), (route_cap, D)
+        else:
+            assert t.validate(D) is None, (route_cap, D)
+    with pytest.raises(ValueError, match="divisible by mesh size 4"):
+        TConfig(lookahead=0.5, route="a2a", route_cap=10).validate(4)
 
 
 def test_names_and_stats_match_jax():
@@ -242,7 +257,9 @@ def test_names_and_stats_match_jax():
     assert tbase.Stats._fields == jeng.Stats._fields
     assert set(tbase.SCHEDULERS) == {"batch", "batch-model", "batch-packed",
                                      "ltf"}
-    assert set(tbase.ROUTERS) == {"allgather"} < set(tnames.ROUTES)
+    assert set(tbase.ROUTERS) == set(tnames.ROUTES) == {"allgather", "a2a"}
+    assert set(tbase.STEAL_POLICIES) == {"none", "loan"}
+    assert set(tbase.REBALANCERS) == {"none", "adaptive"}
     assert json.loads(json.dumps(tconf.SWEEP))
     # the port pins both sizes of every workload it registers, as copied
     pinned = jgolden.load_digests()

@@ -75,6 +75,43 @@ def test_scans_cover_the_speculation_slice():
     assert "make_spec_step" in path.read_text()
 
 
+MULTI_DEVICE_MODULES = ("core.dist", "core.stealing", "core.pipeline.steal",
+                        "core.pipeline.rebalance", "testing.multidevice",
+                        "testing.conformance", "interop")
+
+
+def test_scans_cover_the_multi_device_slice():
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    found = set(out.stdout.split())
+    files = set(PKG.rglob("*.py"))
+    for mod in MULTI_DEVICE_MODULES:
+        assert f"repro_torch.{mod}" in found, mod
+        path = PKG.joinpath(*mod.split(".")).with_suffix(".py")
+        assert path in files, mod
+        assert not FORBIDDEN.findall(path.read_text()), mod
+
+
+def test_spawned_ranks_import_only_the_port():
+    # the spawned rank code (the rank functions, the device axis) loads
+    # nothing of JAX or of the JAX package, in the parent or in a rank.
+    code = ("import sys\n"
+            "from repro_torch.core.dist import spawn\n"
+            "from repro_torch.testing import multidevice as tmd\n"
+            "if __name__ == '__main__':\n"
+            "    print(spawn(tmd.loaded_rank, 2, timeout=60, "
+            "join_timeout=120))\n"
+            "    print(tmd.loaded_rank(0, None))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split("\n")[:2] == ["[[], []]", "[]"], out.stdout
+
+
 def test_campaign_needs_a_card_unless_asked_for_the_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -116,6 +153,17 @@ def test_engine_needs_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         engine_state_from_numpy(None)
     assert ParsirEngine(model, cfg, device="cpu").device.type == "cpu"
+
+
+def test_conformance_cli_needs_a_card_unless_asked_for_the_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from repro_torch.testing.conformance import main
+    for devices in ("1", "2"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            main(["--workload", "phold", "--devices", devices])
+    assert main(["--workload", "phold", "--device", "cpu"]) == 0
+    assert "OK phold batch-allgather D=1" in capsys.readouterr().out
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -299,11 +299,11 @@ def test_ltf_and_packed_accepted_and_the_jax_rejections_kept():
         with pytest.raises(ValueError) as got:
             TConfig(lookahead=0.5, **kw)
         assert str(got.value) == str(want.value), kw
-    # the JAX engine takes loan stealing under packed; the port has no
-    # stealing yet and names the slice that brings it.
-    JConfig(lookahead=0.5, steal=True, batch_impl="packed")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        TConfig(lookahead=0.5, steal=True, batch_impl="packed")
+    # loan stealing under packed: accepted by both, field for field.
+    for kw in (dict(steal=True, batch_impl="packed"),
+               dict(steal=True, batch_impl="packed", route="a2a")):
+        t, j = TConfig(lookahead=0.5, **kw), JConfig(lookahead=0.5, **kw)
+        assert t.__dict__ == j.__dict__
 
 
 @pytest.mark.parametrize("config", SCHEDS)

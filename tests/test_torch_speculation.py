@@ -254,12 +254,15 @@ def test_speculation_accepted_at_one_device_with_every_scheduler(sched):
                                     "spec-weighted", "spec-steal",
                                     "spec-adaptive"])
 def test_multi_device_speculation_points_are_refused_by_name(config):
+    # no longer refused: the five points are the port's SWEEP points, as
+    # the reference's, and accepted field for field (they run across
+    # devices in tests/test_torch_spec_multidevice.py).
     from repro.testing.conformance import SWEEP as JSWEEP
     kw = JSWEEP[config]
-    assert config not in tconf.SWEEP
-    JConfig(lookahead=0.5, **kw)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        TConfig(lookahead=0.5, **kw)
+    assert tconf.SWEEP[config] == kw and config in tconf.MULTI_DEVICE
+    t, j = TConfig(lookahead=0.5, **kw), JConfig(lookahead=0.5, **kw)
+    for f in dataclasses.fields(TConfig):
+        assert getattr(t, f.name) == getattr(j, f.name), f.name
 
 
 def test_speculation_rejects_what_the_jax_engine_rejects():

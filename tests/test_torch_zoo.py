@@ -266,6 +266,9 @@ def test_conformance_matches_oracle_and_jax_rounds(jax_rounds, name, config):
 def test_every_sweep_point_but_the_kernel_runs_the_new_workloads():
     for name in NEW:
         assert tconf.supported_configs(name) == [
+            c for c in tconf.SWEEP
+            if c != "batch-model" and c not in tconf.MULTI_DEVICE]
+        assert tconf.supported_configs(name, devices=2) == [
             c for c in tconf.SWEEP if c != "batch-model"]
         with pytest.raises(ValueError, match=f"{name} has no process_batch"):
             tconf.check_workload(name, "batch-model", device="cpu")
