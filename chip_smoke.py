@@ -140,6 +140,33 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 machine shows two or more cards, the same over NCCL with
                 D = min(cards, 4), one card per rank; on one card a line
                 says the NCCL part did not run;
+  simulate.   — the simulator as users drive it (every kernel counter set
+                to 0 before it and read after): ``python -m
+                repro_torch.launch.simulate`` in subprocesses at the main
+                path's model and config: (a) 32 epochs ``--verify``,
+                bit-exact against the oracle; (b) 288 epochs timed, the
+                CLI's ms/epoch and ev/s beside phases 5-6's in-process
+                graphed run, 0 captures, 0 host syncs and 1 event_apply
+                launch per epoch in the timed window; (c) ``--opt-window 2
+                --drain`` passes and a run with a route buffer below one
+                epoch's emissions exits nonzero; (d) ``--devices 2 --route
+                a2a --verify``, 2 gloo ranks sharing the card, its stats
+                those of (a); (e) PHOLD's main path x 8 seeds under
+                ``rep_shards=2`` over 2 gloo ranks, each rank's 4 x 1024
+                rows drained as graph replays with no collective, each
+                replication equal to the one-device stacked drain of the
+                same seeds, per rank launches, collectives, host syncs and
+                ms/epoch; (f) the main path x 2 object-sharded over 2 ranks
+                under ``allgather`` and ``a2a``, equal to the same stack;
+                (g) the campaign CLI on the wireless rung at bench scale
+                (2 points x 4 seeds, then x 3: rep_shards and
+                object-sharded) over ``--devices 2``, every point's
+                per-replication stats equal to ``--devices 1``'s; (h)
+                ``packed`` and ``ltf`` stacked (wireless at bench scale,
+                R = 4), each replication equal to its own drain; (i) (e)
+                and (f) over NCCL where two or more cards show.  Ranks
+                sharing one card are a correctness path, not a multi-GPU
+                speed;
   7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
@@ -1718,18 +1745,10 @@ MD_COLLECTIVE_TIMEOUT, MD_SPAWN_TIMEOUT = 300, 600
 
 
 def md_digest(tree) -> str:
-    """sha256 of a dict of arrays in key order, each in a canonical dtype
-    (floats as f32, integers as i64), so that the gathered engine state and
-    the oracle's stacked state digest alike."""
-    import hashlib
-    import numpy as np
-    h = hashlib.sha256()
-    for k in sorted(tree):
-        v = np.asarray(tree[k])
-        v = v.astype(np.float32 if v.dtype.kind == "f" else np.int64)
-        h.update(k.encode() + str(v.shape).encode())
-        h.update(np.ascontiguousarray(v).tobytes())
-    return h.hexdigest()
+    """sha256 of a dict of arrays (``testing.multidevice.tree_digest``), so
+    that the gathered engine state and the oracle's digest alike."""
+    from repro_torch.testing.multidevice import tree_digest
+    return tree_digest(tree)
 
 
 def _md_snapshot(eng, st) -> dict:
@@ -2025,6 +2044,385 @@ def multidevice_phase(dev, ref):
     log("multidevice", f"phase time {t3 - t0:.1f} s: the one-device "
                        f"reference {t1 - t0:.1f} s, gloo ranks {t2 - t1:.1f} "
                        f"s, checks and NCCL {t3 - t2:.1f} s")
+
+
+# -- phase simulate: the CLI, rep_shards, R x D, campaigns over devices -------
+
+#: the simulate CLI at the main path's model and config
+#: (``workloads.phold.main_path``: 1024 objects, dyadic, event_apply,
+#: 8 buckets of 128, route and fallback caps of 16,384).
+SIM_MAIN = ["--workload", "phold", "--objects", "1024", "--dist", "dyadic",
+            "--batch-impl", "model", "--route-cap", "16384",
+            "--fallback-cap", "16384", "--n-buckets", "8",
+            "--bucket-cap", "128"]
+#: the CLI's timed run, and the dirty run's route_cap (below one epoch's
+#: ~5,100 emissions).
+SIM_TIMED, SIM_DIRTY_CAP = 288, 1024
+#: PHOLD main path x SIM_REP_SEEDS under rep_shards=2 (and seeds 0, 1
+#: object-sharded over 2 ranks), SIM_REP_EPOCHS epochs drained.
+SIM_REP_SEEDS, SIM_REP_EPOCHS = 8, 64
+#: the campaign CLI on the wireless rung at bench scale (2 points).
+SIM_CAMPAIGN = ["--workload", "wireless", "--grid", "max_calls=2,4",
+                "--model-kw", "n_objects=512", "--model-kw", "dist='dyadic'",
+                "--model-kw", "n_channels=8", "--model-kw", "hot_cells=32",
+                "--model-kw", "hot_shift=3", "--model-kw", "hot_streams=2",
+                "--model-kw", "handoff_p=112", "--n-buckets", "32",
+                "--fallback-cap", "16384", "--epochs", "256",
+                "--require-drained"]
+#: packed and ltf stacked: wireless at bench scale, R seeds, drain bounds.
+SIM_ZOO_R, SIM_ZOO_BOUNDS = 4, {"packed": 32, "ltf": 3}
+
+
+def _cli(module, args):
+    """Start ``python -m module args`` from the checkout (a Popen)."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-m", module, *args], cwd=ROOT,
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _finish(proc, timeout=600):
+    out, err = proc.communicate(timeout=timeout)
+    return proc.returncode, out, err
+
+
+def _sim_inproc(dev):
+    """The CLI's timed calls in this process: the main path's engine, init,
+    ``prepare``, SIM_TIMED epochs of ``run``; ms/epoch by the host clock and
+    by CUDA events."""
+    import torch
+    from repro_torch.core.engine import ParsirEngine
+    from repro_torch.workloads.phold import main_path
+    model, cfg = main_path()
+    eng = ParsirEngine(model, cfg, device=dev)
+    st = eng.init()
+    eng.prepare(st, SIM_TIMED)
+    torch.cuda.synchronize()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    e0.record()
+    eng.run(st, SIM_TIMED)
+    e1.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / SIM_TIMED
+    out = host, e0.elapsed_time(e1) / SIM_TIMED
+    del eng, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sim_parse(out: str) -> dict:
+    """The simulate CLI's lines as numbers."""
+    import ast
+    import re
+    got = {}
+    for line in out.splitlines():
+        if line.startswith("[simulate] stats: "):
+            got["stats"] = ast.literal_eval(line.split(": ", 1)[1])
+        m = re.search(r"(\d+) events over (\d+) epochs in ([\d.]+)s "
+                      r"\(([\d,]+) ev/s\) — (\d+) host dispatches", line)
+        if m:
+            got.update(events=int(m[1]), epochs=int(m[2]),
+                       seconds=float(m[3]),
+                       ev_s=int(m[4].replace(",", "")),
+                       dispatches=int(m[5]))
+        m = re.search(r"timed window on (\S+): (\d+) epochs, ([\d.]+) "
+                      r"ms/epoch(?: \(([\d.]+) by CUDA events\))?; host "
+                      r"syncs (\d+), graph captures (\d+), replays (\d+); "
+                      r"kernel launches: (.*)$", line)
+        if m:
+            got.update(window=int(m[2]), ms=float(m[3]),
+                       ms_events=float(m[4]) if m[4] else None,
+                       syncs=int(m[5]), captures=int(m[6]),
+                       replays=int(m[7]))
+            ea = re.search(r"event_apply_cuda (\d+)", m[8])
+            got["ea_launches"] = int(ea[1]) if ea else 0
+    got["verified"] = "verified bit-exact vs sequential oracle" in out
+    return got
+
+
+def _sim_ok(name, rc, out, err, verified=False):
+    if rc != 0:
+        raise AssertionError(f"[simulate] {name}: exit {rc}\n{out}\n{err}")
+    got = _sim_parse(out)
+    if verified and not got["verified"]:
+        raise AssertionError(f"[simulate] {name}: no verified line\n{out}")
+    return got
+
+
+def _same_leaves(a, b, ctx):
+    import numpy as np
+    from repro_torch.interop import engine_state_to_numpy, numpy_leaves
+    for x, y in zip(numpy_leaves(engine_state_to_numpy(a)),
+                    numpy_leaves(engine_state_to_numpy(b)), strict=True):
+        np.testing.assert_array_equal(x, y, err_msg=ctx)
+
+
+def _store_points(root):
+    """{seed count: [per point replications list]} of a campaign store."""
+    out = {}
+    for run in Path(root).iterdir():
+        manifest = json.loads((run / "manifest.json").read_text())
+        n = len(manifest["spec"]["seeds"])
+        out[n] = [json.loads((run / f"point-{i}.json").read_text())
+                  for i in range(manifest["n_points"])]
+    return out
+
+
+def sim_check_reps(ranks, ref_digests, ref_totals, ref_epochs, where, smi):
+    """(e) and (f): the ranks' replications against the one-device
+    stacked drain of the same seeds, and the per-rank counters."""
+    layouts = [("rep_shards=2", SIM_REP_SEEDS, None)]
+    layouts += [(f"R=2 x D=2 {route}", 2, route)
+                for route in ("allgather", "a2a")]
+    for k, (name, R, route) in enumerate(layouts):
+        ctx = f"[simulate] PHOLD main path x {R} {name}, {where}"
+        for rank, res in enumerate(r[k] for r in ranks):
+            if res["totals"] != ref_totals[:R] or \
+                    res["epochs"] != ref_epochs[:R]:
+                raise AssertionError(f"{ctx}: rank {rank} totals or epochs "
+                                     f"differ from the one-device stack")
+            for j, r in enumerate(res["held"]):
+                want = ref_digests[route is not None][res["row0"]][r]
+                if res["digests"][j] != want:
+                    raise AssertionError(f"{ctx}: replication {r} on rank "
+                                         f"{rank} differs from the "
+                                         f"one-device stack")
+            t = res["timing"]
+            if t["launches"] != 1.0:
+                raise AssertionError(f"{ctx}: rank {rank} launched "
+                                     f"event_apply {t['launches']} times "
+                                     f"per epoch")
+            if route is None and (not t["graphed"] or t["collectives"]
+                                  or t["captures"]):
+                raise AssertionError(f"{ctx}: rank {rank} graphed "
+                                     f"{t['graphed']}, {t['collectives']} "
+                                     f"collectives, {t['captures']} "
+                                     f"captures in the drain")
+            log("simulate", f"{name} PHOLD main path x {R}, {where}, rank "
+                            f"{rank} (seeds {res['held']}): "
+                            f"run_replicated_drained({SIM_REP_EPOCHS}) == "
+                            f"the one-device stacked drain (object state, "
+                            f"calendar counts per replication, totals, "
+                            f"epochs); event_apply {t['launches']:.2f} "
+                            f"launches per epoch over {t['rows']} rows, "
+                            f"graphed {t['graphed']} ({t['replays']} "
+                            f"replays, {t['captures']} captures), "
+                            f"{t['collectives']} collectives and "
+                            f"{t['syncs']} host syncs in "
+                            f"{SIM_REP_EPOCHS} epochs; "
+                            f"{t['ms_events']:.4f} ms/epoch (CUDA events), "
+                            f"{t['ms_host']:.4f} (host clock); {smi}")
+
+
+def simulate_phase(dev, ref, main_t):
+    """Phase simulate: the simulator's CLI at the main path's width, the
+    replications over ranks (rep_shards and R x D), the campaign CLI over
+    devices and packed/ltf stacked.  Ranks share cuda:0 over gloo: a
+    correctness path, not a multi-GPU speed."""
+    import tempfile
+    import torch
+    from repro_torch.core.dist import spawn
+    from repro_torch.core.engine import DRAIN_CHUNK, ParsirEngine
+    from repro_torch.core.graphs import clone_state
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.testing import multidevice as tmd
+    from repro_torch.workloads.phold import main_path
+    from repro_torch.workloads.registry import bench_path
+    smi = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    for fn in KERNELS:
+        fn.launches = 0
+    sim = "repro_torch.launch.simulate"
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    # (a), (c), (d) and the four campaign runs (g) as processes together.
+    procs = {
+        "a": _cli(sim, SIM_MAIN + ["--epochs", "32", "--verify"]),
+        "c": _cli(sim, SIM_MAIN + ["--opt-window", "2", "--drain",
+                                   "--epochs", "64"]),
+        "dirty": _cli(sim, [str(SIM_DIRTY_CAP) if p == "16384" and
+                            SIM_MAIN[i - 1] == "--route-cap" else p
+                            for i, p in enumerate(SIM_MAIN)]
+                      + ["--epochs", "4"]),
+        "d": _cli(sim, SIM_MAIN + ["--devices", "2", "--route", "a2a",
+                                   "--epochs", "32", "--verify"]),
+    }
+    for n in (4, 3):
+        for d in (1, 2):
+            procs[f"g{n}{d}"] = _cli("repro_torch.launch.campaign",
+                                     SIM_CAMPAIGN + [
+                                         "--seeds", str(n), "--devices",
+                                         str(d), "--store",
+                                         f"{tmp.name}/d{d}"])
+    # meanwhile: the one-device stacked drain (e) and (f) are held to.
+    model, cfg = main_path()
+    eng = ParsirEngine(model, cfg, device=dev)
+    st = eng.init_replicated(list(range(SIM_REP_SEEDS)))
+    eng.run_replicated_drained(clone_state(st), DRAIN_CHUNK)
+    st = eng.run_replicated_drained(st, SIM_REP_EPOCHS)
+    M = model.n_objects // 2
+    ref_digests = {False: {0: tmd.shard_digests(st)},
+                   True: {0: tmd.shard_digests(st, slice(0, M)),
+                          M: tmd.shard_digests(st, slice(M, 2 * M))}}
+    ref_totals = eng.totals_replicated(st)
+    ref_epochs = eng.epochs_replicated(st)
+    del eng, st
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    got = {k: _finish(p) for k, p in procs.items()}
+    t2 = time.perf_counter()
+
+    # (a) the CLI's main path, verified.
+    a = _sim_ok("(a) verify", *got["a"], verified=True)
+    if a["stats"]["processed"] != ref.total_processed:
+        raise AssertionError(f"[simulate] (a): processed "
+                             f"{a['stats']['processed']} != the oracle's "
+                             f"{ref.total_processed}")
+    log("simulate", f"(a) python -m {sim} {' '.join(SIM_MAIN)} --epochs 32 "
+                    f"--verify: exit 0, bit-exact vs the oracle, processed "
+                    f"{a['stats']['processed']}, clean")
+    # (c) the exit contract.
+    c = _sim_ok("(c) --opt-window 2 --drain", *got["c"])
+    rc, out, err = got["dirty"]
+    if rc == 0 or "UNCLEAN" not in err:
+        raise AssertionError(f"[simulate] (c) dirty run: exit {rc}\n{out}"
+                             f"\n{err}")
+    log("simulate", f"(c) --opt-window 2 --drain --epochs 64: exit 0, "
+                    f"commits {c['stats']['spec_commits']}, rollbacks "
+                    f"{c['stats']['rollbacks']}, {c['ms']:.4f} ms/epoch; "
+                    f"--route-cap {SIM_DIRTY_CAP} (below one epoch's "
+                    f"emissions): exit {rc}, "
+                    f"{err.strip().splitlines()[-1][:120]}")
+    # (d) two gloo ranks sharing the card.
+    d = _sim_ok("(d) --devices 2", *got["d"], verified=True)
+    if d["stats"] != a["stats"]:
+        raise AssertionError(f"[simulate] (d): stats {d['stats']} != D = 1's"
+                             f" {a['stats']}")
+    log("simulate", f"(d) --devices 2 --route a2a --epochs 32 --verify (2 "
+                    f"gloo ranks sharing the card, host-staged): exit 0, "
+                    f"bit-exact vs the oracle, stats == D = 1's; "
+                    f"{d['ms']:.4f} ms/epoch (rank 0, host clock), "
+                    f"event_apply {d['ea_launches']} launches in "
+                    f"{d['window']} epochs on rank 0")
+
+    # (b) the timed run, alone on the card, between two in-process runs of
+    # the same calls (the card's speed drifts by ~13 % between minutes).
+    inproc = [_sim_inproc(dev)]
+    rc, out, err = _finish(_cli(sim, SIM_MAIN + ["--epochs",
+                                                 str(SIM_TIMED)]))
+    inproc.append(_sim_inproc(dev))
+    b = _sim_ok("(b) timed", rc, out, err)
+    if b["captures"] != 0 or b["ea_launches"] != b["window"] \
+            or b["window"] != SIM_TIMED or b["syncs"] != 0:
+        raise AssertionError(f"[simulate] (b): {b['captures']} captures, "
+                             f"{b['ea_launches']} event_apply launches, "
+                             f"{b['syncs']} host syncs in {b['window']} "
+                             f"epochs\n{out}")
+    near = statistics.mean(h for h, _ in inproc)
+    gap = b["ms"] / near - 1
+    log("simulate", f"(b) {' '.join(SIM_MAIN)} --epochs {SIM_TIMED}: "
+                    f"{b['ms']:.4f} ms/epoch (the CLI's host clock; "
+                    f"{b['ms_events']:.4f} by CUDA events), "
+                    f"{b['ev_s']} ev/s, {b['events']} events; timed window: "
+                    f"0 captures, {b['replays']} replays, 0 host syncs, "
+                    f"event_apply {b['ea_launches']} launches (1 per epoch); "
+                    f"the same calls in process just before and after: "
+                    + ", ".join(f"{h:.4f} ({d:.4f})" for h, d in inproc)
+                    + f" ms/epoch host clock (CUDA events): the CLI "
+                    f"{gap:+.1%}{' (more than 10 %)' if abs(gap) > 0.1 else ''}"
+                    f"; phases 5-6's graphed run {main_t['wall_ms']:.4f} "
+                    f"({main_t['dev_ms']:.4f}) minutes earlier; {smi}")
+
+    # (e), (f): rep_shards=2 and R x D over 2 gloo ranks, one spawn.
+    seeds = list(range(SIM_REP_SEEDS))
+    tasks = [("main_path_replicated_rank", ("cuda:0", seeds, SIM_REP_EPOCHS,
+                                            2)),
+             ("main_path_replicated_rank", ("cuda:0", [0, 1],
+                                            SIM_REP_EPOCHS, None,
+                                            "allgather")),
+             ("main_path_replicated_rank", ("cuda:0", [0, 1],
+                                            SIM_REP_EPOCHS, None, "a2a"))]
+    t3 = time.perf_counter()
+    ranks = spawn(tmd.tasks_rank, 2, tasks, backend="gloo",
+                  timeout=MD_COLLECTIVE_TIMEOUT,
+                  join_timeout=MD_SPAWN_TIMEOUT)
+    t4 = time.perf_counter()
+    sim_check_reps(ranks, ref_digests, ref_totals, ref_epochs,
+                   "2 gloo ranks sharing cuda:0", smi)
+
+    # (g) the campaign CLI over devices against --devices 1.
+    for n in (4, 3):
+        for dd in (1, 2):
+            rc, out, err = got[f"g{n}{dd}"]
+            if rc != 0:
+                raise AssertionError(f"[simulate] (g) campaign --seeds {n} "
+                                     f"--devices {dd}: exit {rc}\n{out}\n"
+                                     f"{err}")
+    one, two = _store_points(f"{tmp.name}/d1"), _store_points(
+        f"{tmp.name}/d2")
+    for n in (4, 3):
+        if [p["replications"] for p in one[n]] != \
+                [p["replications"] for p in two[n]]:
+            raise AssertionError(f"[simulate] (g) --seeds {n}: the "
+                                 f"--devices 2 store differs from "
+                                 f"--devices 1's")
+        events = [sum(r["processed"] for r in p["replications"])
+                  for p in two[n]]
+        log("simulate", f"(g) campaign CLI, wireless at bench scale, "
+                        f"max_calls 2, 4 x {n} seeds, --devices 2 ("
+                        + ("rep_shards=2" if n % 2 == 0 else
+                           "object-sharded R=3 x D=2")
+                        + f"): every point's per-replication stats == "
+                          f"--devices 1's ({events} events, all drained)")
+    tmp.cleanup()
+
+    # (h) packed and ltf stacked, each replication equal to its own drain.
+    for impl, bound in SIM_ZOO_BOUNDS.items():
+        over = (dict(batch_impl="packed") if impl == "packed"
+                else dict(scheduler="ltf"))
+        zmodel, zcfg = bench_path("wireless", **over)
+        zeng = ParsirEngine(zmodel, zcfg, device=dev)
+        t5 = time.perf_counter()
+        zst = zeng.run_replicated_drained(
+            zeng.init_replicated(list(range(SIM_ZOO_R))), bound)
+        t6 = time.perf_counter()
+        for r in range(SIM_ZOO_R):
+            own = zeng.run_until_drained(zeng.init(seed=r), bound)
+            _same_leaves(zeng.replication(zst, r), own,
+                         f"[simulate] (h) {impl} replication {r}")
+        tot = zeng.totals_replicated(zst)
+        log("simulate", f"(h) wireless at bench scale, {impl}, R="
+                        f"{SIM_ZOO_R} stacked, bound {bound}: each "
+                        f"replication == its own run_until_drained leaf by "
+                        f"leaf (processed {[t['processed'] for t in tot]}); "
+                        f"stacked {t6 - t5:.2f} s")
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+
+    # (i) NCCL where the machine shows two or more cards.
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ranks = spawn(tmd.tasks_rank, 2, [(n, ("cuda",) + a[1:])
+                                          for n, a in tasks],
+                      backend="nccl", timeout=MD_COLLECTIVE_TIMEOUT,
+                      join_timeout=MD_SPAWN_TIMEOUT)
+        sim_check_reps(ranks, ref_digests, ref_totals, ref_epochs,
+                       "2 NCCL ranks, a card each", smi)
+    else:
+        log("simulate", f"(i) NCCL not run: the machine shows {cards} CUDA "
+                        f"device (NCCL needs a card per rank); rep_shards "
+                        f"and R x D over NCCL are unverified")
+    t7 = time.perf_counter()
+    log("simulate", f"in-process kernel launches in the phase (the "
+                    f"one-device reference stack): {counts}; the CLI's and "
+                    f"the ranks' own are on their lines")
+    log("simulate", f"phase time {t7 - t0:.1f} s: the one-device reference "
+                    f"{t1 - t0:.1f} s beside the CLI and campaign processes "
+                    f"(done at {t2 - t0:.1f} s), the timed CLI run "
+                    f"{t3 - t2:.1f} s, the ranks {t4 - t3:.1f} s, "
+                    f"campaign checks, packed/ltf and NCCL "
+                    f"{t7 - t4:.1f} s")
 
 
 # -- ssd_scan: kernel against its plain version, time, bound -----------------------
@@ -3204,6 +3602,10 @@ def main() -> int:
 
     # multidevice. the main path, loans, rebalancing, speculation over ranks --
     multidevice_phase(dev, ref)
+    torch.cuda.empty_cache()
+
+    # simulate. the CLI, rep_shards, R x D, campaigns over devices ----------
+    simulate_phase(dev, ref, main_t)
     del ref
     torch.cuda.empty_cache()
 

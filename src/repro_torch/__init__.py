@@ -10,7 +10,9 @@ Ported so far: the PARSIR engine with its stage pipeline (the seven
 workloads, four schedulers, the fused drain as CUDA graphs, replications
 and campaigns, speculation) on one device or over D ranks of a
 ``torch.distributed`` group (placement, the allgather and a2a routers, loan
-stealing, adaptive rebalancing), PHOLD through the hand-written
+stealing, adaptive rebalancing, replications laid over ranks or
+object-sharded), the simulate and campaign CLIs, PHOLD through the
+hand-written
 ``event_apply`` kernel (``EngineConfig(batch_impl="model")``); zamba2-1.2b
 and llama3.2-3b serving and llama3.2-3b's forward and loss, through the
 hand-written ``ssd_scan`` and ``flash_attention`` kernels.

@@ -28,8 +28,7 @@ every rank.  Across devices the loops run eagerly (no CUDA graphs: gloo
 cannot be captured, and NCCL capture waits for a machine with several
 cards to check it); the drain's flag is one ``all_sum`` per
 ``DRAIN_CHUNK``, the reference's ``psum``, and the gated step sums the
-events in flight over the ranks every epoch.  Stacked replications stay on
-one device (R > 1 with D > 1 is refused, naming the rep-sharded slice).
+events in flight over the ranks every epoch.
 
 The fused loops.  The JAX engine runs :meth:`ParsirEngine.run` as one
 compiled ``fori_loop`` and :meth:`ParsirEngine.run_until_drained` as one
@@ -54,8 +53,23 @@ them (one ``event_apply`` launch per epoch under ``batch-model``), replayed
 as CUDA graphs on the card exactly as ``run_until_drained`` is, with the
 flag summed over the replications.  A replication that drains stops at its
 own drain epoch (the gated step, per replication), so each one equals its
-own ``run_until_drained``, leaf by leaf.  ``batch_impl="packed"`` and
-``scheduler="ltf"`` refuse R > 1 (:func:`~.pipeline.refuse_stacking`).
+own ``run_until_drained``, leaf by leaf.  Every scheduler stacks.
+
+Replications over devices, the reference's two layouts.  R x D: an engine
+with a group of D ranks takes a stack too, each rank its shard of every
+replication (``[R, M, ...]``, the reference's ``P(None, AXIS)``), and the
+stacked step exchanges the ``[R, E]`` batches of all R in one collective
+(eagerly, as every loop across devices runs).  ``rep_shards=W`` (with
+``rep_group``, a group of W ranks, by default the default group) lays the
+replication axis over W ranks instead: each rank holds R / W replications
+whole, its object axis is one device, so its drain is the one-device
+stacked drain (graphed on the card), makes no collective and stops at its
+own local drain epoch, as the reference's ``drain_rep_sharded`` does.
+``init_replicated`` takes the full seed list on every rank and keeps this
+rank's contiguous slice; ``totals_replicated``, ``in_flight_replicated``
+and ``epochs_replicated`` return the full list in seed order on every
+rank, through one gather each, and ``global_replicated`` gathers the whole
+stack in the JAX engine's global layout.
 
 Speculation (``opt_window = W > 0``, :mod:`.pipeline.speculate`).  The
 speculative step takes an exclusive epoch bound per replication and leaps
@@ -105,12 +119,13 @@ from .calendar import (Calendar, bucket_occupancy, make_calendar,
 from .device import resolve_device
 from .dist import Comm
 from .events import EventBatch
-from .graphs import DRAIN_CHUNK, StepGraphs, split
+from .graphs import (DRAIN_CHUNK, LENGTHS, StepGraphs, clone_state,
+                     copy_into, split)
 from .pipeline import (EngineConfig, EngineState, deliver, in_flight,
                        make_spec_step, make_step, map_tree,
-                       pending_per_replication, refuse_stacking, replica,
-                       resolve_scheduler, stack_of_one, zero_stats)
-from .pipeline.step import refuse_reps_across_devices, step_host_syncs
+                       pending_per_replication, replica, resolve_scheduler,
+                       stack_of_one, zero_stats)
+from .pipeline.step import step_host_syncs
 from .placement import Placement, equal_placement, weighted_placement
 
 __all__ = ["DRAIN_CHUNK", "EngineConfig", "EngineState", "ParsirEngine"]
@@ -155,13 +170,40 @@ class ParsirEngine:
     one rank of ``group``'s devices."""
 
     def __init__(self, model: SimModel, cfg: EngineConfig,
-                 device: str | torch.device = "cuda", group=None):
+                 device: str | torch.device = "cuda", group=None,
+                 rep_shards: int | None = None, rep_group=None):
+        """``group`` shards the object axis (D ranks share one simulation).
+        ``rep_shards=W`` instead lays the replication axis of
+        :meth:`init_replicated` stacks over the W ranks of ``rep_group``
+        (the default group when None and one is initialized), each holding
+        R / W replications whole: the campaign throughput layout.  It needs
+        a one-device object axis and ``len(seeds) % W == 0``."""
         self.device = resolve_device(device)
         self.model, self.cfg = model, cfg
         #: the device axis: this engine's rank of D (one device by default).
         self.comm = Comm(group)
         self.D, self.rank = self.comm.size, self.comm.rank
         cfg.validate(self.D)
+        #: the replication axis under ``rep_shards`` (None otherwise).
+        self.rep_shards = self.rep_comm = None
+        if rep_shards is not None:
+            W = int(rep_shards)
+            if self.D != 1:
+                raise ValueError(
+                    f"rep_shards requires a single-device engine mesh (got "
+                    f"D={self.D}): each replication runs whole on one "
+                    f"device")
+            if rep_group is None and torch.distributed.is_initialized():
+                rep_group = torch.distributed.group.WORLD
+            rep_comm = Comm(rep_group)
+            if W < 1 or rep_comm.size < W:
+                raise ValueError(f"rep_shards={W} needs {W} devices, have "
+                                 f"{rep_comm.size}")
+            if rep_comm.size != W:
+                raise ValueError(f"rep_shards={W} over a group of "
+                                 f"{rep_comm.size} ranks: every rank holds "
+                                 f"R / {W} replications")
+            self.rep_shards, self.rep_comm = W, rep_comm
         self.placement: Placement = build_placement(model, cfg, self.D)
         kw = dict(comm=self.comm)
         self._step = make_step(model, cfg, self.placement, **kw)
@@ -266,12 +308,18 @@ class ParsirEngine:
         """Build an R-replication stacked state, one bootstrap stream per
         seed (``R = len(seeds)``).  The initial object state is the same in
         every replication: they diverge through their seed-salted bootstrap
-        events alone.  Run it with :meth:`run_replicated_drained`."""
+        events alone.  Run it with :meth:`run_replicated_drained`.  Under
+        ``rep_shards=W`` every rank passes the full list and keeps its
+        contiguous slice of R / W seeds (rank w: seeds ``w * R / W`` up to
+        ``(w + 1) * R / W``)."""
         seeds = [int(s) for s in seeds]
         if not seeds:
             raise ValueError("init_replicated needs at least one seed")
-        refuse_stacking(self._scheduler, len(seeds))
-        refuse_reps_across_devices(len(seeds), self.D)
+        if self.rep_shards and len(seeds) % self.rep_shards:
+            raise ValueError(
+                f"rep_shards={self.rep_shards} needs len(seeds) divisible by"
+                f" it (got {len(seeds)})")
+        seeds = [seeds[i] for i in self.rep_slice(len(seeds))]
         self.dispatches += 1
         batches = [self._initial_batch(s) for s in seeds]
         batch = EventBatch(*(torch.stack(x) for x in zip(*batches)))
@@ -368,8 +416,6 @@ class ParsirEngine:
         n = int(max_epochs)
         self.check_stats_bound(n)
         R = state.epoch.shape[0]
-        refuse_stacking(self._scheduler, R)
-        refuse_reps_across_devices(R, self.D)
         self.dispatches += 1
         if self._graphed and (self.rep_graphs is None
                               or self.rep_graphs.static.epoch.shape[0] != R):
@@ -401,12 +447,10 @@ class ParsirEngine:
         replays of the step's CUDA graphs where the engine has them."""
         graphs = self.rep_graphs if stacked else self.graphs
         step = self._rep_spec_step if stacked else self._drain_variant(w)
-        variant = ("spec", w, drain)
         if graphs is not None:
             state = graphs.adopt(state)
+            variant = self._spec_variant(graphs, w, drain, stacked)
             bound = graphs.bound
-            graphs.add(variant, lambda s: step(s, bound, drain),
-                       lambda s: spec_flag(s, bound, drain))
             bound.copy_(state.epoch.reshape(-1) + n)
         else:
             bound = state.epoch.reshape(-1) + n
@@ -427,6 +471,49 @@ class ParsirEngine:
             if active == 0:
                 break
         return state
+
+    def _spec_variant(self, graphs: StepGraphs, w: int, drain: bool,
+                      stacked: bool = False):
+        """Register the speculative step of width ``w`` with ``graphs``
+        (its bound the runner's static one) and return its variant key."""
+        step = self._rep_spec_step if stacked else self._drain_variant(w)
+        variant, bound = ("spec", w, drain), graphs.bound
+        graphs.add(variant, lambda s: step(s, bound, drain),
+                   lambda s: spec_flag(s, bound, drain))
+        return variant
+
+    def prepare(self, state: EngineState, n_epochs: int,
+                drain: bool = False) -> None:
+        """Get ready to time ``run(state, n_epochs)`` (with ``drain``,
+        ``run_until_drained``) without running an epoch of ``state``: on
+        the graphed path capture every graph the call replays (under
+        speculation every graph length) and replay each once on a copy of
+        ``state`` (a graph's first launch uploads it to the card),
+        elsewhere run one eager step on a copy (its kernels built and
+        loaded; across devices every rank steps together).  ``state``
+        keeps its values, even where it is the engine's static state.
+        One dispatch, the port's face of the reference's warm-up call
+        ``run(st, 0)``."""
+        self.dispatches += 1
+        n = int(n_epochs)
+        if self.graphs is None:
+            self._step(clone_state(state))
+            return
+        saved = clone_state(state)
+        self.graphs.adopt(state)
+        if self._spec_step is not None:
+            variant = self._spec_variant(self.graphs, self.cfg.opt_window,
+                                         drain)
+            lengths = set(LENGTHS)
+        else:
+            variant = drain
+            chunks = ([min(DRAIN_CHUNK, n - c0)
+                       for c0 in range(0, n, DRAIN_CHUNK)] if drain else [n])
+            lengths = {x for c in chunks for x in split(c)}
+        for length in sorted(lengths):
+            self.graphs.prepare(variant, length)
+            self.graphs.replay(variant, length)
+        copy_into(self.graphs.static, saved)
 
     def _run_drain_adaptive(self, state: EngineState, max_epochs: int
                             ) -> EngineState:
@@ -497,26 +584,74 @@ class ParsirEngine:
         into the stack), for every inspection helper below."""
         return replica(state, r)
 
+    def rep_slice(self, R: int) -> range:
+        """The indices, in the full seed list of length ``R``, of the
+        replications this rank holds (all of them but under
+        ``rep_shards``)."""
+        if self.rep_shards is None:
+            return range(R)
+        k = R // self.rep_shards
+        return range(self.rep_comm.rank * k, (self.rep_comm.rank + 1) * k)
+
+    def _all_replications(self, t: torch.Tensor,
+                          summed: bool = True) -> torch.Tensor:
+        """A per-replication tensor [R_local, ...] of this rank as the full
+        [R, ...] in seed order: gathered over the replication axis under
+        ``rep_shards``, else (``summed``) summed over the object axis."""
+        if self.rep_comm is not None:
+            return self.rep_comm.gather_tensor(t).flatten(0, 1)
+        return self.comm.all_sum(t) if summed else t
+
     def totals_replicated(self, state: EngineState) -> list[dict[str, int]]:
-        """Per-replication Stats totals of a stacked state, in seed order."""
+        """Per-replication Stats totals of a stacked state, in seed order
+        (every replication, summed over the devices, on every rank)."""
         R = state.epoch.shape[0]
-        rows = torch.stack([v.reshape(R, -1).sum(1)
-                            for v in state.stats], 1).tolist()
+        rows = self._all_replications(torch.stack(
+            [v.reshape(R, -1).sum(1) for v in state.stats], 1)).tolist()
         return [dict(zip(state.stats._fields, (int(v) for v in row)))
                 for row in rows]
 
     def in_flight_replicated(self, state: EngineState) -> np.ndarray:
         """Per-replication in-flight event counts, i64 [R]."""
-        return pending_per_replication(state).cpu().numpy().astype(np.int64)
+        return self._all_replications(pending_per_replication(state)
+                                      ).cpu().numpy().astype(np.int64)
+
+    def epochs_replicated(self, state: EngineState) -> list[int]:
+        """Per-replication epoch counters, in seed order."""
+        return self._all_replications(state.epoch[:, 0],
+                                      summed=False).tolist()
+
+    def global_replicated(self, state: EngineState) -> EngineState:
+        """A stacked state in the JAX engine's global layout, on every
+        rank: under ``rep_shards`` the ranks' slices concatenated along the
+        replication axis; across D devices each leaf's shards concatenated
+        along dim 1 (``cal`` [R, D * M, ...], ``epoch`` and each Stats field
+        [R, D], ``bounds`` [R, D, D + 1]); the state itself otherwise."""
+        if self.rep_comm is not None:
+            return map_tree(lambda t: t.flatten(0, 1),
+                            self.rep_comm.all_gather(state))
+        if self.D == 1:
+            return state
+        return map_tree(lambda t: t.movedim(0, 1).flatten(1, 2),
+                        self.comm.all_gather(state))
+
+    def _summed(self, state: EngineState, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the devices, and for a stack under
+        ``rep_shards`` over every rank's replications."""
+        if self.rep_comm is not None and state.epoch.ndim == 2:
+            return self.rep_comm.all_sum(t)
+        return self.comm.all_sum(t)
 
     def totals(self, state: EngineState) -> dict[str, int]:
         """Stats summed over the replications of a stack and the devices."""
-        flat = self.comm.all_sum(torch.stack([v.sum() for v in state.stats]))
+        flat = self._summed(state, torch.stack([v.sum()
+                                                for v in state.stats]))
         return dict(zip(state.stats._fields, (int(v) for v in flat.tolist())))
 
     def in_flight(self, state: EngineState) -> int:
-        """Events in flight, summed over the devices."""
-        return int(self.comm.all_sum(in_flight(state)))
+        """Events in flight, summed over the devices (and the replications
+        of a stack)."""
+        return int(self._summed(state, in_flight(state)))
 
     def occupancy(self, state: EngineState) -> dict[str, np.ndarray | int]:
         """Width-packing diagnostics for the *current* epoch's bucket.

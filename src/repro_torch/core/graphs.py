@@ -157,6 +157,11 @@ class StepGraphs:
         replay(*self._graph(variant, length))
         self.replays += 1
 
+    def prepare(self, variant: Hashable, length: int) -> None:
+        """Capture the graph of ``length`` steps of ``variant`` now (its
+        warm-up step first, once per variant), without replaying it."""
+        self._graph(variant, length)
+
     def read(self, variant: Hashable):
         """The flag the last replay of ``variant`` wrote (a host read):
         an int, or a list for a flag of several numbers."""

@@ -26,7 +26,6 @@ from .base import (REBALANCERS, ROUTERS, SCHEDULERS, STEAL_POLICIES,
                    stack_of_one, zero_stats)
 from .config import EngineConfig
 from .deliver import deliver
-from .schedulers import refuse_stacking
 from .speculate import make_spec_step
 from .step import in_flight, make_step, pending_per_replication
 
@@ -34,7 +33,7 @@ __all__ = [
     "REBALANCERS", "ROUTERS", "SCHEDULERS", "STEAL_POLICIES", "EngineConfig",
     "EngineState", "RebalancePolicy", "Router", "Scheduler", "StealPolicy",
     "Stats", "deliver", "epoch_of", "in_flight", "make_spec_step",
-    "make_step", "map_tree", "pending_per_replication", "refuse_stacking",
+    "make_step", "map_tree", "pending_per_replication",
     "register_rebalancer", "register_router", "register_scheduler",
     "register_steal_policy", "replica", "resolve_rebalance",
     "resolve_router", "resolve_scheduler", "resolve_steal", "stack_of_one",

@@ -141,9 +141,6 @@ class Scheduler(abc.ABC):
     name: str
     #: host reads of device values one ``process`` call makes.
     host_syncs: int = 0
-    #: whether ``process`` takes the rows of more than one stacked
-    #: replication (``reps > 1``) with each replication's own bits.
-    stacks: bool = True
 
     def validate(self, model: SimModel, cfg: "EngineConfig") -> None:
         """Fail fast at engine construction if the model/config can't run."""

@@ -45,8 +45,6 @@ def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
     M = cal.n_local // R
     cur = cur[:, None]
     epochs = epoch_of(batch.ts, cfg.epoch_len)
-    boundaries = torch.as_tensor(placement.boundaries,
-                                 device=batch.dst.device).to(torch.int32)
     oob = batch.valid & ((batch.dst < 0)
                          | (batch.dst >= placement.n_objects))
     n_oob = oob.sum(-1)
@@ -60,7 +58,8 @@ def deliver(cal: Calendar, fb: Fallback, batch: EventBatch, cur, dev: int,
     beyond = mine & (epochs > hi)
     late = (mine & (epochs < lo)).sum(-1)
 
-    local_idx = torch.clamp(batch.dst - boundaries[dev], 0, M - 1)
+    local_idx = torch.clamp(batch.dst - placement.start(dev, cur.device),
+                            0, M - 1)
     row = local_idx + M * torch.arange(R, dtype=local_idx.dtype,
                                        device=local_idx.device)[:, None]
     new, _ = insert(cal, row.reshape(-1), epochs.reshape(-1),

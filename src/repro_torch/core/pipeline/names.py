@@ -20,3 +20,11 @@ ROUTES: tuple[str, ...] = ("allgather", "a2a")
 
 #: ``EngineConfig.placement`` values (paper §II-A/§II-C knapsacks).
 PLACEMENTS: tuple[str, ...] = ("equal", "weighted", "adaptive")
+
+#: ``EngineConfig`` fields of the speculation stage.  Every knob here is a
+#: ``--opt-*`` flag of the simulate CLI: :mod:`repro_torch.testing.
+#: docs_check` derives the required flags from this tuple.
+#: (``inject_straggler_every`` is absent: it is a test harness, not a
+#: speculation knob.)
+SPECULATION_KNOBS: tuple[str, ...] = ("opt_window", "opt_stage_cap",
+                                      "opt_commit", "opt_adaptive")

@@ -33,7 +33,9 @@ class PackedSlice(NamedTuple):
     Slots ``[0, n_tiles * tile)`` are ``n_tiles`` tiles; each tile's events
     belong to one batch round (distinct rows).  Dead slots (per-round tile
     padding and everything past the live region) carry ``valid=False``,
-    ``row = n_rows`` and ``ts=+inf``.
+    ``row = n_rows`` and ``ts=+inf``.  Packed per replication (``reps >
+    1``), every field but ``tile`` gains a leading R, and ``row`` is the row
+    within the replication (``n_rows / R`` on dead slots).
     """
 
     ts: torch.Tensor       # f32 [k_pad]
@@ -59,55 +61,69 @@ def pack_capacity(n_rows: int, cap: int, tile: int) -> int:
 
 
 def _scatter(k_pad: int, flat: torch.Tensor, vals: torch.Tensor,
-             fill, dtype) -> torch.Tensor:
-    """``full(k_pad, fill).at[flat].set(vals, mode="drop")``, the dropped
-    entries carrying ``flat == k_pad`` (the sentinel slot)."""
-    buf = torch.full((k_pad + 1,), fill, dtype=dtype, device=flat.device)
+             fill, dtype, reps: int = 1) -> torch.Tensor:
+    """``full((reps, k_pad), fill).at[flat].set(vals, mode="drop")`` over
+    the flat ``reps * (k_pad + 1)`` slots, each replication's dropped
+    entries carrying its own sentinel slot ``k_pad``; [k_pad] for one."""
+    buf = torch.full((reps * (k_pad + 1),), fill, dtype=dtype,
+                     device=flat.device)
     buf[flat] = vals.reshape(-1).to(dtype)
-    return buf[:k_pad]
+    out = buf.view(reps, k_pad + 1)[:, :k_pad]
+    return out[0] if reps == 1 else out
 
 
 def pack_slice(ts_s: torch.Tensor, seed_s: torch.Tensor, pay_s: torch.Tensor,
-               cnt_b: torch.Tensor, tile: int) -> PackedSlice:
+               cnt_b: torch.Tensor, tile: int, reps: int = 1) -> PackedSlice:
     """Compact a sorted ``[n_rows, C]`` calendar slice into a PackedSlice.
 
     Row ``o``'s live events sit in columns ``[0, cnt_b[o])``; column ``r`` is
     round ``r``.  Event ``(o, r)`` lands at ``round_base[r] + rank of o among
-    the round's live rows``.
+    the round's live rows``.  With ``reps`` the rows are R replications of
+    ``n_rows / R`` rows, each packed on its own (its own rounds, tiles and
+    tile count), as it would be alone.
     """
     n_rows, cap = ts_s.shape
+    M = n_rows // reps
     dev = ts_s.device
-    t = effective_tile(tile, n_rows)
-    k_pad = pack_capacity(n_rows, cap, tile)
+    t = effective_tile(tile, M)
+    k_pad = pack_capacity(M, cap, tile)
     i32 = dict(dtype=torch.int32, device=dev)
+    lead = () if reps == 1 else (reps,)
     if k_pad == 0:
         return PackedSlice(
-            ts=torch.zeros((0,), dtype=torch.float32, device=dev),
-            seed=torch.zeros((0,), dtype=torch.int64, device=dev),
-            payload=torch.zeros((0,), dtype=torch.float32, device=dev),
-            row=torch.zeros((0,), **i32), rnd=torch.zeros((0,), **i32),
-            valid=torch.zeros((0,), dtype=torch.bool, device=dev),
-            n_tiles=torch.zeros((), **i32), tile=t)
+            ts=torch.zeros(lead + (0,), dtype=torch.float32, device=dev),
+            seed=torch.zeros(lead + (0,), dtype=torch.int64, device=dev),
+            payload=torch.zeros(lead + (0,), dtype=torch.float32, device=dev),
+            row=torch.zeros(lead + (0,), **i32),
+            rnd=torch.zeros(lead + (0,), **i32),
+            valid=torch.zeros(lead + (0,), dtype=torch.bool, device=dev),
+            n_tiles=torch.zeros(lead, **i32), tile=t)
 
-    mask = (torch.arange(cap, device=dev)[None, :]
-            < cnt_b[:, None])                                  # [n_rows, cap]
+    mask = (torch.arange(cap, device=dev)[None, None, :]
+            < cnt_b.view(reps, M)[:, :, None])                 # [R, M, cap]
     m = mask.to(torch.int64)
-    occ = m.sum(0)                                             # [cap]
-    rank = m.cumsum(0) - 1                                     # [n_rows, cap]
+    occ = m.sum(1)                                             # [R, cap]
+    rank = m.cumsum(1) - 1                                     # [R, M, cap]
     padded = ((occ + t - 1) // t) * t
-    base = padded.cumsum(0) - padded                           # exclusive
-    flat = torch.where(mask, base[None, :] + rank, k_pad).reshape(-1)
+    base = padded.cumsum(1) - padded                           # exclusive
+    flat = torch.where(mask, base[:, None, :] + rank, k_pad)
+    flat = (flat + (k_pad + 1) * torch.arange(
+        reps, device=dev)[:, None, None]).reshape(-1)
 
-    rows = torch.arange(n_rows, **i32)[:, None].expand(n_rows, cap)
-    rnds = torch.arange(cap, **i32)[None, :].expand(n_rows, cap)
+    rows = torch.arange(M, **i32)[None, :, None].expand(reps, M, cap)
+    rnds = torch.arange(cap, **i32)[None, None, :].expand(reps, M, cap)
+
+    def scat(vals, fill, dtype):
+        return _scatter(k_pad, flat, vals, fill, dtype, reps)
+    n_tiles = (padded.sum(1) // t).to(torch.int32)
     return PackedSlice(
-        ts=_scatter(k_pad, flat, ts_s, float("inf"), torch.float32),
-        seed=_scatter(k_pad, flat, seed_s, 0, torch.int64),
-        payload=_scatter(k_pad, flat, pay_s, 0.0, torch.float32),
-        row=_scatter(k_pad, flat, rows, n_rows, torch.int32),
-        rnd=_scatter(k_pad, flat, rnds, 0, torch.int32),
-        valid=_scatter(k_pad, flat, mask, False, torch.bool),
-        n_tiles=(padded.sum() // t).to(torch.int32),
+        ts=scat(ts_s, float("inf"), torch.float32),
+        seed=scat(seed_s, 0, torch.int64),
+        payload=scat(pay_s, 0.0, torch.float32),
+        row=scat(rows, M, torch.int32),
+        rnd=scat(rnds, 0, torch.int32),
+        valid=scat(mask, False, torch.bool),
+        n_tiles=n_tiles[0] if reps == 1 else n_tiles,
         tile=t)
 
 

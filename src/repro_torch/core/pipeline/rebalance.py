@@ -23,10 +23,13 @@ The firing test ``(cur + 1) % rebalance_every == 0`` is the same on every
 device.  Across devices the loads are gathered every step and the firing
 test and the window's total load are read on the host together (one read
 a step); the migration's collectives run only in a firing epoch, on every
-rank together.  On one device nothing can move (the only range is all of
-``[0, n_objects)``), so a firing resets the load and counts, with no host
-read: the step stays capturable, and each replication of a stack fires at
-its own epoch.
+rank together.  A stack of R replications over several devices (the
+reference's ``vmap`` of the stage) keeps a row of boundaries per
+replication: the loads of all R are gathered at once, and each firing
+replication computes its cuts and migrates its rows on its own.  On one
+device nothing can move (the only range is all of ``[0, n_objects)``), so
+a firing resets the load and counts, with no host read: the step stays
+capturable, and each replication of a stack fires at its own epoch.
 
 ``_quantile_boundaries`` cuts an f32 prefix sum of integer loads, as the
 reference does: exact, whatever the order of the additions, while the
@@ -99,36 +102,54 @@ class AdaptiveRebalance(RebalancePolicy):
             load = torch.where(fire[:, None], 0, load)
             return (bounds, load, cal, obj, torch.zeros_like(cur,
                     dtype=torch.int64), fire.to(torch.int64))
-        zero = torch.zeros((1,), dtype=torch.int64, device=cur.device)
+        R = cur.shape[0]
         D, M, O = placement.n_devices, placement.n_local_max, \
             placement.n_objects
         device = load.device
-        b = bounds[0].to(torch.int32)
-        starts, cnts = b[:-1], b[1:] - b[:-1]
-        # the measured global per-object load (the same on every device).
-        all_load = comm.all_gather(load[0])                         # [D, M]
+        b = bounds.to(torch.int32)                                  # [R, D+1]
+        # the measured global per-object load of each replication (the
+        # same on every device).
+        all_load = comm.all_gather(load)                            # [D, R, M]
         ar = torch.arange(D * M, dtype=torch.int32, device=device)
         d_idx, i_idx = (ar // M).long(), ar % M
-        gid_all = starts[d_idx] + i_idx
-        row_live = i_idx < cnts[d_idx]
-        obj_load = torch.zeros((O + 1,), dtype=torch.int64, device=device)
-        obj_load.index_add_(0, torch.where(row_live, gid_all, O).long(),
-                            all_load.reshape(-1).to(torch.int64))
-        obj_load = obj_load[:O]
-        fired, total = torch.stack([fire[0].to(torch.int64),
-                                    obj_load.sum()]).tolist()  # a host read
-        if not fired:
+        gid_all = b[:, :-1][:, d_idx] + i_idx                       # [R, D*M]
+        row_live = i_idx < (b[:, 1:] - b[:, :-1])[:, d_idx]
+        obj_load = torch.zeros((R, O + 1), dtype=torch.int64, device=device)
+        obj_load.scatter_add_(1, torch.where(row_live, gid_all, O).long(),
+                              all_load.movedim(0, 1).reshape(R, D * M)
+                              .to(torch.int64))
+        obj_load = obj_load[:, :O]
+        # the firing test and the window's loads, in one host read.
+        host = torch.cat([fire.to(torch.int64), obj_load.sum(1)]).tolist()
+        fired, total = host[:R], host[R:]
+        zero = torch.zeros((R,), dtype=torch.int64, device=device)
+        if not any(fired):
             return bounds, load, cal, obj, zero, zero
-        if total >= EXACT_F32_LOAD:
-            raise NotImplementedError(
-                f"adaptive placement measured {total} events in one "
-                f"rebalance window; the quantile cuts are exact only below "
-                f"2**24 = {EXACT_F32_LOAD} (the reference's f32 prefix sum "
-                f"rounds above it): fire more often (rebalance_every="
-                f"{cfg.rebalance_every})")
-        new_b, load, cal, obj, n_recv = self._migrate(
-            cfg, placement, comm, b, obj_load, load[0], cal, obj)
-        return new_b[None], load[None], cal, obj, n_recv.view(1), zero + 1
+        # each firing replication moves its own cuts and rows (every
+        # device fires the same replications, so the migrations'
+        # collectives run in step).
+        new_b, new_load, recv = list(b), list(load), list(zero)
+        cals = [Calendar(*(x[r * M:(r + 1) * M] for x in cal))
+                for r in range(R)]
+        objs = [{k: v[r * M:(r + 1) * M] for k, v in obj.items()}
+                for r in range(R)]
+        for r in range(R):
+            if not fired[r]:
+                continue
+            if total[r] >= EXACT_F32_LOAD:
+                raise NotImplementedError(
+                    f"adaptive placement measured {total[r]} events in one "
+                    f"rebalance window; the quantile cuts are exact only "
+                    f"below 2**24 = {EXACT_F32_LOAD} (the reference's f32 "
+                    f"prefix sum rounds above it): fire more often "
+                    f"(rebalance_every={cfg.rebalance_every})")
+            new_b[r], new_load[r], cals[r], objs[r], recv[r] = self._migrate(
+                cfg, placement, comm, b[r], obj_load[r], load[r], cals[r],
+                objs[r])
+        cal = Calendar(*(torch.cat(x) for x in zip(*cals)))
+        obj = {k: torch.cat([o[k] for o in objs]) for k in obj}
+        return (torch.stack(new_b), torch.stack(new_load), cal, obj,
+                torch.stack(recv), torch.as_tensor(fired, device=device))
 
     def _migrate(self, cfg, placement, comm, bounds, obj_load, load, cal,
                  obj):

@@ -21,13 +21,17 @@ All honor the emission contract: each processed event may emit
 ltf loops are bounded by one value read on the host per epoch (the round
 count, the tile count, the event total): their ``host_syncs`` is 1.
 
-Stacked replications (``reps > 1``): ``batch`` and ``batch-model`` take the
-rows of R replications at once and hand back each replication's emissions
-in its own order.  ``batch-packed`` and ``ltf`` order their emissions
-across all rows (tiles of the round-major work list, global time), which
-the stack would mix, so they take one replication only (``stacks =
-False``) and the engine refuses R > 1 under them with a
-``NotImplementedError`` naming the missing per-replication order.
+Stacked replications (``reps > 1``, the port of the reference's ``vmap``
+of the scheduler): every scheduler takes the rows of R replications at
+once and hands back each replication's emissions in the order its own run
+gives them.  ``batch`` and ``batch-model`` are row-local.  ``batch-packed``
+packs each replication on its own (its own rounds, tiles and tile count)
+and processes tile t of every replication together; ``ltf`` sorts each
+replication's events on their own (a stable sort per row of an ``[R, M *
+C]`` view) and applies event i of every replication together.  A tile or
+an event past a replication's own count leaves its state and its slots
+as they are, as its own run, which stops there, leaves them; the loop
+bound read on the host is the largest count.
 """
 from __future__ import annotations
 
@@ -39,20 +43,6 @@ from ..api import SimModel
 from ..events import EventBatch, to_f32
 from .base import Scheduler, register_scheduler
 from .packing import pack_slice
-
-
-def refuse_stacking(scheduler: Scheduler, reps: int) -> None:
-    """Raise, naming the scheduler, if it cannot take ``reps`` stacked
-    replications."""
-    if reps > 1 and not scheduler.stacks:
-        what = ("batch_impl='packed'" if scheduler.name == "batch-packed"
-                else f"scheduler={scheduler.name!r}")
-        raise NotImplementedError(
-            f"{what} with R={reps} stacked replications is not in the "
-            f"PyTorch port yet: its emission order spans every row of the "
-            f"stack, so it comes with a per-replication emission order for "
-            f"packed/ltf (the replication slice's leftover); run the seeds "
-            f"one by one, or under batch_impl='rounds' or 'model'")
 
 
 def _emission_buffer(lead: tuple, mo: int, dev) -> EventBatch:
@@ -109,49 +99,113 @@ def process_batch_rounds(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
 
 
 def process_batch_packed(model: SimModel, obj: Any, ts_s, seed_s, pay_s,
-                         cnt_b, lookahead: float, tile: int):
+                         cnt_b, lookahead: float, tile: int, reps: int = 1):
     """Width-packed batch rounds: dense tiles over the occupied slots.
 
-    The slice is packed round-major (:mod:`.packing`): a tile holds at most
-    one event per object, so the per-tile gather → ``process_events`` →
-    scatter-back is conflict-free, and an object's rounds land in strictly
-    increasing tiles.  Identical per-event inputs in identical intra-object
-    order give bit-identical results to ``batch``.  The tile count is read
-    on the host (one device sync per call) and bounds the Python loop; dead
-    lanes scatter their state to a sentinel row that is sliced off.
+    The slice is packed round-major (:mod:`.packing`), per replication: a
+    tile holds at most one event per object, so the per-tile gather →
+    ``process_events`` → scatter-back is conflict-free, and an object's
+    rounds land in strictly increasing tiles.  Identical per-event inputs
+    in identical intra-object order give bit-identical results to
+    ``batch``.  The largest tile count is read on the host (one device
+    sync per call) and bounds the Python loop; tile t of every replication
+    runs at once.  Dead lanes scatter their state to a sentinel row that
+    is sliced off; a tile past a replication's own count writes none of
+    its slots.
     """
     n_rows, C = ts_s.shape
+    M = n_rows // reps
     dev = ts_s.device
-    packed = pack_slice(ts_s, seed_s, pay_s, cnt_b, tile)
-    k_pad, T = packed.ts.shape[0], packed.tile
-    out = _emission_buffer((k_pad,), model.max_out, dev)
-    lv = torch.zeros((), dtype=torch.int64, device=dev)
+    packed = pack_slice(ts_s, seed_s, pay_s, cnt_b, tile, reps)
+    if reps == 1:
+        packed = packed._replace(**{f: getattr(packed, f)[None] for f in (
+            "ts", "seed", "payload", "row", "rnd", "valid", "n_tiles")})
+    k_pad, T, mo = packed.ts.shape[1], packed.tile, model.max_out
+    out = _emission_buffer((reps, k_pad), mo, dev)
+    lv = torch.zeros((reps,), dtype=torch.int64, device=dev)
     if k_pad == 0:
-        return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)
+        return obj, EventBatch(*(x.reshape(reps, -1) for x in out)), lv
     L = to_f32(lookahead)
+    row0 = M * torch.arange(reps, device=dev)[:, None]
     # one extra row per leaf: the sentinel the dead lanes write to.
     work = {k: torch.cat([v, v[:1]]) for k, v in obj.items()}
-    n_tiles = int(packed.n_tiles)
+    n_tiles = int(packed.n_tiles.max())
     for t in range(n_tiles):
         sl = slice(t * T, (t + 1) * T)
-        vvalid, vts = packed.valid[sl], packed.ts[sl]
-        rows = packed.row[sl].long()
-        gather = rows.clamp(max=n_rows - 1)
+        vvalid, vts = packed.valid[:, sl], packed.ts[:, sl]
+        rows = packed.row[:, sl].long()
+        gather = (rows.clamp(max=M - 1) + row0).reshape(-1)
         st = {k: v[gather] for k, v in work.items()}
-        new_st, emitted = model.process_events(st, vts, packed.seed[sl],
-                                               packed.payload[sl])
-        scat = torch.where(vvalid, rows, n_rows)
+        new_st, emitted = model.process_events(
+            st, vts.reshape(-1), packed.seed[:, sl].reshape(-1),
+            packed.payload[:, sl].reshape(-1))
+        scat = torch.where(vvalid, rows + row0, n_rows).reshape(-1)
         for k, v in work.items():
             v[scat] = new_st[k]
-        ev_valid = emitted.valid & vvalid[:, None]
-        lv = lv + (ev_valid & (emitted.ts < vts[:, None] + L)).sum()
-        out.dst[sl] = emitted.dst
-        out.ts[sl] = torch.where(ev_valid, emitted.ts, float("inf"))
-        out.seed[sl] = emitted.seed
-        out.payload[sl] = emitted.payload
-        out.valid[sl] = ev_valid
+        em = EventBatch(*(x.view(reps, T, mo) for x in emitted))
+        ev_valid = em.valid & vvalid[..., None]
+        lv = lv + (ev_valid & (em.ts < vts[..., None] + L)).sum((1, 2))
+        live = (t < packed.n_tiles)[:, None, None]
+        out.dst[:, sl] = torch.where(live, em.dst, 0)
+        out.ts[:, sl] = torch.where(ev_valid, em.ts, float("inf"))
+        out.seed[:, sl] = torch.where(live, em.seed, 0)
+        out.payload[:, sl] = torch.where(live, em.payload, 0.0)
+        out.valid[:, sl] = ev_valid
     obj = {k: v[:n_rows] for k, v in work.items()}
-    return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)
+    return obj, EventBatch(*(x.reshape(reps, -1) for x in out)), lv
+
+
+def process_ltf(model: SimModel, obj: Any, ts_s, seed_s, pay_s, cnt_b,
+                lookahead: float, reps: int = 1):
+    """Strict lowest-timestamp-first order, one event at a time.
+
+    Each replication's events are put in its own global ``(ts, seed)``
+    order by two stable sorts (seed, then ts) along the rows of an ``[R, M
+    * C]`` view; step i applies event i of every replication that has one
+    (its state row through a sentinel row elsewhere).  The largest event
+    total is read on the host (one device sync per call) and bounds the
+    Python loop.
+    """
+    n_rows, C = ts_s.shape
+    M = n_rows // reps
+    dev = ts_s.device
+    local = torch.arange(M, device=dev).repeat_interleave(C)
+    live = (torch.arange(C, device=dev)[None, :]
+            < cnt_b[:, None]).view(reps, M * C)
+    ts_f = torch.where(live, ts_s.view(reps, M * C), float("inf"))
+    seed_f, pay_f = seed_s.view(reps, M * C), pay_s.view(reps, M * C)
+
+    p1 = torch.sort(seed_f, dim=-1, stable=True).indices
+    p2 = torch.sort(torch.gather(ts_f, -1, p1), dim=-1, stable=True).indices
+    order = torch.gather(p1, -1, p2)
+    ts_f, seed_f, pay_f = (torch.gather(x, -1, order)
+                           for x in (ts_f, seed_f, pay_f))
+    rows = local[order] + M * torch.arange(reps, device=dev)[:, None]
+
+    out = _emission_buffer((reps, M * C), model.max_out, dev)
+    lv = torch.zeros((reps,), dtype=torch.int64, device=dev)
+    L = to_f32(lookahead)
+    work = {k: torch.cat([v, v[:1]]) for k, v in obj.items()}
+    totals = cnt_b.view(reps, M).sum(1)
+    for i in range(int(totals.max()) if n_rows else 0):
+        act = i < totals                                       # [R]
+        row, ets = rows[:, i], ts_f[:, i]
+        st = {k: v[row] for k, v in work.items()}
+        new_st, emitted = model.process_events(st, ets, seed_f[:, i],
+                                               pay_f[:, i])
+        scat = torch.where(act, row, n_rows)
+        for k, v in work.items():
+            v[scat] = new_st[k]
+        a = act[:, None]
+        valid = emitted.valid & a
+        lv = lv + (valid & (emitted.ts < ets[:, None] + L)).sum(1)
+        out.dst[:, i] = torch.where(a, emitted.dst, 0)
+        out.ts[:, i] = torch.where(valid, emitted.ts, float("inf"))
+        out.seed[:, i] = torch.where(a, emitted.seed, 0)
+        out.payload[:, i] = torch.where(a, emitted.payload, 0.0)
+        out.valid[:, i] = valid
+    obj = {k: v[:n_rows] for k, v in work.items()}
+    return obj, EventBatch(*(x.reshape(reps, -1) for x in out)), lv
 
 
 @register_scheduler("batch")
@@ -190,60 +244,18 @@ class PackedBatchScheduler(Scheduler):
     occupied event slots, in ``pack_tile``-wide tiles."""
 
     host_syncs = 1   # the tile count
-    stacks = False   # tiles span every row of the stack
 
     def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
-        refuse_stacking(self, reps)
         return process_batch_packed(model, obj, ts_s, seed_s, pay_s, cnt_b,
-                                    cfg.lookahead, cfg.pack_tile)
+                                    cfg.lookahead, cfg.pack_tile, reps)
 
 
 @register_scheduler("ltf")
 class LtfScheduler(Scheduler):
-    """Strict lowest-timestamp-first interleaving across objects.
-
-    The epoch's events are put in global ``(ts, seed)`` order by two stable
-    sorts (seed, then ts) and applied one at a time, each to its object's
-    state row.  The event total is read on the host (one device sync per
-    call) and bounds the Python loop.
-    """
+    """Strict lowest-timestamp-first interleaving across objects."""
 
     host_syncs = 1   # the event total
-    stacks = False   # one global time order over every row of the stack
 
     def process(self, model, cfg, obj, ts_s, seed_s, pay_s, cnt_b, reps=1):
-        refuse_stacking(self, reps)
-        n_rows, C = ts_s.shape
-        dev = ts_s.device
-        rows = torch.arange(n_rows, device=dev).repeat_interleave(C)
-        live = (torch.arange(C, device=dev)[None, :]
-                < cnt_b[:, None]).reshape(-1)
-        ts_f = torch.where(live, ts_s.reshape(-1), float("inf"))
-        seed_f, pay_f = seed_s.reshape(-1), pay_s.reshape(-1)
-
-        p1 = torch.sort(seed_f, stable=True).indices
-        p2 = torch.sort(ts_f[p1], stable=True).indices
-        order = p1[p2]
-        ts_f, seed_f, pay_f = ts_f[order], seed_f[order], pay_f[order]
-        rows = rows[order]
-
-        out = _emission_buffer((n_rows * C,), model.max_out, dev)
-        lv = torch.zeros((), dtype=torch.int64, device=dev)
-        L = to_f32(cfg.lookahead)
-        obj = {k: v.clone() for k, v in obj.items()}
-        total = int(cnt_b.sum())
-        for i in range(total):
-            row, ets = rows[i:i + 1], ts_f[i:i + 1]
-            st = {k: v[row] for k, v in obj.items()}
-            new_st, emitted = model.process_events(st, ets, seed_f[i:i + 1],
-                                                   pay_f[i:i + 1])
-            for k, v in obj.items():
-                v[row] = new_st[k]
-            lv = lv + (emitted.valid & (emitted.ts < ets[:, None] + L)).sum()
-            out.dst[i] = emitted.dst[0]
-            out.ts[i] = torch.where(emitted.valid[0], emitted.ts[0],
-                                    float("inf"))
-            out.seed[i] = emitted.seed[0]
-            out.payload[i] = emitted.payload[0]
-            out.valid[i] = emitted.valid[0]
-        return obj, EventBatch(*(x.reshape(1, -1) for x in out)), lv.view(1)
+        return process_ltf(model, obj, ts_s, seed_s, pay_s, cnt_b,
+                           cfg.lookahead, reps)

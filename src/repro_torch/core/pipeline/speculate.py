@@ -26,7 +26,7 @@ At one device no event is remote, so no straggler can arrive and every
 window commits unless ``inject_straggler_every`` forces it down the abort
 path (every n-th window, counted per replication by ``spec_commits +
 rollbacks``, where ``W_eff > 0``).  Across devices (the engine's
-:class:`~repro_torch.core.dist.Comm`, one simulation per device) the two
+:class:`~repro_torch.core.dist.Comm`, each rank its shard of the stack) the two
 exchanges carry events, the verdict is one ``all_gather`` of every
 device's ``[m_local, v_local]``, and a speculative arrival is kept only if
 its sender keeps its window (``keep_vec[sender_ids]``).  Loans
@@ -92,7 +92,7 @@ from .base import (EngineState, epoch_of, replica, resolve_rebalance,
                    stack_of_one)
 from .config import EngineConfig
 from .deliver import deliver
-from .step import pending_per_replication, refuse_reps_across_devices
+from .step import live_placement, pending_per_replication
 
 #: "no in-window arrival" marker for the earliest-straggler epoch.
 NO_STRAGGLER = torch.iinfo(torch.int32).max
@@ -124,7 +124,8 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     exactly epoch ``n``, and a replication at or past it is left as it is.
     With ``drain`` a replication with no event in flight is left as it is
     too (the drain's gate).  With ``replicated`` the step takes a stacked
-    state of any number of replications (on one device).
+    state of any number of replications (each rank its shard of all of
+    them across devices).
     """
     comm = comm or Comm()
     N = cfg.n_buckets
@@ -143,6 +144,7 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     policy = resolve_steal(cfg, D)
     rebalancer = resolve_rebalance(cfg)
     adaptive = cfg.placement == "adaptive"
+    per_rep = adaptive and D > 1
     per_device = cfg.opt_commit == "device"
     inject = cfg.inject_straggler_every
     scheduler.validate(model, cfg)
@@ -151,7 +153,6 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     def stacked(state: EngineState, bound: torch.Tensor,
                 drain: bool = False) -> EngineState:
         R = state.epoch.shape[0]
-        refuse_reps_across_devices(R, D)
         device = state.epoch.device
         e0 = state.epoch[:, 0]
         active = e0 < bound.reshape(-1)
@@ -167,9 +168,8 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             d_fire = (RE - 1 - e0 % RE) % RE
             w_eff = torch.minimum(w_eff, torch.where(d_fire == 0, RE - 1,
                                                      d_fire - 1))
-        pl = placement.with_boundaries(state.bounds[0, 0])
-        boundaries = torch.as_tensor(pl.boundaries, device=device).to(
-            torch.int32)
+        pl = live_placement(placement, state.bounds[:, 0], per_rep)
+        start = pl.start(dev, device)
         row0 = M * torch.arange(R, dtype=torch.int32, device=device)[:, None]
 
         def rows(x):                      # [R] -> one per row of the stack
@@ -191,10 +191,9 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             b, load, cal, obj, migrated, fired = rebalancer.rebalance(
                 cfg, placement, comm, e0, bounds[:, 0],
                 load + cnt_b.view(R, M), cal, obj, active)
-            pl = placement.with_boundaries(b[0])
+            pl = live_placement(placement, b, per_rep)
             bounds = b[:, None, :]
-            boundaries = torch.as_tensor(pl.boundaries, device=device).to(
-                torch.int32)
+            start = pl.start(dev, device)
 
         old_fb = state.fb.events
         prod = concat_batches(out, old_fb._replace(
@@ -241,7 +240,7 @@ def make_spec_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             # sub-epochs consume it); anything else parks in staging.
             ins = good_w & (pl.owner(out_w.dst) == dev) \
                 & (ep_w <= c0 + W)
-            lidx = (out_w.dst - boundaries[dev]).clamp(0, M - 1) + row0
+            lidx = (out_w.dst - start).clamp(0, M - 1) + row0
             new, _ = insert(cal, lidx.reshape(-1), ep_w.reshape(-1),
                             out_w.ts.reshape(-1), out_w.seed.reshape(-1),
                             out_w.payload.reshape(-1), ins.reshape(-1))

@@ -25,9 +25,14 @@ at its replication's epoch, so the scheduler runs once for all R (one
 (route triage and selection, the fallback, deliver, the counters) work
 along dim 1 of ``[R, E]`` event batches, so each replication keeps its own
 caps, counts and event order.  The classic step is the same code on a
-stack of one.  Across devices the step takes one simulation (R = 1):
-stacking replications over several devices comes with the rep-sharded
-slice and is refused by name.
+stack of one.  Across devices (R x D, the reference's ``drain_replicated``
+under a D-device mesh) each rank holds its shard of every replication
+(``[R, M, ...]``, the reference's ``P(None, AXIS)``): the routers move the
+``[R, E]`` batches of all R in one collective per exchange, the gate sums
+the events in flight per replication over the ranks, loans run per
+replication (:class:`~.steal.LoanSteal`), and under adaptive placement
+each replication moves its own boundaries (:func:`live_placement`: a row
+of boundaries per replication).
 
 ``gated=True`` builds the step of the fused drain: it counts the events in
 flight (calendar + fallback) before the epoch, per replication (summed
@@ -73,15 +78,13 @@ def pending_per_replication(state: EngineState) -> torch.Tensor:
             + state.fb.events.valid.flatten(1).sum(1))
 
 
-def refuse_reps_across_devices(R: int, D: int) -> None:
-    """Raise, naming the slice that brings it, for R > 1 stacked
-    replications on D > 1 devices."""
-    if R > 1 and D > 1:
-        raise NotImplementedError(
-            f"R={R} stacked replications over D={D} devices is not in the "
-            f"PyTorch port yet: it comes with the rep-sharded slice "
-            f"(rep_shards, and campaigns over devices > 1); run the "
-            f"replications on one device, or one simulation over D devices")
+def live_placement(placement: Placement, bounds: torch.Tensor,
+                   per_rep: bool) -> Placement:
+    """The step's placement from the live boundaries ``bounds`` [R, D + 1]:
+    one row per replication where each moves its own (``per_rep``,
+    adaptive placement over several devices), else the first row, the
+    same in every replication."""
+    return placement.with_boundaries(bounds if per_rep else bounds[0])
 
 
 def step_host_syncs(cfg: EngineConfig, n_devices: int) -> int:
@@ -96,7 +99,8 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
               comm: Comm | None = None
               ) -> Callable[[EngineState], EngineState]:
     """The epoch step: of one simulation, or with ``replicated`` of a
-    stacked state of any number of replications (on one device)."""
+    stacked state of any number of replications (on every rank of
+    ``comm`` alike)."""
     comm = comm or Comm()
     N = cfg.n_buckets
     O = placement.n_objects
@@ -111,17 +115,17 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
     policy = resolve_steal(cfg, D)
     rebalancer = resolve_rebalance(cfg)
     adaptive = cfg.placement == "adaptive"
+    per_rep = adaptive and D > 1
     scheduler.validate(model, cfg)
     router.validate(cfg, placement)
 
     def stacked(state: EngineState) -> EngineState:
         R = state.epoch.shape[0]
-        refuse_reps_across_devices(R, D)
         cur = state.epoch[:, 0]
         advance = None
         if gated:
             advance = comm.all_sum(pending_per_replication(state)) > 0
-        pl = placement.with_boundaries(state.bounds[0, 0])
+        pl = live_placement(placement, state.bounds[:, 0], per_rep)
 
         # 1. extract — drain each row's bucket of its replication's epoch.
         flat = Calendar(*(x.flatten(0, 1) for x in state.cal))
@@ -142,7 +146,7 @@ def make_step(model: SimModel, cfg: EngineConfig, placement: Placement,
             b, load, cal, obj, migrated, fired = rebalancer.rebalance(
                 cfg, placement, comm, cur, bounds[:, 0],
                 load + cnt_b.view(R, M), cal, obj, advance)
-            pl = placement.with_boundaries(b[0])
+            pl = live_placement(placement, b, per_rep)
             bounds = b[:, None, :]
         else:
             migrated = fired = torch.zeros_like(proc_count)

@@ -8,12 +8,15 @@ used by routing is a ``searchsorted`` over the boundaries.
 The boundaries may be live: the engine keeps them in ``EngineState.bounds``
 and rebuilds a :class:`Placement` from them every step
 (:meth:`Placement.with_boundaries`), so the adaptive rebalance stage can
-move the cuts.  ``n_objects``, ``n_devices`` and ``n_local_max`` never
-change: every device materializes ``n_local_max`` object rows (the pad),
-rows beyond its live count inert.  ``owner`` gives garbage for ids outside
+move the cuts.  A stack of replications over several devices under
+adaptive placement moves each replication's cuts on their own: its live
+boundaries are a tensor [R, D + 1], one row per replication, which
+``owner`` and ``start`` take row by row.  ``n_objects``, ``n_devices``
+and ``n_local_max`` never change: every device materializes
+``n_local_max`` object rows (the pad), rows beyond its live count inert.  ``owner`` gives garbage for ids outside
 ``[0, n_objects)``; callers mask ``dst`` first (the engine counts such
 events in ``stats.oob_events``).  Everything here is host numpy but
-``owner`` and ``local_index``, which take tensors.
+``owner``, ``start`` and ``local_index``, which take tensors.
 """
 from __future__ import annotations
 
@@ -42,8 +45,18 @@ class Placement(NamedTuple):
 
     def owner(self, dst: torch.Tensor) -> torch.Tensor:
         b = torch.as_tensor(self.boundaries, device=dst.device).to(dst.dtype)
+        if b.ndim == 2:          # a row per replication of dst [R, ...]
+            flat = dst.reshape(b.shape[0], -1).contiguous()
+            return (torch.searchsorted(b, flat, right=True).to(torch.int32)
+                    - 1).view(dst.shape)
         return (torch.searchsorted(b, dst.contiguous(), right=True)
                 .to(torch.int32) - 1)
+
+    def start(self, d: int, device) -> torch.Tensor:
+        """Device ``d``'s first global id, i32: 0-d, or [R, 1] for a row
+        of boundaries per replication (to broadcast against [R, E])."""
+        b = torch.as_tensor(self.boundaries, device=device).to(torch.int32)
+        return b[:, d:d + 1] if b.ndim == 2 else b[d]
 
     def local_index(self, dst: torch.Tensor, owner: torch.Tensor
                     ) -> torch.Tensor:

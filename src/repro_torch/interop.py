@@ -17,7 +17,11 @@ D devices' shards concatenated along dim 0 (``cal`` [D * n_local_max, ...],
 :func:`split_engine_state` cuts such a host tree into the D per-rank
 states of the port's engine (rank r's leaves are shard r), and
 :func:`join_engine_states` concatenates them back, so that the two engines
-can be compared rank by rank and leaf by leaf.
+can be compared rank by rank and leaf by leaf.  A stack of R replications
+over D devices (the JAX ``drain_replicated`` carry under a D-device mesh,
+``[R, D * n_local, ...]``) splits and joins along dim 1 (``axis=1``), and
+a stack laid over W devices by ``rep_shards`` into W slices of R / W
+replications along dim 0.
 
 Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
@@ -100,24 +104,27 @@ def _numpy_tree(tree) -> EngineState:
         bounds=np.asarray(tree.bounds), load=np.asarray(tree.load))
 
 
-def split_engine_state(tree, n_devices: int) -> list[EngineState]:
+def split_engine_state(tree, n_devices: int, axis: int = 0
+                       ) -> list[EngineState]:
     """A host copy of a D-device engine state (global leaves) → the D
-    per-rank states (numpy), each leaf cut into D equal shards along dim
-    0."""
+    per-rank states (numpy), each leaf cut into D equal shards along
+    ``axis``: 0 for one simulation, 1 for a stack of replications over D
+    devices (``[R, D * n_local, ...]`` → D ranks' ``[R, n_local, ...]``);
+    and along 0 for a stack's W ``rep_shards`` slices of R / W."""
     g = _numpy_tree(tree)
     shards = [[] for _ in range(n_devices)]
     for leaf in numpy_leaves(g):
-        for r, part in enumerate(np.split(leaf, n_devices, axis=0)):
+        for r, part in enumerate(np.split(leaf, n_devices, axis=axis)):
             shards[r].append(part)
     return [_rebuild(g, parts) for parts in shards]
 
 
-def join_engine_states(states) -> EngineState:
+def join_engine_states(states, axis: int = 0) -> EngineState:
     """The per-rank states (numpy, in rank order) → the global state, each
-    leaf's shards concatenated along dim 0."""
+    leaf's shards concatenated along ``axis`` (as split)."""
     trees = [_numpy_tree(s) for s in states]
     cols = zip(*(numpy_leaves(t) for t in trees))
-    return _rebuild(trees[0], [np.concatenate(c, axis=0) for c in cols])
+    return _rebuild(trees[0], [np.concatenate(c, axis=axis) for c in cols])
 
 
 def numpy_leaves(tree) -> list:

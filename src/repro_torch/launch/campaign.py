@@ -2,8 +2,9 @@
 
   PYTHONPATH=src python -m repro_torch.launch.campaign --workload wireless \\
       --seeds 8 --grid max_calls=4,8 --model-kw n_cells=64 \\
-      --epochs 256 [--scheduler ltf] [--batch-impl model] \\
-      [--store campaign-results] [--require-drained] [--device cpu]
+      --epochs 256 [--devices 2] [--route a2a] [--scheduler ltf] \\
+      [--batch-impl model] [--store campaign-results] [--require-drained] \\
+      [--device cpu]
 
 The port's face of ``repro.launch.campaign``, with the same flags and
 ``--device`` (``cuda`` unless asked for ``cpu``).  Builds a
@@ -16,11 +17,14 @@ writes for the same flags.  Re-running the same command resumes: completed
 points are skipped.
 
 Every choice-typed flag is driven by the live registries (the workload zoo
-and the pipeline stage names).  Flags for stages the port does not have
-yet (``--devices`` > 1, ``--steal``, ``--route a2a``, a placement other than
-``equal``) are accepted and refused by name when the campaign starts, as
-are ``--scheduler ltf`` and ``--batch-impl packed`` with more than one
-seed.
+and the pipeline stage names), as in ``repro_torch.launch.simulate``;
+:mod:`repro_torch.testing.docs_check` cross-checks both CLIs.  Every
+scheduler, router, loans and placement run, stacked.  ``--devices D``
+spawns D ranks (NCCL with a card each where there are D cards, else gloo
+ranks sharing the card; gloo on the CPU) and lays the replications over
+them when the seed count is a multiple of D (``rep_shards``), else shards
+each point's objects over them.  Adaptive placement over D > 1 takes one
+seed per point unless the seed count is a multiple of D.
 
 Exit contract: nonzero if any replication's overflow/causality counters are
 dirty (the clean-run contract), if any grid point is missing from the store
@@ -33,20 +37,7 @@ import argparse
 import ast
 import time
 
-
-def parse_kv(pairs: list[str]) -> dict:
-    """``k=v`` strings → kwargs dict (python-literal values, else str); the
-    port's copy of ``repro.launch.simulate.parse_kv``."""
-    out = {}
-    for pair in pairs:
-        if "=" not in pair:
-            raise SystemExit(f"--model-kw expects k=v, got {pair!r}")
-        k, v = pair.split("=", 1)
-        try:
-            out[k] = ast.literal_eval(v)
-        except (SyntaxError, ValueError):
-            out[k] = v
-    return out
+from .simulate import parse_kv
 
 
 def parse_grid(pairs: list[str]) -> dict[str, list]:

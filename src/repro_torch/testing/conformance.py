@@ -10,7 +10,9 @@ The port's face of ``repro/testing/conformance.py``.  A run passes when
   4. for dyadic workloads, the object state equals the oracle's bit for bit.
 
 :func:`check_workload_replicated` holds every replication of a stacked
-drain to the same four checks against its own seed's oracle.
+drain to the same four checks against its own seed's oracle: on one
+device, object-sharded over a group (R x D), or laid over a group's ranks
+(``rep_shards``); :func:`replicated_rank` is its rank function.
 
 ``SWEEP`` holds the reference's engine-config points, all of them.  The
 multi-device points (:data:`MULTI_DEVICE`: routing across devices, loans,
@@ -22,11 +24,15 @@ Across devices every rank of a ``torch.distributed`` group runs the same
 calls with ``group=``; the engine's inspection helpers gather the state to
 every rank and rank 0 holds it to the oracle.  The module is also the
 command line; it runs on the card unless asked for the CPU, and with
-``--devices D`` spawns D ranks (gloo on the CPU)::
+``--devices D`` spawns D ranks (gloo on the CPU); ``--replications R``
+checks R stacked seeds instead, over ``--devices`` object-sharded or over
+``--rep-shards W`` ranks::
 
   PYTHONPATH=src python -m repro_torch.testing.conformance \\
       --workload phold-hotspot --devices 4 --configs all --expect-stolen \\
       --device cpu
+  PYTHONPATH=src python -m repro_torch.testing.conformance \\
+      --workload wireless --replications 4 --rep-shards 2 --device cpu
 """
 from __future__ import annotations
 
@@ -246,7 +252,9 @@ def run_conformance(model: Any, overrides: dict, *, n_epochs: int,
 
 
 def check_workload_replicated(name: str, config: str, *, replications: int,
-                              device="cuda") -> dict:
+                              device="cuda", group=None,
+                              rep_shards: int | None = None,
+                              rep_group=None) -> dict:
     """Conformance-check the replicated drain (the port's face of the
     reference's ``check_workload_replicated``).
 
@@ -255,6 +263,11 @@ def check_workload_replicated(name: str, config: str, *, replications: int,
     horizon), then holds every replication to the full contract against
     its own seeded sequential oracle: clean counters, processed count,
     pending multiset, bit-exact dyadic state.
+
+    With ``group`` the stack is object-sharded over its D ranks (R x D:
+    every rank calls it, rank 0 runs the oracles); with ``rep_shards=W``
+    the replication axis is laid over the W ranks of ``rep_group`` instead
+    and each rank holds its own R / W replications to their oracles.
     """
     spec = conformance_spec(name)
     overrides = dict(SWEEP[config])
@@ -273,21 +286,49 @@ def check_workload_replicated(name: str, config: str, *, replications: int,
         n_epochs = int(round(n_epochs / frac))
     cfg = EngineConfig(**kw)
 
-    eng = ParsirEngine(model, cfg, device=device)
+    eng = ParsirEngine(model, cfg, device=device, group=group,
+                       rep_shards=rep_shards, rep_group=rep_group)
     seeds = list(range(replications))
     st = eng.run_replicated_drained(eng.init_replicated(seeds), n_epochs)
     totals = eng.totals_replicated(st)
-    processed = []
-    for r, seed in enumerate(seeds):
+    layout = (f"rep_shards={rep_shards}" if rep_shards
+              else f"D={eng.D}")
+    for j, r in enumerate(eng.rep_slice(replications)):
+        seed = seeds[r]
         ctx = (f"[{name}/{config} R={replications} rep={r} seed={seed}: "
-               f"batch_impl={cfg.batch_impl} device={eng.device}]")
+               f"{axes_of(cfg, eng.D)} {layout} device={eng.device}]")
         assert_clean(totals[r], context=ctx)
-        ref = run_sequential(model, n_epochs, cfg.epoch_len, seed=seed)
-        assert_vs_oracle(eng, eng.replication(st, r), totals[r], ref,
+        ref = (run_sequential(model, n_epochs, cfg.epoch_len, seed=seed)
+               if eng.rank == 0 else None)
+        assert_vs_oracle(eng, eng.replication(st, j), totals[r], ref,
                          spec["dyadic"], ctx)
-        processed.append(totals[r]["processed"])
-    return {"processed": processed, "totals": totals, "config": kw,
-            "n_epochs": n_epochs, "engine": eng, "state": st}
+    return {"processed": [t["processed"] for t in totals], "totals": totals,
+            "config": kw, "n_epochs": n_epochs, "engine": eng, "state": st}
+
+
+def replicated_rank(rank: int, group, workload: str, configs: list[str],
+                    replications: int, device="cpu",
+                    rep_shards: int | None = None) -> dict:
+    """One rank of a replicated sweep (run by :func:`~..core.dist.spawn`,
+    or as rank 0 with no group): :func:`check_workload_replicated` of every
+    config, object-sharded over ``group``, or with ``rep_shards`` the
+    replications laid over it.  Returns ``{(workload, config):
+    {"processed", "totals"}}``, or ``{"error": traceback}`` for a config
+    that failed."""
+    if group is not None:
+        torch.set_num_threads(1)        # the ranks share the host's cores
+    out = {}
+    for config in configs:
+        try:
+            rep = check_workload_replicated(
+                workload, config, replications=replications, device=device,
+                group=None if rep_shards else group, rep_shards=rep_shards,
+                rep_group=group if rep_shards else None)
+            out[workload, config] = {"processed": rep["processed"],
+                                     "totals": rep["totals"]}
+        except Exception:                   # noqa: BLE001 (reported)
+            out[workload, config] = {"error": traceback.format_exc()}
+    return out
 
 
 def supported_configs(name: str, devices: int = 1) -> list[str]:
@@ -412,9 +453,21 @@ def main(argv=None) -> int:
     ap.add_argument("--drain", action="store_true",
                     help="run each config through run_until_drained "
                          "bounded by the workload's horizon")
+    ap.add_argument("--replications", type=int, default=0, metavar="R",
+                    help="run R seeds stacked through one replicated drain "
+                         "(run_replicated_drained) and hold every "
+                         "replication to the full contract against its own "
+                         "seeded oracle")
+    ap.add_argument("--rep-shards", type=int, default=0, metavar="W",
+                    help="with --replications: lay the R axis over W ranks "
+                         "(each replication whole on its own device) "
+                         "instead of object-sharding over --devices: the "
+                         "campaign throughput layout, same oracle contract")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds before a hung sweep is killed")
     args = ap.parse_args(argv)
+    if args.rep_shards and not args.replications:
+        ap.error("--rep-shards requires --replications")
 
     names = (supported_configs(args.workload, args.devices)
              if args.configs == "all" else args.configs.split(","))
@@ -428,20 +481,41 @@ def main(argv=None) -> int:
         print(f"SKIP {args.workload} {c} (no process_batch)")
     names = [c for c in names if c not in skipped]
     dev = resolve_device(args.device)
-    if args.devices > 1:
+    ranks = args.rep_shards or args.devices
+    if args.replications:
+        rank_fn, rank_args = replicated_rank, (
+            args.workload, names, args.replications)
+        extra = (args.rep_shards or None,)
+    else:
+        rank_fn, rank_args = sweep_rank, ([args.workload], names)
+        extra = (args.drain,)
+    if ranks > 1:
         # one card per rank over NCCL where there are enough cards, else
         # gloo ranks sharing the device (on a card, host-staged).
         from ..core.dist import spawn
-        nccl = dev.type == "cuda" and \
-            torch.cuda.device_count() >= args.devices
-        results = spawn(sweep_rank, args.devices, [args.workload], names,
-                        "cuda" if nccl else str(dev), args.drain,
+        nccl = dev.type == "cuda" and torch.cuda.device_count() >= ranks
+        results = spawn(rank_fn, ranks, *rank_args,
+                        "cuda" if nccl else str(dev), *extra,
                         backend="nccl" if nccl else "gloo",
                         timeout=min(args.timeout, 300.0),
                         join_timeout=args.timeout)[0]
     else:
-        results = sweep_rank(0, None, [args.workload], names, dev,
-                             args.drain)
+        results = rank_fn(0, None, *rank_args, dev, *extra)
+    if args.replications:
+        layout = (f"rep_shards={args.rep_shards}" if args.rep_shards
+                  else f"D={args.devices}")
+        failed = [c for (_, c), r in results.items() if "error" in r]
+        for (name, c), r in results.items():
+            if "error" in r:
+                print(f"FAIL {name} {c}\n{r['error']}")
+            else:
+                print(f"OK {name} {c} {layout} R={args.replications} "
+                      f"processed={r['processed']}")
+        if failed:
+            print(f"CONFORMANCE FAIL: {', '.join(failed)}")
+            return 1
+        print("CONFORMANCE PASS")
+        return 0
     failed = [c for (_, c), r in results.items() if "error" in r]
     for (name, c), r in results.items():
         if "error" in r:

@@ -22,6 +22,16 @@ port).
 * :func:`comm_rank` — the device axis's collectives on a tree of mixed
   dtypes, :func:`hang_rank`, a rank that never joins one, and
   :func:`loaded_rank`, what a rank has imported;
+* :func:`replicated_states_rank` — stacked replications over the ranks,
+  object-sharded (R x D) or laid over them (``rep_shards``): each config
+  held to every replication's oracle and to its own ``run_until_drained``
+  leaf by leaf, this rank's stack returned to hold against the JAX
+  engine's;
+* :func:`rep_shards_errors_rank` — the layout's ``ValueError``s;
+* :func:`main_path_replicated_rank` — PHOLD's main path stacked over the
+  ranks, either layout: per-replication digests of the rank's rows
+  (:func:`shard_digests`), the drain's launches, collectives, host syncs,
+  graph replays and ms/epoch;
 * :func:`tasks_rank` — several of these in one spawn (the ranks start
   once).
 """
@@ -37,10 +47,12 @@ from ..core.events import EventBatch
 from ..core.pipeline.base import resolve_router
 from ..core.pipeline.deliver import deliver
 from ..core.placement import equal_placement
+from ..core.graphs import clone_state
 from ..interop import engine_state_to_numpy, numpy_leaves
 from ..workloads.registry import (bench_path, conformance_spec,
                                   get_workload)
-from .conformance import SWEEP, engine_result, sweep_rank  # noqa: F401
+from .conformance import (SWEEP, check_workload_replicated,  # noqa: F401
+                          engine_result, replicated_rank, sweep_rank)
 from .golden import golden_case, state_digest
 
 
@@ -249,6 +261,158 @@ def hang_rank(rank: int, group) -> None:
         Comm(group).all_sum(torch.ones(1))
     else:
         time.sleep(3600)
+
+
+def replicated_states_rank(rank: int, group, workload: str,
+                           configs: list[str], replications: int,
+                           device: str = "cpu",
+                           rep_shards: int | None = None) -> dict:
+    """Each config's stack of ``replications`` seeds drained over the
+    ranks (object-sharded, or with ``rep_shards`` laid over them), held to
+    every replication's oracle (:func:`~.conformance.
+    check_workload_replicated`) and, leaf by leaf, to each replication's
+    own ``run_until_drained`` in the same layout; returns this rank's stack
+    (numpy), the per-replication totals and epochs."""
+    torch.set_num_threads(1)
+    out = {}
+    for config in configs:
+        rep = check_workload_replicated(
+            workload, config, replications=replications, device=device,
+            group=None if rep_shards else group, rep_shards=rep_shards,
+            rep_group=group if rep_shards else None)
+        eng, st = rep["engine"], rep["state"]
+        own, n = build(workload, config, device,
+                       None if rep_shards else group)
+        for j, r in enumerate(eng.rep_slice(replications)):
+            one = own.run_until_drained(own.init(seed=r), n)
+            got = engine_state_to_numpy(eng.replication(st, j))
+            for x, y in zip(numpy_leaves(got),
+                            numpy_leaves(engine_state_to_numpy(one)),
+                            strict=True):
+                np.testing.assert_array_equal(
+                    x, y, err_msg=f"{workload}/{config} replication {r} "
+                                  f"!= its own run_until_drained")
+        out[config] = {"state": engine_state_to_numpy(st),
+                       "totals": rep["totals"],
+                       "epochs": eng.epochs_replicated(st)}
+    return out
+
+
+def rep_shards_errors_rank(rank: int, group) -> list[str | None]:
+    """The messages of the three ``ValueError``s of ``rep_shards`` on a
+    group of two ranks: an object axis of D = 2, three seeds over two
+    shards, three shards over two ranks (None where nothing raised)."""
+    spec = conformance_spec("phold")
+    model = get_workload("phold", **spec["model_kw"])
+    cfg = EngineConfig(lookahead=model.params.lookahead, **spec["engine_kw"])
+    tries = (
+        lambda: ParsirEngine(model, cfg, "cpu", group=group, rep_shards=2),
+        lambda: ParsirEngine(model, cfg, "cpu", rep_shards=2,
+                             rep_group=group).init_replicated([0, 1, 2]),
+        lambda: ParsirEngine(model, cfg, "cpu", rep_shards=3,
+                             rep_group=group))
+    msgs = []
+    for make in tries:
+        try:
+            make()
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+    return msgs
+
+
+def tree_digest(tree: dict) -> str:
+    """sha256 of a dict of arrays in key order, each in a canonical dtype
+    (floats as f32, integers as i64)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(tree):
+        v = np.asarray(tree[k])
+        v = v.astype(np.float32 if v.dtype.kind == "f" else np.int64)
+        h.update(k.encode() + str(v.shape).encode())
+        h.update(np.ascontiguousarray(v).tobytes())
+    return h.hexdigest()
+
+
+def shard_digests(state, rows: slice | None = None) -> list[dict]:
+    """Per replication of a stacked state: the digests of its object state
+    and calendar counts over ``rows`` (all rows by default)."""
+    rows = rows or slice(None)
+    out = []
+    for r in range(state.epoch.shape[0]):
+        out.append({
+            "obj": tree_digest({k: v[r, rows].cpu().numpy()
+                                for k, v in state.obj.items()}),
+            "cnt": tree_digest({"cnt": state.cal.cnt[r, rows].cpu().numpy()}),
+        })
+    return out
+
+
+def main_path_replicated_rank(rank: int, group, device: str, seeds: list,
+                              n_epochs: int, rep_shards: int | None = None,
+                              route: str = "allgather") -> dict:
+    """PHOLD's main path (``workloads.phold.main_path``) x ``seeds``,
+    stacked over the group: object-sharded under ``route``, or with
+    ``rep_shards`` each rank draining its own slice (on the card as graph
+    replays; a first drain of ``DRAIN_CHUNK`` epochs on a copy captures
+    them).  ``n_epochs`` of ``run_replicated_drained`` timed.  Returns the
+    rank's per-replication digests (:func:`shard_digests`) with the seeds'
+    indices it holds, the totals and epochs of every replication, and the
+    timed drain's counters per epoch."""
+    import dataclasses
+    import time
+
+    from ..core.graphs import DRAIN_CHUNK
+    from ..kernels.event_apply import event_apply_cuda
+    from ..kernels.ops import KERNELS
+    from ..workloads.phold import main_path
+    from ..core.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    model, cfg = main_path()
+    cfg = dataclasses.replace(cfg, route=route)
+    eng = ParsirEngine(model, cfg, device=dev,
+                       group=None if rep_shards else group,
+                       rep_shards=rep_shards,
+                       rep_group=group if rep_shards else None)
+    st = eng.init_replicated(seeds)
+    eng.run_replicated_drained(clone_state(st), DRAIN_CHUNK)
+    comms = [c for c in (eng.comm, eng.rep_comm) if c is not None]
+    graphs = eng.rep_graphs
+    for fn in KERNELS:
+        fn.launches = 0
+    calls, syncs = sum(c.calls for c in comms), eng.syncs
+    replays, captures = ((graphs.replays, graphs.captures) if graphs
+                         else (0, 0))
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+    t0 = time.perf_counter()
+    st = eng.run_replicated_drained(st, n_epochs)
+    if cuda:
+        e1.record()
+        torch.cuda.synchronize(dev)
+    host_ms = (time.perf_counter() - t0) * 1e3 / n_epochs
+    timing = {
+        "ms_events": e0.elapsed_time(e1) / n_epochs if cuda else None,
+        "ms_host": host_ms,
+        "collectives": sum(c.calls for c in comms) - calls,
+        "syncs": eng.syncs - syncs,
+        "launches": event_apply_cuda.launches / n_epochs,
+        "rows": eng.placement.n_local_max * st.epoch.shape[0],
+        "graphed": graphs is not None,
+        "replays": (graphs.replays - replays) if graphs else 0,
+        "captures": (graphs.captures - captures) if graphs else 0}
+    M = eng.placement.n_local_max
+    rows = None if rep_shards else slice(0, M)
+    return {"held": list(eng.rep_slice(len(seeds))),
+            "row0": 0 if rep_shards else eng.rank * M,
+            "digests": shard_digests(st, rows),
+            "totals": eng.totals_replicated(st),
+            "epochs": eng.epochs_replicated(st), "timing": timing}
 
 
 def tasks_rank(rank: int, group, tasks: list[tuple[str, tuple]]) -> list:

@@ -13,7 +13,7 @@ The port of the campaign half of ``tests/test_replication.py``:
   the manifest guards against a digest clash; ``git_commit`` marks dirty
   trees;
 * the CLI runs one small campaign on the CPU and resumes it; a campaign
-  over more than one device is refused until the multi-device slice.
+  over two devices runs on spawned ranks and equals one device's.
 """
 import json
 import subprocess
@@ -176,11 +176,20 @@ def test_campaign_manifest_guards_against_digest_mismatch(tmp_path):
 
 
 def test_campaign_over_devices_is_refused(tmp_path):
-    store = ResultsStore(tmp_path)
-    with pytest.raises(NotImplementedError, match="multi-device") as e:
-        run_campaign(_tiny_spec(devices=2), store=store, device="cpu")
-    assert "rep-sharded" in str(e.value)
-    assert not any(tmp_path.iterdir())      # refused before the manifest
+    # refused until the replication layouts over devices came; now a
+    # campaign over devices=2 runs (3 seeds: object-sharded over 2 spawned
+    # gloo ranks) and equals devices=1 replication by replication.
+    one = run_campaign(_tiny_spec(), store=ResultsStore(tmp_path / "one"),
+                       device="cpu")
+    two = run_campaign(_tiny_spec(devices=2),
+                       store=ResultsStore(tmp_path / "two"), device="cpu")
+    assert (two["ran"], two["resumed"], two["missing"]) == (2, 0, [])
+    assert [r["replications"] for r in two["results"]] \
+        == [r["replications"] for r in one["results"]]
+    again = run_campaign(_tiny_spec(devices=2),
+                         store=ResultsStore(tmp_path / "two"), device="cpu")
+    assert (again["ran"], again["resumed"]) == (0, 2)
+    assert again["results"] == two["results"]
 
 
 def test_cli_runs_a_small_campaign_on_the_cpu(tmp_path, capsys):

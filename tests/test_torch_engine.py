@@ -252,7 +252,7 @@ def test_config_validate_per_device_count():
 
 def test_names_and_stats_match_jax():
     for name in ("BATCH_IMPLS", "SELECTABLE_SCHEDULERS", "ROUTES",
-                 "PLACEMENTS"):
+                 "PLACEMENTS", "SPECULATION_KNOBS"):
         assert getattr(tnames, name) == getattr(jnames, name), name
     assert tbase.Stats._fields == jeng.Stats._fields
     assert set(tbase.SCHEDULERS) == {"batch", "batch-model", "batch-packed",

@@ -96,6 +96,28 @@ def test_scans_cover_the_multi_device_slice():
         assert not FORBIDDEN.findall(path.read_text()), mod
 
 
+SIMULATE_MODULES = ("launch.simulate", "testing.docs_check")
+
+
+def test_scans_cover_the_simulate_slice():
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages("
+            "repro_torch.__path__, 'repro_torch.')))\n")
+    out = subprocess.run([sys.executable, "-c", code], env=_env(), cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    found = set(out.stdout.split())
+    files = set(PKG.rglob("*.py"))
+    for mod in SIMULATE_MODULES:
+        assert f"repro_torch.{mod}" in found, mod
+        path = PKG.joinpath(*mod.split(".")).with_suffix(".py")
+        assert path in files, mod
+        assert not FORBIDDEN.findall(path.read_text()), mod
+    # docs_check reads its sources and never imports torch.
+    text = (PKG / "testing" / "docs_check.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+(torch|numpy)", text, re.M)
+
+
 def test_spawned_ranks_import_only_the_port():
     # the spawned rank code (the rank functions, the device axis) loads
     # nothing of JAX or of the JAX package, in the parent or in a rank.

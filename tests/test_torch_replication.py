@@ -19,8 +19,8 @@ its own drain epoch.  Pinned here, for wireless (R = 1, 8) and phold
 * replications drain at their own epochs; ``dispatches`` rises by 2 for
   ingest + drain and ``syncs`` keeps the drain's rule; the empty seed list
   and an overflowing horizon fail before anything runs; ``ltf`` and
-  ``packed`` refuse R > 1 with a ``NotImplementedError`` naming them and
-  the per-replication order the port lacks (the JAX engine stacks them).
+  ``packed`` stack too, each replication equal to its own drain
+  (``tests/test_torch_rep_schedulers.py`` holds them to the JAX engine).
 """
 import numpy as np
 import pytest
@@ -200,22 +200,27 @@ def test_stats_bound_fails_fast_before_dispatch():
     (dict(scheduler="ltf"), "scheduler='ltf'"),
     (dict(batch_impl="packed", pack_tile=4), "batch_impl='packed'")])
 def test_ltf_and_packed_refuse_stacked_replications(cfg_kw, name):
+    # refused until each replication got its own emission order; now both
+    # stack: each replication of a two-seed stack equals its own drain, and
+    # a stack of two copies of one replication (carried through interop)
+    # drains to two copies of it.
     spec = treg.conformance_spec("wireless")
     model = treg.get_workload("wireless", **spec["model_kw"])
     cfg = TConfig(lookahead=0.5, **dict(spec["engine_kw"], **cfg_kw))
     eng = teng.ParsirEngine(model, cfg, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match=name.replace("'", ".") + ".*per-replication"):
-        eng.init_replicated([0, 1])
-    assert eng.dispatches == 0
-    one = eng.init_replicated([1])     # one replication runs as it would
-    with pytest.raises(NotImplementedError, match=name.replace("'", ".")):
-        eng.run_replicated_drained(
-            interop.engine_state_from_numpy(
-                jax.tree_util.tree_map(lambda a: np.concatenate([a, a]),
-                                       interop.engine_state_to_numpy(one)),
-                "cpu"), 4)
-    st = eng.run_replicated_drained(one, 6)
+    st = eng.run_replicated_drained(eng.init_replicated([0, 1]), 6)
+    assert eng.dispatches == 2
+    for r in range(2):
+        ref = eng.run_until_drained(eng.init(seed=r), 6)
+        _assert_trees_equal(_host(eng.replication(st, r)), _host(ref),
+                            f"{name} R=2 rep {r}")
+    one = eng.init_replicated([1])
+    both = eng.run_replicated_drained(
+        interop.engine_state_from_numpy(
+            jax.tree_util.tree_map(lambda a: np.concatenate([a, a]),
+                                   interop.engine_state_to_numpy(one)),
+            "cpu"), 6)
     ref = eng.run_until_drained(eng.init(seed=1), 6)
-    _assert_trees_equal(_host(eng.replication(st, 0)), _host(ref),
-                        f"{name} R=1")
+    for r in range(2):
+        _assert_trees_equal(_host(eng.replication(both, r)), _host(ref),
+                            f"{name} copy {r}")
