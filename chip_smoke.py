@@ -24,7 +24,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 state against ``ssd_final_state``; flash_attention at the
                 unit-test shapes
                 (causal and not, Tq < Tk), a ragged T=1000 and the
-                full-width llama3.2-3b and zamba2-1.2b shapes, f32 (the
+                full-width llama3.2-3b, zamba2-1.2b and stablelm-12b
+                (D = 160) shapes, f32 (the
                 CUDA-core kernel) and bf16 (the tensor-core kernel), each on
                 contiguous inputs and on the [B, H, T, D] views of
                 [B, T, H, D] tensors that the models pass;
@@ -176,7 +177,7 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 tokens, timed (prefill ms; decode ms/token with the capture
                 and replayed; the first, eager, step; the capture; tok/s;
                 peak memory) beside a loop of eager ``decode_step`` calls
-                from the same prompts (tokens equal, max |Δlogit| logged),
+                from the same prompts (tokens and logits equal bit for bit),
                 with 38 ssd_scan launches per prefill and 0 per decode
                 step, a profile of the prefill, of a replayed decode step
                 and of an eager one (with the ssd_scan, cumsum and
@@ -204,8 +205,36 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 llama3.2-3b's and zamba2-1.2b's shapes on the views the
                 models pass, beside its plain version, SDPA's and its bound,
                 and at llama3.2-3b's prefill shape (T=1024);
-  9. a JSON line listing every ported kernel, the nvidia-smi line, and the
-     last line ``{"ok": true, "device": {...}}``.
+  archs.      — the other eight architectures (every kernel counter set to
+                0 before each run and read after): every reduced config
+                (the ten) in f32 under the plain attention, card == CPU
+                within 1e-4 on logits and loss; stablelm-12b (D = 160
+                through flash_attention) and deepseek-v2-lite-16b (MoE
+                with MLA) at full width with bf16 masters: serving B=4 x
+                1024 + 32 greedy tokens, graphed decode equal to the eager
+                ``decode_step`` loop bit for bit (tokens and logits), 40
+                and 0 flash launches per prefill, timed, peak memory;
+                deepseek's capacity drops counted; a profile of the
+                prefill, of a replayed decode step and of an eager one;
+                forward + loss at B=4 x 2048, timed, with its flash
+                launches (40 per stablelm forward) and a profile;
+                granite-3-2b, starcoder2-7b,
+                internvl2-1b (256 patch embeddings + 768 tokens),
+                musicgen-medium (1024 frame embeddings, then given frames)
+                and xlstm-1.3b at full width: a prefill at B=4 and 8
+                decode steps, graphed == eager.  flash_attention at D =
+                160 is checked with the other shapes in phase 3 and timed
+                with them after this phase, at stablelm-12b's forward and
+                prefill shapes;
+  9. a JSON line listing every ported kernel (flash_attention's with a
+     ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
+     plain version's and SDPA's ms, the bound, the prefill shape's ms and
+     the launches per forward), the nvidia-smi line, and the last line
+     ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --only-archs`` runs phases 1-2, flash_attention's
+checks at D = 160, phase archs and the D = 160 timings, and prints no
+result lines.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2537,13 +2566,18 @@ def _served_model(dev, arch, **changes):
 
 
 def _prefill_kernel(m):
-    """(kernel wrapper, launches per prefill) of a served model: zamba2's
-    prefill runs ssd_scan once per Mamba-2 layer, llama3.2-3b's (under
-    ``"pallas"``) flash_attention once per layer."""
+    """(kernel wrapper, launches per prefill or forward) of a model:
+    zamba2's prefill runs ssd_scan once per Mamba-2 layer; a dense or MoE
+    model's GQA attention under ``"pallas"`` runs flash_attention once per
+    layer; MLA and xLSTM run no kernel (flash_attention, 0)."""
     from repro_torch.kernels.flash_attention import flash_cuda
     from repro_torch.kernels.ssd_scan import ssd_cuda
-    return (ssd_cuda if m.cfg.family == "hybrid" else flash_cuda,
-            m.cfg.n_layers)
+    cfg = m.cfg
+    if cfg.family == "hybrid":
+        return ssd_cuda, cfg.n_layers
+    flash = cfg.attn_impl == "pallas" and not cfg.use_mla and \
+        cfg.family in ("dense", "moe")
+    return flash_cuda, cfg.n_layers if flash else 0
 
 
 def serve_reduced(dev, arch) -> float:
@@ -2644,19 +2678,23 @@ def _clock(marks):
     marks.append(time.perf_counter())
 
 
-def eager_decode(m, w, tokens, n, max_len):
-    """The yardstick of the graphed session: prefill, then ``n`` eager
-    ``decode_step`` calls, the position a device tensor, the same
-    ``max_len`` → (tokens [B, n], logits [B, n + 1, V], ms per step)."""
+def eager_decode(m, w, batch, n, max_len, frames=None):
+    """The yardstick of a graphed session: prefill, then ``n`` eager
+    ``decode_step`` calls (the position a device tensor, the same
+    ``max_len``; under the audio front end the given frames) → (tokens
+    [B, n], logits [B, n + 1, V], ms per step)."""
     import torch
-    caches = m.init_cache(tokens.shape[0], max_len)
-    lg, _ = m.prefill(tokens, caches, w)
+    from repro_torch.serve.engine import prompt_length
+    B = next(iter(batch.values())).shape[0]
+    caches = m.init_cache(B, max_len)
+    lg, _ = m.prefill(batch, caches, w)
     tok = lg[:, -1].argmax(-1)
-    cur_len = torch.tensor(tokens.shape[1], device=tokens.device)
+    cur_len = torch.tensor(prompt_length(batch), device=lg.device)
     toks, logits, marks = [], [lg[:, -1]], []
     _clock(marks)
-    for _ in range(n):
-        lg, _ = m.decode_step(tok[:, None], caches, cur_len, w)
+    for i in range(n):
+        inp = frames[:, i:i + 1] if frames is not None else tok[:, None]
+        lg, _ = m.decode_step(inp, caches, cur_len, w)
         tok = lg[:, -1].argmax(-1)
         cur_len += 1
         toks.append(tok)
@@ -2666,29 +2704,38 @@ def eager_decode(m, w, tokens, n, max_len):
             (marks[1] - marks[0]) * 1e3 / n)
 
 
-def serve_timed(dev, arch):
-    """Full width in bf16: one warm-up and SERVE_REPEATS timed runs, each a
-    graphed session (the prefill; the first decode step, eager; the
-    second, capture + first replay; the rest, replays) and then the eager
-    ``decode_step`` loop from the same prompts with the session's weights:
-    greedy tokens equal, max |Δlogit| logged.  Every kernel count is set to
-    0 just before and read just after: the prefill kernel launches once per
-    layer in each prefill and never in a decode step, no other kernel runs.
-    Returns the model, the prompts, the medians and the launches."""
+def serve_runs(dev, m, n_dec, repeats):
+    """Full width: ``1 + repeats`` graphed sessions (B = SERVE_BATCH
+    prompts of SERVE_PROMPT positions; the prefill; the first decode step,
+    eager; the second, capture + first replay; the rest, replays), each
+    followed by the eager ``decode_step`` loop from the same prompts with
+    the session's weights: tokens and logits equal bit for bit.  Under the
+    audio front end the steps read given frames.  Every kernel count is
+    set to 0 just before and read just after: the prefill kernel
+    (:func:`_prefill_kernel`) launches once per layer in each prefill and
+    never in a decode step, no other kernel runs.  Returns (prompts, the
+    runs' times, their medians over the runs after the warm-up (all, with
+    no repeat), the launches)."""
     import torch
     from repro_torch.data.synthetic import make_batch
     from repro_torch.kernels.ops import KERNELS
     from repro_torch.serve.engine import ServeSession
-    torch.cuda.reset_peak_memory_stats()
-    m = _served_model(dev, arch)
+    cfg, arch = m.cfg, m.cfg.name
     kernel, per_prefill = _prefill_kernel(m)
-    batch = make_batch(m.cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
-    n_dec, max_len = SERVE_TOKENS - 1, SERVE_PROMPT + SERVE_TOKENS
+    batch = make_batch(cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    frames = (make_batch(cfg, SERVE_BATCH, n_dec, step=1,
+                         device=dev)["embeds"]
+              if cfg.frontend == "audio" else None)
+    max_len = SERVE_PROMPT + n_dec + 1
     rows = []
     for fn in KERNELS:
         fn.launches = 0
-    for _ in range(1 + SERVE_REPEATS):
+    for _ in range(1 + repeats):
         sess = ServeSession(m, SERVE_BATCH, max_len, device=dev)
+
+        def dec(tokens, a, b):
+            return (sess.decode_frames(frames[:, a:b]) if frames is not None
+                    else sess.decode(tokens, b - a))
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t = []
         _clock(t)
@@ -2697,11 +2744,11 @@ def serve_timed(dev, arch):
         e1.record()
         _clock(t)
         launched = kernel.launches
-        o1 = sess.decode(first, 1)
+        o1 = dec(first, 0, 1)
         _clock(t)
-        o2 = sess.decode(o1[:, -1], 1)
+        o2 = dec(o1[:, -1], 1, 2)
         _clock(t)
-        o3 = sess.decode(o2[:, -1], n_dec - 2)
+        o3 = dec(o2[:, -1], 2, n_dec)
         _clock(t)
         if kernel.launches != launched or (sess.eager_steps, sess.captures,
                                            sess.replays) != (1, 1, n_dec - 1):
@@ -2712,37 +2759,55 @@ def serve_timed(dev, arch):
                                  f"replays")
         toks = torch.cat([o1, o2, o3], 1)
         logits = torch.stack(sess.logits, 1)
-        e_toks, e_logits, eager_ms = eager_decode(m, sess.weights,
-                                                  batch["tokens"], n_dec,
-                                                  max_len)
-        if not torch.equal(toks, e_toks) or not bool(
-                torch.isfinite(logits).all()) or not bool(
-                ((toks >= 0) & (toks < m.cfg.vocab_size)).all()):
-            raise AssertionError(f"bf16 {arch}: the graphed session's tokens "
-                                 f"differ from the eager loop's, or bad "
-                                 f"logits")
+        e_toks, e_logits, eager_ms = eager_decode(m, sess.weights, batch,
+                                                  n_dec, max_len, frames)
+        if not torch.equal(toks, e_toks) or not torch.equal(logits,
+                                                            e_logits):
+            raise AssertionError(
+                f"{arch}: the graphed session differs from the eager "
+                f"decode_step loop (tokens equal {torch.equal(toks, e_toks)}"
+                f", max |Δlogit| "
+                f"{float((logits - e_logits).abs().max())})")
+        if not bool(torch.isfinite(logits).all()) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            raise AssertionError(f"{arch}: non-finite logits or bad tokens")
         steady = (t[4] - t[3]) * 1e3 / (n_dec - 2)
         rows.append({"prefill_ms": (t[1] - t[0]) * 1e3,
                      "prefill_dev_ms": e0.elapsed_time(e1),
                      "first_step_ms": (t[2] - t[1]) * 1e3,
                      "capture_ms": (t[3] - t[2]) * 1e3 - steady,
                      "decode_ms": (t[4] - t[1]) * 1e3 / n_dec,
-                     "steady_ms": steady, "eager_ms": eager_ms,
-                     "dlogit": float((logits - e_logits).abs().max())})
+                     "steady_ms": steady, "eager_ms": eager_ms})
         del sess, logits, e_logits
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    want = {fn.__name__: 2 * per_prefill * (1 + SERVE_REPEATS)
+    want = {fn.__name__: 2 * per_prefill * (1 + repeats)
             if fn is kernel else 0 for fn in KERNELS}
     if launches != want:
         raise AssertionError(f"{arch} serving launched {launches}, not "
                              f"{want} (a prefill per session and per eager "
                              f"loop)")
-    timed = rows[1:]
+    timed = rows[1:] or rows
     med = {k: statistics.median(r[k] for r in timed) for k in timed[0]}
-    med["tok_s"] = SERVE_BATCH / (med["decode_ms"] / 1e3)
-    med["steady_tok_s"] = SERVE_BATCH / (med["steady_ms"] / 1e3)
-    med["eager_tok_s"] = SERVE_BATCH / (med["eager_ms"] / 1e3)
+    for k in ("decode", "steady", "eager"):
+        med[f"{k}_tok_s"] = SERVE_BATCH / (med[f"{k}_ms"] / 1e3)
     med["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return batch, rows, med, launches
+
+
+def serve_timed(dev, arch):
+    """Full width in bf16: one warm-up and SERVE_REPEATS timed runs of
+    :func:`serve_runs` (a graphed session, then the eager ``decode_step``
+    loop from the same prompts: tokens and logits equal bit for bit), the
+    prefill kernel launching once per layer in each prefill and never in a
+    decode step.  Returns the model, the prompts, the medians and the
+    launches."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    m = _served_model(dev, arch)
+    kernel, per_prefill = _prefill_kernel(m)
+    max_len = SERVE_PROMPT + SERVE_TOKENS
+    batch, rows, med, launches = serve_runs(dev, m, SERVE_TOKENS - 1,
+                                            SERVE_REPEATS)
     nbytes = decode_bound(m, max_len)
     med["bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
     log("serve", f"full-width {arch} in bf16 ({sum(p.numel() for p in m.parameters()):,} "
@@ -2753,9 +2818,9 @@ def serve_timed(dev, arch):
                  f"{med['prefill_ms']:.2f} ms (CUDA events "
                  f"{med['prefill_dev_ms']:.2f}); graphed decode "
                  f"{med['decode_ms']:.3f} ms/token with the capture "
-                 f"({med['tok_s']:.1f} tok/s), {med['steady_ms']:.3f} ms/token "
-                 f"replayed ({med['steady_tok_s']:.1f} tok/s), first (eager) "
-                 f"step {med['first_step_ms']:.3f} ms, capture "
+                 f"({med['decode_tok_s']:.1f} tok/s), {med['steady_ms']:.3f} "
+                 f"ms/token replayed ({med['steady_tok_s']:.1f} tok/s), first "
+                 f"(eager) step {med['first_step_ms']:.3f} ms, capture "
                  f"{med['capture_ms']:.3f} ms; eager decode_step loop "
                  f"{med['eager_ms']:.3f} ms/token ({med['eager_tok_s']:.1f} "
                  f"tok/s, {med['eager_ms'] / med['steady_ms']:.2f}x the "
@@ -2770,10 +2835,9 @@ def serve_timed(dev, arch):
                   f"{r['steady_ms']:.3f}/{r['capture_ms']:.1f}/"
                   f"{r['eager_ms']:.3f}" for r in rows)
         + " (the first is the warm-up)")
-    log("serve", f"{arch} graphed decode == eager decode_step loop: greedy "
-                 f"tokens equal in every run, max |Δlogit| "
-                 f"{max(r['dlogit'] for r in rows):.3g} (logged, not gated); "
-                 f"kernel launches on the path: {launches} ({per_prefill} "
+    log("serve", f"{arch} graphed decode == eager decode_step loop: tokens "
+                 f"and logits equal bit for bit in every run; kernel "
+                 f"launches on the path: {launches} ({per_prefill} "
                  f"{kernel.__name__} per prefill, 2 prefills a run, 0 per "
                  f"decode step)")
     return m, batch, med, launches[kernel.__name__]
@@ -2960,16 +3024,33 @@ def time_ssd_scan(dev, flush):
 
 # -- flash_attention: kernel against its plain version, time, bound ----------------
 
-#: (B, Hq, Hkv, Tq, Tk, D, causal): the JAX tests' shapes, non-causal, Tq < Tk,
-#: a ragged T, then llama3.2-3b's and zamba2-1.2b's full-width shapes.
+#: (B, Hq, Hkv, Tq, Tk, D, causal) of the full-width models' calls: the
+#: forward (T = 2048) and the prefill (T = 1024).
+LLAMA_FWD = (4, 24, 8, 2048, 2048, 128, True)
+LLAMA_PRE = (4, 24, 8, 1024, 1024, 128, True)
+ZAMBA_PRE = (4, 32, 32, 1024, 1024, 128, True)
+STABLELM_FWD = (4, 32, 8, 2048, 2048, 160, True)
+STABLELM_PRE = (4, 32, 8, 1024, 1024, 160, True)
+#: stablelm-12b's head dim: a ragged T, non-causal, Tq < Tk, its shapes.
+FLASH_SHAPES_D160 = [(1, 4, 2, 96, 96, 160, True),
+                     (1, 4, 2, 128, 128, 160, False),
+                     (1, 4, 2, 64, 128, 160, True), STABLELM_PRE,
+                     STABLELM_FWD]
+#: the JAX tests' shapes, non-causal, Tq < Tk, a ragged T, the full-width
+#: llama3.2-3b, zamba2-1.2b and stablelm-12b shapes.
 FLASH_SHAPES = [(1, 4, 2, 128, 128, 64, True), (2, 8, 2, 256, 256, 64, True),
                 (1, 2, 2, 64, 64, 32, True), (1, 4, 1, 96, 96, 32, True),
                 (1, 2, 2, 128, 128, 32, False), (2, 8, 2, 256, 256, 64, False),
                 (1, 4, 2, 64, 128, 32, True), (2, 8, 2, 96, 160, 64, True),
-                (1, 8, 2, 1000, 1000, 128, True),
-                (4, 24, 8, 1024, 1024, 128, True),
-                (4, 24, 8, 2048, 2048, 128, True),
-                (4, 32, 32, 1024, 1024, 128, True)]
+                (1, 8, 2, 1000, 1000, 128, True), LLAMA_PRE, LLAMA_FWD,
+                ZAMBA_PRE] + FLASH_SHAPES_D160
+#: flash_attention's timings: (label, shape, dtype).
+FLASH_TIMED = [("llama3.2-3b", LLAMA_FWD, "bfloat16"),
+               ("llama3.2-3b prefill", LLAMA_PRE, "bfloat16"),
+               ("zamba2-1.2b", ZAMBA_PRE, "bfloat16"),
+               ("llama3.2-3b", LLAMA_FWD, "float32"),
+               ("stablelm-12b", STABLELM_FWD, "bfloat16"),
+               ("stablelm-12b prefill", STABLELM_PRE, "bfloat16")]
 
 
 def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, device,
@@ -2986,14 +3067,14 @@ def _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dtype, seed, device,
     return ts
 
 
-def check_flash(device) -> float:
+def check_flash(device, shapes=FLASH_SHAPES) -> float:
     """flash_attention kernels vs attention_ref on the card, on contiguous
     inputs and on the models' views; returns the largest |kernel - plain|
     over every shape, dtype and layout."""
     import torch
     from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
     worst = 0.0
-    for i, (B, Hq, Hkv, Tq, Tk, D, causal) in enumerate(FLASH_SHAPES):
+    for i, (B, Hq, Hkv, Tq, Tk, D, causal) in enumerate(shapes):
         errs = []
         for name, view in itertools.product(("float32", "bfloat16"),
                                             (False, True)):
@@ -3037,13 +3118,13 @@ def flash_bound(B, Hq, Hkv, Tq, Tk, D, causal, itemsize):
     return nbytes, 4 * B * Hq * D * pairs
 
 
-def time_flash(dev, flush):
+def time_flash(dev, flush, timed=FLASH_TIMED):
     """flash_attention as the models call it (the [B, H, T, D] views of
     their [B, T, H, D] activations), L2 flushed before each launch: the main
-    path's bf16 at llama3.2-3b's and zamba2-1.2b's full-width shapes and, for
-    the record, f32 at llama3.2-3b's; beside the plain version and one SDPA
-    call on the same views (the yardstick; the port never calls it).
-    Returns {(model, dtype): numbers}."""
+    path's bf16 at llama3.2-3b's, zamba2-1.2b's and stablelm-12b's
+    full-width shapes and, for the record, f32 at llama3.2-3b's; beside the
+    plain version and one SDPA call on the same views (the yardstick; the
+    port never calls it).  Returns {(label, dtype): numbers}."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import attention_ref, flash_cuda
@@ -3052,11 +3133,7 @@ def time_flash(dev, flush):
         return F.scaled_dot_product_attention(q, k, v, is_causal=True,
                                               enable_gqa=True)
     out = {}
-    for model, shape, name in (("llama3.2-3b", FLASH_SHAPES[-2], "bfloat16"),
-                               ("llama3.2-3b prefill", FLASH_SHAPES[-3],
-                                "bfloat16"),
-                               ("zamba2-1.2b", FLASH_SHAPES[-1], "bfloat16"),
-                               ("llama3.2-3b", FLASH_SHAPES[-2], "float32")):
+    for model, shape, name in timed:
         B, Hq, Hkv, Tq, Tk, D, causal = shape
         dt = getattr(torch, name)
         inp = _flash_inputs(B, Hq, Hkv, Tq, Tk, D, dt, 11, dev, view=True)
@@ -3197,61 +3274,72 @@ def lm_f32_check(dev, cfg):
     return err, lerr
 
 
-def lm_timed(dev, cfg):
-    """Full width in the config's bf16 through the kernel: one warm-up, then
-    LM_REPEATS timed calls of ``loss`` (which runs the forward), the compute
-    weights cast once beforehand; every kernel count set to 0 just before."""
+def forward_runs(dev, m, repeats):
+    """Full width forward + loss at B = LM_BATCH x LM_T (``loss``, which
+    runs the forward): one warm-up, then ``repeats`` timed calls, the
+    compute weights cast once beforehand; every kernel count set to 0
+    just before and read just after: the model's kernel
+    (:func:`_prefill_kernel`) once per layer in each forward, no other.
+    Returns (batch, weights, the runs, their medians after the warm-up,
+    launches)."""
     import torch
     from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels.event_apply import event_apply_cuda
-    from repro_torch.kernels.flash_attention import flash_cuda
-    from repro_torch.kernels.ssd_scan import ssd_cuda
-    from repro_torch.models.transformer import DecoderLM
-    torch.cuda.reset_peak_memory_stats()
-    m = DecoderLM(dataclasses.replace(cfg, attn_impl="pallas"), device=dev,
-                  seed=0)
-    batch = make_batch(cfg, LM_BATCH, LM_T, device=dev)
+    from repro_torch.kernels.ops import KERNELS
+    arch = m.cfg.name
+    batch = make_batch(m.cfg, LM_BATCH, LM_T, device=dev)
     w = m.weights()
+    for fn in KERNELS:
+        fn.launches = 0
     rows = []
-    flash_cuda.launches = ssd_cuda.launches = event_apply_cuda.launches = 0
-    for _ in range(1 + LM_REPEATS):
+    for _ in range(1 + repeats):
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         torch.cuda.synchronize()
-        before = flash_cuda.launches
         t0 = time.perf_counter()
         e0.record()
         loss = m.loss(batch, w)
         e1.record()
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if flash_cuda.launches - before != cfg.n_layers:
-            raise AssertionError(f"forward launched flash_attention "
-                                 f"{flash_cuda.launches - before} times, not "
-                                 f"{cfg.n_layers}")
         if not bool(torch.isfinite(loss)):
-            raise AssertionError(f"bf16 loss is not finite: {loss}")
+            raise AssertionError(f"{arch} bf16 loss is not finite: {loss}")
         rows.append({"ms": (t1 - t0) * 1e3, "dev_ms": e0.elapsed_time(e1),
                      "loss": float(loss)})
-    launches = (flash_cuda.launches, ssd_cuda.launches,
-                event_apply_cuda.launches)
-    if launches[1:] != (0, 0):
-        raise AssertionError(f"the dense forward launched other kernels: "
-                             f"{launches}")
-    timed = rows[1:]
-    med = {k: statistics.median(r[k] for r in timed) for k in ("ms", "dev_ms")}
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    kernel, per = _prefill_kernel(m)
+    want = {fn.__name__: per * (1 + repeats) if fn is kernel else 0
+            for fn in KERNELS}
+    if launches != want:
+        raise AssertionError(f"{arch} forward launched {launches}, not "
+                             f"{want}")
+    med = {k: statistics.median(r[k] for r in rows[1:])
+           for k in ("ms", "dev_ms")}
     med["tok_s"] = LM_BATCH * LM_T / (med["ms"] / 1e3)
     med["peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    return batch, w, rows, med, launches
+
+
+def lm_timed(dev, cfg):
+    """llama3.2-3b at full width in the config's bf16 through the kernel:
+    :func:`forward_runs` with LM_REPEATS timed calls, logged."""
+    import torch
+    from repro_torch.models.transformer import DecoderLM
+    torch.cuda.reset_peak_memory_stats()
+    m = DecoderLM(dataclasses.replace(cfg, attn_impl="pallas"), device=dev,
+                  seed=0)
+    batch, w, rows, med, launches = forward_runs(dev, m, LM_REPEATS)
+    flash = launches["flash_cuda"]
     log("lm", f"full-width llama3.2-3b in bf16 (f32 masters + bf16 copy), "
               f"{LM_BATCH} x {LM_T} tokens, forward + loss, median of "
               f"{LM_REPEATS} after 1 warm-up: {med['ms']:.2f} ms (CUDA events "
               f"{med['dev_ms']:.2f}), {med['tok_s']:.0f} tokens/s, peak device "
-              f"memory {med['peak_mib']:.0f} MiB, loss {timed[-1]['loss']:.4f}")
+              f"memory {med['peak_mib']:.0f} MiB, loss {rows[-1]['loss']:.4f}")
     log("lm", "per run (ms): " + ", ".join(f"{r['ms']:.2f}" for r in rows)
         + " (the first is the warm-up)")
-    log("lm", f"flash_attention launches on the main path: {launches[0]} "
-              f"({launches[0] // (1 + LM_REPEATS)} per forward); ssd_scan "
-              f"{launches[1]}, event_apply {launches[2]}")
-    return m, w, batch, med, launches[0]
+    log("lm", f"flash_attention launches on the main path: {flash} "
+              f"({flash // (1 + LM_REPEATS)} per forward); ssd_scan "
+              f"{launches['ssd_cuda']}, event_apply "
+              f"{launches['event_apply_cuda']}")
+    return m, w, batch, med, flash
 
 
 def lm_profile(m, w, batch, med):
@@ -3348,8 +3436,227 @@ def zamba_pallas_prefill(dev, model, batch):
     torch.cuda.empty_cache()
 
 
-def main() -> int:
+# -- phase archs: the other eight architectures, served and evaluated ----------------
+
+#: the slice's headline paths, built with bf16 masters (f32 masters and a
+#: bf16 copy of 12-16 B parameters do not fit 80 GB).
+ARCHS_BIG = ("stablelm-12b", "deepseek-v2-lite-16b")
+#: the rest at full width: a prefill and ARCHS_DECODE_STEPS decode steps.
+ARCHS_REST = ("granite-3-2b", "starcoder2-7b", "internvl2-1b",
+              "musicgen-medium", "xlstm-1.3b")
+ARCHS_DECODE_STEPS = 8
+#: timed repeats after one warm-up for the two headline paths.
+ARCHS_REPEATS = 2
+
+
+def _arch_model(dev, arch):
+    """The full-width model of ``arch`` on the card (random weights, seed
+    0): GQA attention under ``attn_impl="pallas"`` (the flash_attention
+    kernel), the headline configs with bf16 masters."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.registry import build_model
+    cfg = get_config(arch)
+    changes = {}
+    if cfg.family in ("dense", "moe") and not cfg.use_mla:
+        changes["attn_impl"] = "pallas"
+    if arch in ARCHS_BIG:
+        changes["param_dtype"] = "bfloat16"
+    return build_model(dataclasses.replace(cfg, **changes), device=dev,
+                       seed=0)
+
+
+def _n_params(m) -> int:
+    return sum(p.numel() for p in m.parameters())
+
+
+def arch_serve(dev, m, n_dec, repeats):
+    """:func:`serve_runs` of a full-width model, logged; returns its
+    prompts and medians."""
+    cfg = m.cfg
+    batch, _, med, launches = serve_runs(dev, m, n_dec, repeats)
+    kernel, per_prefill = _prefill_kernel(m)
+    what = ("frame embeddings, decode on given frames"
+            if cfg.frontend == "audio" else "patch embeddings + tokens, "
+            "greedy" if cfg.frontend else "tokens, greedy")
+    runs = (f"median of {repeats} after 1 warm-up" if repeats
+            else "one run")
+    log("archs", f"{cfg.name} serving at full width ({_n_params(m):,} params "
+                 f"in {cfg.param_dtype}, compute {cfg.dtype}, attn_impl="
+                 f"{cfg.attn_impl!r}), {SERVE_BATCH} x {SERVE_PROMPT} "
+                 f"positions ({what}), 1 + {n_dec} tokens, {runs}: prefill "
+                 f"{med['prefill_ms']:.2f} ms (CUDA events "
+                 f"{med['prefill_dev_ms']:.2f}); graphed decode "
+                 f"{med['decode_ms']:.3f} ms/token with the capture, "
+                 f"{med['steady_ms']:.3f} ms/token replayed "
+                 f"({med['steady_tok_s']:.1f} tok/s), first (eager) step "
+                 f"{med['first_step_ms']:.3f} ms, capture "
+                 f"{med['capture_ms']:.3f} ms; eager decode_step loop "
+                 f"{med['eager_ms']:.3f} ms/token; graphed == eager bit for "
+                 f"bit (tokens and logits, every run); kernel launches "
+                 f"{launches} ({per_prefill} {kernel.__name__} per prefill, 0 "
+                 f"per decode step); peak device memory "
+                 f"{med['peak_mib']:.0f} MiB")
+    return batch, med
+
+
+def arch_forward(dev, m):
+    """:func:`forward_runs` of a full-width model with ARCHS_REPEATS timed
+    calls, logged; returns the batch, weights, medians and the kernel's
+    launches per forward."""
     import torch
+    cfg = m.cfg
+    torch.cuda.reset_peak_memory_stats()
+    batch, w, rows, med, launches = forward_runs(dev, m, ARCHS_REPEATS)
+    kernel, per = _prefill_kernel(m)
+    per_run = ", ".join(f"{r['ms']:.2f}" for r in rows)
+    log("archs", f"{cfg.name} forward + loss at full width "
+                 f"({cfg.param_dtype} masters, {cfg.dtype} compute), "
+                 f"{LM_BATCH} x {LM_T} tokens, median of {ARCHS_REPEATS} "
+                 f"after 1 warm-up: {med['ms']:.2f} ms (CUDA events "
+                 f"{med['dev_ms']:.2f}), {med['tok_s']:.0f} tokens/s, loss "
+                 f"{rows[-1]['loss']:.4f}; per run {per_run} ms (the first "
+                 f"the warm-up); kernel launches {launches} ({per} "
+                 f"{kernel.__name__} per forward); peak device memory "
+                 f"{med['peak_mib']:.0f} MiB")
+    return batch, w, med, per
+
+
+def arch_profile(m, w, batch, med, what):
+    """torch.profiler over one forward + loss: the device's busy share of
+    the untraced median and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        m.loss(batch, w)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    log("profile", f"{m.cfg.name} {what}: device busy {busy_ms:.3f} ms in "
+                   f"{sum(r[1] for r in rows)} device ops = " + (
+                       f"{100 * busy_ms / med['ms']:.1f} % of the untraced "
+                       f"median {med['ms']:.3f} ms" if busy_ms else
+                       "not measured (the profiler saw no device time)"))
+    for us, cnt, key in rows[:10]:
+        log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+
+
+def moe_drops(dev, m):
+    """The capacity drops of an MoE model: one prefill of the serving
+    prompts and one forward of B = 4 x 2048, each layer's dispatch
+    recounted through ``moe.route``; returns {what: (dropped, pairs)}."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models import moe, transformer
+    batch = make_batch(m.cfg, SERVE_BATCH, SERVE_PROMPT, device=dev)
+    real, seen = transformer.moe_ffn, []
+
+    def counting(cfg, p, x):
+        r = moe.route(cfg, p, x.reshape(-1, x.shape[-1]))
+        seen.append((int((~r["keep"]).sum()), int(r["keep"].numel())))
+        return real(cfg, p, x)
+    out = {}
+    transformer.moe_ffn = counting
+    try:
+        w = m.weights()
+        m.prefill(batch, m.init_cache(SERVE_BATCH, SERVE_PROMPT), w)
+        out["prefill"] = seen[:]
+        seen.clear()
+        m(make_batch(m.cfg, LM_BATCH, LM_T, device=dev)["tokens"], w)
+        out["forward"] = seen[:]
+    finally:
+        transformer.moe_ffn = real
+    torch.cuda.synchronize()
+    return {k: (sum(d for d, _ in v), sum(n for _, n in v))
+            for k, v in out.items()}
+
+
+def arch_reduced(dev, arch) -> float:
+    """The reduced config in f32 under the plain attention, on the card and
+    on the CPU with the same weights: logits and loss within 1e-4."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import build_model
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              attn_impl="jnp")
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch(cfg, 2, 32, step=1, device="cpu")
+    inp = batch["tokens"] if cfg.family in ("xlstm", "hybrid") else batch
+    cb = {k: v.to(dev) for k, v in batch.items()}
+    cinp = cb["tokens"] if cfg.family in ("xlstm", "hybrid") else cb
+    err = float((card(cinp).cpu() - cpu(inp)).abs().max())
+    lerr = abs(float(card.loss(cb)) - float(cpu.loss(batch)))
+    if not (err <= 1e-4 and lerr <= 1e-4):
+        raise AssertionError(f"reduced {arch}: card and CPU disagree (max "
+                             f"|logit diff| {err}, |loss diff| {lerr})")
+    return max(err, lerr)
+
+
+def archs_phase(dev, smi):
+    """(e) every reduced arch on the card against the CPU; (b), (c) the two
+    headline paths at full width, served and evaluated; (d) the rest at
+    full width, served.  Returns the flash_attention launches per
+    stablelm-12b forward."""
+    import torch
+    from repro_torch.configs.registry import all_archs
+    t_phase = time.perf_counter()
+    errs = {arch: arch_reduced(dev, arch) for arch in all_archs()}
+    log("archs", f"every reduced arch in f32 under the plain attention, 2 x "
+                 f"32 positions, card == CPU (same weights) within 1e-4: " +
+        ", ".join(f"{a} {e:.3g}" for a, e in errs.items()))
+    stablelm_launches = None
+    for arch in ARCHS_BIG:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        m = _arch_model(dev, arch)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        cfg = m.cfg
+        if cfg.n_experts:
+            drops = "; ".join(
+                f"{k} {d} of {n} (token, slot) pairs over {cfg.n_layers} "
+                f"layers ({100 * d / n:.3f} %)"
+                for k, (d, n) in moe_drops(dev, m).items())
+            log("archs", f"{arch} capacity drops (capacity_factor "
+                         f"{cfg.capacity_factor}, top-"
+                         f"{cfg.experts_per_token} of {cfg.n_experts}): "
+                         f"{drops}; a decode step's "
+                         f"{SERVE_BATCH * cfg.experts_per_token} pairs a "
+                         f"layer fit its capacity of 128 and drop none")
+        batch, med = arch_serve(dev, m, SERVE_TOKENS - 1, ARCHS_REPEATS)
+        serve_profile(dev, m, batch, med)
+        fbatch, w, fmed, per_forward = arch_forward(dev, m)
+        arch_profile(m, w, fbatch, fmed, "forward + loss")
+        if arch == "stablelm-12b":
+            stablelm_launches = per_forward
+        log("archs", f"{arch} built in {t_build:.1f} s ({_n_params(m):,} "
+                     f"params; param_count() {m.cfg.param_count():,}); "
+                     f"{smi}")
+        del m, w, batch, fbatch
+        torch.cuda.empty_cache()
+    for arch in ARCHS_REST:
+        torch.cuda.reset_peak_memory_stats()
+        m = _arch_model(dev, arch)
+        arch_serve(dev, m, ARCHS_DECODE_STEPS, 0)
+        del m
+        torch.cuda.empty_cache()
+    log("archs", f"phase time {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return stablelm_launches
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only-archs", action="store_true",
+                    help="run phases 1-2, flash_attention at D = 160 and "
+                         "phase archs, and print no result lines")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3414,10 +3721,21 @@ def main() -> int:
                      f"{torch.cuda.get_device_properties(0).multi_processor_count}"
                      f" SMs)")
     for bf16, kind in ((1, "bf16 tensor-core"), (0, "f32 CUDA-core")):
-        log("build", f"flash_attention: "
-                     f"{flash_lib().flash_attention_smem_bytes(128, bf16)} B "
-                     f"of dynamic shared memory per block at D=128 "
-                     f"({kind} kernel)")
+        for D in (128, 160):
+            log("build", f"flash_attention: "
+                         f"{flash_lib().flash_attention_smem_bytes(D, bf16)} "
+                         f"B of dynamic shared memory per block at D={D} "
+                         f"({kind} kernel)")
+
+    if args.only_archs:
+        log("kernels", f"flash_attention max |kernel - plain| at D = 160: "
+                       f"{check_flash(dev, FLASH_SHAPES_D160)}")
+        archs_phase(dev, smi)
+        time_flash(dev, torch.empty(64 * 2**20, dtype=torch.uint8,
+                                    device=dev), FLASH_TIMED[-2:])
+        log("archs", "--only-archs: the other phases and the result lines "
+                     "were not run")
+        return 0
 
     # 3. kernels vs plain versions ----------------------------------------------
     err = check_event_apply(dev)
@@ -3640,7 +3958,16 @@ def main() -> int:
     bf16_spread("llama3.2-3b", m, batch["tokens"])
     del m, batch
     torch.cuda.empty_cache()
-    flash_t = time_flash(dev, flush)["llama3.2-3b", "bfloat16"]
+
+    # archs. the other eight architectures, served and evaluated ----------------
+    d160_launches = archs_phase(dev, smi)
+    torch.cuda.empty_cache()
+    flash_times = time_flash(dev, flush)
+    flash_t = flash_times["llama3.2-3b", "bfloat16"]
+    d160 = {k: flash_times["stablelm-12b", "bfloat16"][k]
+            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    d160["prefill_ms"] = flash_times["stablelm-12b prefill", "bfloat16"]["ms"]
+    d160["launches_per_forward"] = d160_launches
 
     # 9. result lines --------------------------------------------------------------
     kernels = [{
@@ -3664,7 +3991,7 @@ def main() -> int:
         "launches": flash_launches, "max_abs_err": flash_err,
         "ms": flash_t["ms"], "plain_ms": flash_t["plain_ms"],
         "bound_ms": flash_t["bound_ms"], "bound_by": flash_t["bound_by"],
-        "library_ms": flash_t["library_ms"],
+        "library_ms": flash_t["library_ms"], "d160": d160,
     }]
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi("name,power.limit"))

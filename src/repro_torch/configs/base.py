@@ -124,3 +124,15 @@ class ModelConfig:
             shared = (2 * d) * 3 * d + d * d + 3 * (2 * d) * self.d_ff // 2
             return emb + L * per_layer + shared
         return emb + L * per_layer
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: routed top-k + shared only)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, L = self.d_model, self.n_layers
+        n_mat = 3 if self.activation == "swiglu" else 2
+        full = self.param_count()
+        moe_layers = L - self.first_dense_layers
+        all_experts = moe_layers * self.n_experts * n_mat * d * self.moe_d_ff
+        active_experts = moe_layers * self.experts_per_token * n_mat * d * self.moe_d_ff
+        return full - all_experts + active_experts

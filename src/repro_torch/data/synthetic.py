@@ -1,25 +1,55 @@
 """Deterministic synthetic data (``repro/data/synthetic.py``): a batch is a
 pure function of (seed, step), drawn from the same numpy stream as the JAX
-package, so both packages see the same prompts."""
+package, so both packages see the same prompts, patches and frames.
+
+Token ids and labels are int64 here (int32 in the JAX package); front-end
+embeddings are drawn in float64 and cast once to the compute dtype.
+``SyntheticLoader`` is training's and comes with the training slice.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..models.layers import DTYPES
+
+
+def batch_spec(cfg, batch: int, seq: int) -> dict:
+    """{name: (shape, dtype)} of one batch of ``seq`` positions (vision:
+    ``n_patches`` patch embeddings and ``seq - n_patches`` tokens)."""
+    cdt = DTYPES[cfg.dtype]
+    if cfg.frontend == "audio":
+        return {"embeds": ((batch, seq, cfg.d_model), cdt),
+                "labels": ((batch, seq), torch.int64)}
+    if cfg.frontend == "vision":
+        return {"tokens": ((batch, seq - cfg.n_patches), torch.int64),
+                "patch_embeds": ((batch, cfg.n_patches, cfg.d_model), cdt)}
+    return {"tokens": ((batch, seq), torch.int64)}
 
 
 def make_batch(cfg, batch: int, seq: int, step: int = 0, seed: int = 0,
                *, device="cuda"):
-    """One batch of token ids ``{"tokens": [batch, seq] int64}`` on
-    ``device``.  Token-only configs; the audio/vision front-end stubs come
-    with their slices."""
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"frontend={cfg.frontend!r} batches are not in the PyTorch port "
-            f"yet; they come with a later slice of the LM substrate "
-            f"(ROADMAP A9)")
+    """One batch matching :func:`batch_spec` on ``device``: token ids
+    ``{"tokens"}``; under the audio front end ``{"embeds", "labels"}``;
+    under the vision one ``{"tokens", "patch_embeds"}``."""
+    dev = resolve_device(device)
+    cdt = DTYPES[cfg.dtype]
     rng = np.random.default_rng(np.uint64(seed) * np.uint64(1_000_003)
                                 + np.uint64(step))
-    toks = rng.integers(0, cfg.vocab_size, (batch, seq))
-    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+
+    def ints(shape):
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)).to(dev)
+
+    def normal(shape):
+        return torch.from_numpy(rng.standard_normal(shape) * 0.02).to(
+            dev, cdt)
+
+    if cfg.frontend == "audio":
+        embeds = normal((batch, seq, cfg.d_model))
+        return {"embeds": embeds, "labels": ints((batch, seq))}
+    if cfg.frontend == "vision":
+        tokens = ints((batch, seq - cfg.n_patches))
+        return {"tokens": tokens,
+                "patch_embeds": normal((batch, cfg.n_patches, cfg.d_model))}
+    return {"tokens": ints((batch, seq))}

@@ -27,13 +27,16 @@ Dtypes: seeds become int64 in the port (u32 again on the way back); the
 ``Stats`` counters become int64 (the JAX engine keeps int32 unless x64 is
 on); every other leaf keeps its dtype.
 
-:func:`zamba_params_from_numpy` and :func:`decoder_params_from_numpy` turn
-the JAX ``Zamba.init`` and ``DecoderLM.init`` parameter trees, fetched to
-the host, into state dicts of the port's models, keyed by the tree's paths.
-:func:`caches_from_numpy` carries a serving state across as well: the JAX
-models' caches, fetched to the host, as the port's; :func:`caches_to_numpy`
-goes the other way, so that both packages can decode on from the same
-mid-decode state.
+:func:`params_from_numpy` turns the JAX models' ``init`` parameter trees
+(``DecoderLM``'s dense, MoE, MLA and front-end leaves, ``XLSTM``'s list of
+mixed blocks, ``Zamba``'s), fetched to the host, into state dicts of the
+port's models, keyed by the tree's paths; bf16 leaves (``param_dtype=
+"bfloat16"`` masters) cross bit for bit.  :func:`caches_from_numpy`
+carries a serving state across as well: the JAX models' caches, fetched to
+the host, as the port's ({"k","v"} or MLA's {"ckv","kr"} per layer, the
+zamba2 parts, xLSTM's matrix memories and (c, n, h) triples);
+:func:`caches_to_numpy` goes the other way, so that both packages can
+decode on from the same mid-decode state.
 """
 from __future__ import annotations
 
@@ -161,18 +164,19 @@ def _flatten(tree) -> dict:
             for i, v in enumerate(node):
                 walk(f"{prefix}{i}.", v)
         else:
-            out[prefix[:-1]] = torch.from_numpy(np.array(node, copy=True))
+            out[prefix[:-1]] = _tensor(node)
 
     walk("", tree)
     return out
 
 
-def zamba_params_from_numpy(tree) -> dict:
-    """A host copy of the JAX zamba parameter tree (nested dicts and the
-    ``blocks`` list) → ``{"embed.tok": tensor, "blocks.0.win": ..., ...}``
-    on the CPU, for ``Zamba.load_state_dict`` (which copies to the model's
-    device)."""
-    return _flatten(tree)
+def _tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor of the same dtype; numpy's bfloat16
+    (from ``ml_dtypes``, which torch does not read) by its bits."""
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
 def decoder_params_from_numpy(tree, cfg) -> dict:
@@ -191,13 +195,27 @@ def decoder_params_from_numpy(tree, cfg) -> dict:
     return _flatten({**tree, "blocks": blocks})
 
 
+def params_from_numpy(tree, cfg) -> dict:
+    """A host copy of the JAX parameter tree of ``cfg``'s model → a state
+    dict of the port's model of that family on the CPU (``{"embed.tok":
+    tensor, "blocks.0.win": ..., ...}``), for ``load_state_dict``, which
+    copies to the model's device.  Nested dicts and the ``blocks`` list
+    are flattened into paths; a dense or MoE stack is unstacked first
+    (:func:`decoder_params_from_numpy`)."""
+    if cfg.family in ("dense", "moe"):
+        return decoder_params_from_numpy(tree, cfg)
+    return _flatten(tree)
+
+
 def caches_from_numpy(tree, cfg, device="cuda"):
     """A host copy of a JAX model's serving caches (``init_cache``,
     ``prefill``, ``decode_step``) → the port's, on ``device``: for the
-    hybrid family ``{"mamba": [{"conv", "h"}], "attn": [{"k", "v"}]}``, for
-    the dense family one ``{"k", "v"}`` per layer, the leading layer axis
-    of a ``scan_layers`` stack unstacked.  Every leaf takes the port's
-    dtype: the compute dtype, except the SSM state ``h`` (f32)."""
+    hybrid family ``{"mamba": [{"conv", "h"}], "attn": [{"k", "v"}]}``; for
+    the dense and MoE families one ``{"k", "v"}`` (MLA: ``{"ckv", "kr"}``)
+    per layer, the leading layer axis of a ``scan_layers`` stack unstacked;
+    for xLSTM one state per block, a matrix memory or a (c, n, h) triple.
+    Every leaf takes the port's dtype: the compute dtype, except the SSM
+    state ``h`` and the xLSTM states (f32)."""
     dev = resolve_device(device)
     cdt = DTYPES[cfg.dtype]
 
@@ -209,6 +227,9 @@ def caches_from_numpy(tree, cfg, device="cuda"):
         return [{k: leaf(v, k) for k, v in d.items()} for d in layers]
     if cfg.family == "hybrid":
         return {p: part(tree[p]) for p in ("mamba", "attn")}
+    if cfg.family == "xlstm":
+        return [tuple(leaf(a, "h") for a in st) if isinstance(st, tuple)
+                else leaf(st, "h") for st in tree]
     if isinstance(tree, dict):            # the scan_layers stack
         tree = [{k: v[i] for k, v in tree.items()}
                 for i in range(cfg.n_layers)]
@@ -217,14 +238,19 @@ def caches_from_numpy(tree, cfg, device="cuda"):
 
 def caches_to_numpy(caches, cfg):
     """The port's serving caches → the JAX model's layout as f32 numpy
-    arrays (a dense ``scan_layers`` model's stacked along a leading layer
-    axis); cast them to the JAX cache's dtype on the way in."""
+    arrays (a dense or MoE ``scan_layers`` model's stacked along a leading
+    layer axis); cast them to the JAX cache's dtype on the way in."""
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
     def part(layers):
-        return [{k: v.detach().float().cpu().numpy() for k, v in d.items()}
-                for d in layers]
+        return [{k: arr(v) for k, v in d.items()} for d in layers]
     if cfg.family == "hybrid":
         return {p: part(caches[p]) for p in ("mamba", "attn")}
+    if cfg.family == "xlstm":
+        return [tuple(arr(a) for a in st) if isinstance(st, tuple)
+                else arr(st) for st in caches]
     layers = part(caches)
     if cfg.scan_layers:
-        return {k: np.stack([d[k] for d in layers]) for k in ("k", "v")}
+        return {k: np.stack([d[k] for d in layers]) for k in layers[0]}
     return layers

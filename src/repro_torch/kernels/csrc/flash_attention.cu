@@ -63,13 +63,16 @@
 //     reads fall in distinct banks.
 //   - Two CTAs per SM cap a thread at 128 registers: at D = 128 the
 //     accumulator o (64), S (32) and the descriptors leave ~120 B of spills.
-//     One CTA per SM without spills was slower (PERF.md).
+//     One CTA per SM without spills was slower (PERF.md).  D = 160 runs one
+//     CTA per SM (its tiles take 121 KB) with up to 255 registers a thread,
+//     and its P·V as five m64n32k16 products, one per 32-column block of V.
 //   - o is normalized in registers, staged through the warp's own rows of
 //     Q's tile and written as 16-byte stores.
 //
 // f32 kernel (`flash_f32`): one 256-thread CTA per (b·Hq, 64-row query
 // block); Qᵀ, Kᵀ (reused for Pᵀ) and V staged in f32 in 100 KB of shared
-// memory; 4 x 4 register tiles of plain f32 FMAs; `expf`.  It keeps the
+// memory at D = 128 (125 KB at D = 160: one CTA per SM); 4 x 4 register
+// tiles of plain f32 FMAs (4 x D/16 for o); `expf`.  It keeps the
 // checks at 2e-5, which bf16 tensor-core products cannot meet; f32 is off
 // the main path.
 //
@@ -290,9 +293,19 @@ constexpr int kWBQ = 128;         // query rows per CTA, 64 per warpgroup
 constexpr int kWBK = 64;          // key columns per loop step
 constexpr int kStages = 2;        // K/V ring depth
 
-// A [R][D] tile is D / W column blocks of [R][W], W = min(D, 64).
+// A [R][D] tile is D / W column blocks of [R][W]: W = D below 64, else 64
+// where 64 divides D, else 32.  D = 160 (stablelm-12b) takes W = 32: five
+// column blocks under the 64-byte swizzle, the layout D = 32 already uses,
+// rather than padding D to 192 with zero columns, which would load and
+// multiply 20 % more and need a masked store.
 template <int D>
-using TileD = Tile<(D < 64 ? D : 64)>;
+using TileD = Tile<(D < 64 ? D : D % 64 ? 32 : 64)>;
+
+// CTAs per SM a launch bound asks for: two where they fit in shared memory
+// (D <= 128), one at D = 160, whose 121 KB of tiles fill the SM alone; the
+// bound then leaves a thread 255 registers instead of 128, room for the
+// accumulator o (80 at D = 160) and S (32) without spills.
+__host__ __device__ constexpr int wg_ctas(int D) { return D > 128 ? 1 : 2; }
 
 __host__ __device__ constexpr int wg_smem_bytes(int D) {
   // Q, the K/V ring, and 1 KB to align the tiles to the swizzle's 1024 B.
@@ -317,7 +330,7 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
 }
 
 template <int D>
-__global__ void __launch_bounds__(kWgThreads, 2)
+__global__ void __launch_bounds__(kWgThreads, wg_ctas(D))
     flash_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, bf16* __restrict__ o, Layout L,
                 int Hq, int Hkv, int Tq, int Tk, float scale_log2,
@@ -459,9 +472,22 @@ __global__ void __launch_bounds__(kWgThreads, 2)
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kWBK / 16; ++kk)
-      wgmma_rs<D>(acc, a[kk],
-                  gmma_desc(svj + kk * 16 * W, kWBK * RB, sbo, TL::kMode));
+    for (int kk = 0; kk < kWBK / 16; ++kk) {
+      if constexpr (D <= 128) {
+        wgmma_rs<D>(acc, a[kk],
+                    gmma_desc(svj + kk * 16 * W, kWBK * RB, sbo, TL::kMode));
+      } else {
+        // N = D has no single instruction here: one m64n32k16 per column
+        // block of V, each into its 16 floats of the accumulator (the
+        // fragment of columns 32c.. is acc[16c..16c + 16)).
+#pragma unroll
+        for (int c = 0; c < D / W; ++c)
+          wgmma_rs<W>(*reinterpret_cast<float(*)[W / 2]>(acc + c * (W / 2)),
+                      a[kk],
+                      gmma_desc(svj + c * kWBK * W + kk * 16 * W, kWBK * RB,
+                                sbo, TL::kMode));
+      }
+    }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
@@ -540,6 +566,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o,
     case 32: return fn<32>(__VA_ARGS__);        \
     case 64: return fn<64>(__VA_ARGS__);        \
     case 128: return fn<128>(__VA_ARGS__);      \
+    case 160: return fn<160>(__VA_ARGS__);      \
     default: return (int)cudaErrorInvalidValue; \
   }
 
@@ -553,7 +580,7 @@ extern "C" int flash_attention_smem_bytes(int D, int bf16) {
 // q, o: [B, Hq, Tq, D]; k, v: [B, Hkv, Tk, D]; all float (bf16 = 0) or all
 // __nv_bfloat16 (bf16 = 1).  strides: 12 element strides, (B, H, T) of q, k,
 // v and o in that order; the last dimension is contiguous, every row starts
-// on 16 bytes.  Needs D in {16, 32, 64, 128} and Hq % Hkv == 0 (checked by
+// on 16 bytes.  Needs D in {16, 32, 64, 128, 160} and Hq % Hkv == 0 (checked by
 // the Python wrapper; another D returns cudaErrorInvalidValue).
 extern "C" int flash_attention_launch(void* q, void* k, void* v, void* o,
                                       int B, int Hq, int Hkv, int Tq, int Tk,

@@ -23,8 +23,9 @@ import torch
 
 from . import build
 
-#: head dims the kernel is compiled for (the ported configs use 16, 32, 128).
-HEAD_DIMS = (16, 32, 64, 128)
+#: head dims the kernel is compiled for: every ported config's (16, 32 at
+#: the reduced sizes; 64, 128, and stablelm-12b's 160 at full width).
+HEAD_DIMS = (16, 32, 64, 128, 160)
 #: dynamic shared memory a block may use on Hopper, bytes.
 MAX_SMEM = 232448
 
@@ -33,16 +34,17 @@ def check_heads(D: int, Hq: int, Hkv: int) -> None:
     """Refuse the head shapes the kernel does not take: ``ValueError``
     where the JAX package's ``ops.mha`` refuses them too (Hq not a multiple
     of Hkv), ``NotImplementedError`` for a head dim the kernel is not
-    compiled for, which the JAX kernel takes (``stablelm_12b``'s D = 160
-    comes with the port's stablelm slice)."""
+    compiled for, which the JAX kernel takes (no config of either package
+    has one; ``csrc/flash_attention.cu``'s dispatch lists the compiled
+    ones)."""
     if Hkv == 0 or Hq % Hkv:
         raise ValueError(f"flash_attention: needs Hq a multiple of Hkv "
                          f"(Hq={Hq}, Hkv={Hkv})")
     if D not in HEAD_DIMS:
         raise NotImplementedError(
-            f"flash_attention: head dim D={D} is not in the PyTorch port's "
-            f"kernel yet (it is compiled for D in {HEAD_DIMS}); other head "
-            f"dims come with the stablelm slice of the LM substrate")
+            f"flash_attention: head dim D={D} is not one the kernel is "
+            f"compiled for (D in {HEAD_DIMS}); another needs its own "
+            f"instantiation in csrc/flash_attention.cu")
 
 
 def attention_ref(q, k, v, *, causal: bool = True):

@@ -1,12 +1,22 @@
 """Command-line serving of the port: prefill a batch of synthetic prompts,
-then decode greedily, and report the times.
+then decode greedily, and report the times.  Takes every arch.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
       --batch 4 --prompt-len 1024 --tokens 32            # on the card
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
-      --batch 4 --prompt-len 1024 --tokens 32
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-1.2b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b \\
+      --batch 4 --prompt-len 1024 --tokens 32 --param-dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-1.3b \\
       --reduced --batch 2 --prompt-len 32 --tokens 8 --device cpu
+
+``--prompt-len`` counts positions: under the vision front end (internvl2)
+``n_patches`` of them are patch embeddings and the rest tokens.  Under the
+audio front end (musicgen) the prompt is frame embeddings and the greedy
+loop cannot feed a codebook token back (the EnCodec front end is a stub), so
+the decode steps read given synthetic frames (``ServeSession.
+decode_frames``) and print the codebook tokens predicted after each.
+``--param-dtype bfloat16`` keeps bf16 masters (the served weights are then
+the masters themselves), which a card needs for the 12-16 B-parameter
+configs; kimi-k2-1t-a32b fits one card only ``--reduced``.
 
 Times on a CUDA device wait for the card (``torch.cuda.synchronize``) and
 include the first call's warm-up; the first generated token comes from the
@@ -36,9 +46,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--param-dtype", choices=("float32", "bfloat16"),
+                    help="the masters' dtype (default: the config's)")
     args = ap.parse_args(argv)
     if args.tokens < 1:
         ap.error("--tokens must be at least 1")
+
+    import dataclasses
 
     import torch
 
@@ -50,21 +64,34 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=args.reduced)
+    if args.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.param_dtype)
+    if cfg.frontend == "vision" and args.prompt_len <= cfg.n_patches:
+        ap.error(f"--prompt-len must exceed {cfg.name}'s {cfg.n_patches} "
+                 f"patches")
     model = build_model(cfg, device=dev)
     batch = make_batch(cfg, args.batch, args.prompt_len, device=dev)
     sess = ServeSession(model, args.batch, args.prompt_len + args.tokens,
                         device=dev)
+    steps = args.tokens - 1
+    # the frames the audio decode steps read: the next batch's embeddings.
+    frames = (make_batch(cfg, args.batch, max(steps, 1), step=1,
+                         device=dev)["embeds"] if sess.audio else None)
+
+    def decode(tokens, a, b):
+        return (sess.decode_frames(frames[:, a:b]) if sess.audio
+                else sess.decode(tokens, b - a))
+
     _sync(dev)
     t0 = time.perf_counter()
     first = sess.prefill(batch)
     _sync(dev)
     t1 = time.perf_counter()
-    steps = args.tokens - 1
     # the first two steps (eager, then capture + replay), then the rest.
-    head = sess.decode(first, min(steps, 2))
+    head = decode(first, 0, min(steps, 2))
     _sync(dev)
     t2 = time.perf_counter()
-    tail = sess.decode(head[:, -1], steps - head.shape[1]) if steps > 2 \
+    tail = decode(head[:, -1], head.shape[1], steps) if steps > 2 \
         else head[:, :0]
     _sync(dev)
     t3 = time.perf_counter()

@@ -1,13 +1,14 @@
 """Shared neural building blocks of the port (``repro/models/layers.py``).
 
 Conventions, as in the JAX package: parameters are kept in
-``cfg.param_dtype`` (f32) and activations run in ``cfg.dtype``; norms,
-softmax statistics and logits are f32.  Ported so far: ``dt_of``,
-``dense_init``, ``norm``, ``rope``, ``embed``/``unembed`` (tied or not), the
-chunked online-softmax attention, ``sdpa`` (the plain attention or, under
-``attn_impl="pallas"``, the flash_attention kernel through ``ops.mha``),
-the masked decode attention, the GQA attention block with and without a
-cache, and the MLP.
+``cfg.param_dtype`` (f32 unless a config asks for bf16 masters,
+``cast_params``) and activations run in ``cfg.dtype``; norms, softmax
+statistics and logits are f32.  Ported: ``dt_of``, ``dense_init``,
+``cast_params``, ``norm``, ``rope``, ``embed``/``unembed`` (tied or not),
+the chunked online-softmax attention, ``sdpa`` (the plain attention or,
+under ``attn_impl="pallas"``, the flash_attention kernel through
+``ops.mha``), the masked decode attention, the GQA attention block with
+and without a cache, and the MLP.
 
 With a cache ({"k","v": [B, Smax, Hkv, hd]}, updated in place) the new k
 and v are written at rows ``cur_len + arange(T)``, where ``cur_len`` may be
@@ -42,6 +43,18 @@ def dense_init(gen: torch.Generator, shape, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / math.sqrt(shape[0])
     return torch.randn(shape, generator=gen, dtype=torch.float32,
                        device=gen.device) * scale
+
+
+def cast_params(cfg, tree):
+    """The floating leaves of a nested dict/list of tensors in
+    ``cfg.param_dtype`` (the JAX ``cast_params``: bf16 masters for the
+    1T-scale config, f32 otherwise); a leaf already in it is not copied."""
+    pd = DTYPES[cfg.param_dtype]
+    if isinstance(tree, dict):
+        return {k: cast_params(cfg, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(cfg, v) for v in tree]
+    return tree.to(pd) if tree.is_floating_point() else tree
 
 
 def init_norm(d: int, kind: str, device) -> dict:
@@ -276,9 +289,10 @@ def target_logprobs(logits, tokens):
 
 # -- parameters ---------------------------------------------------------------------
 
-#: parameters the JAX models use in f32 (norm scales/biases, SSM scalars);
-#: every other one they cast to the compute dtype at use.
-F32_PARAMS = frozenset({"scale", "bias", "a_log", "dt_bias"})
+#: parameters the JAX models use as stored, in ``param_dtype`` (norm
+#: scales/biases, SSM scalars, sLSTM's recurrent ``r``); every other one
+#: they cast to the compute dtype at use.
+AS_STORED = frozenset({"scale", "bias", "a_log", "dt_bias", "r"})
 
 
 class ParamTree(nn.Module):
@@ -297,10 +311,10 @@ class ParamTree(nn.Module):
 
     def tree(self, cdt: torch.dtype) -> dict:
         """The parameters as a nested dict, cast to ``cdt`` except
-        :data:`F32_PARAMS` (no copy where the dtype is already right)."""
+        :data:`AS_STORED` (no copy where the dtype is already right)."""
         out = {}
         for k, v in self.named_parameters(recurse=False):
-            out[k] = v.detach() if k in F32_PARAMS else v.detach().to(cdt)
+            out[k] = v.detach() if k in AS_STORED else v.detach().to(cdt)
         for k, m in self.named_children():
             out[k] = ([x.tree(cdt) for x in m] if isinstance(m, nn.ModuleList)
                       else m.tree(cdt))

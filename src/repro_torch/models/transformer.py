@@ -1,81 +1,102 @@
-"""Decoder-only LM of the dense family (llama3.2, granite, stablelm,
-starcoder2 backbones), port of ``repro/models/transformer.py``: the
-teacher-forced forward, the next-token loss and cached serving
-(``init_cache``, ``prefill``, ``decode_step``).
+"""Decoder-only LM of the dense and MoE families (granite, stablelm,
+starcoder2, llama3.2, the musicgen and internvl2 backbones, kimi-k2,
+deepseek-v2), port of ``repro/models/transformer.py``: the teacher-forced
+forward, the next-token loss and cached serving (``init_cache``,
+``prefill``, ``decode_step``).
 
-The module's parameters are the f32 masters, named as the JAX parameter
-tree with its stacked layer axis unstacked (``embed.tok``,
-``blocks.3.attn.wq``, ``blocks.3.ln1.scale``, ``final_norm.scale``; load the
-JAX model's with ``interop.decoder_params_from_numpy``).
-:meth:`DecoderLM.weights` casts them once to the compute dtype where the JAX
-model casts at every use.  The blocks run in a Python loop: the reference's
-``lax.scan`` and ``remat`` have no counterpart in a forward pass, and its
-stacked caches are one ``{"k","v"}`` per layer here.  Every attention
-without a cache, and the prefill's, goes through ``layers.sdpa``, so under
+The module's parameters are the masters in ``cfg.param_dtype``, named as
+the JAX parameter tree with its stacked layer axis unstacked
+(``embed.tok``, ``blocks.3.attn.wq``, ``blocks.3.moe.router``,
+``patch_proj``; load the JAX model's with
+``interop.decoder_params_from_numpy``).  :meth:`DecoderLM.weights` casts
+them once to the compute dtype where the JAX model casts at every use (no
+copy where the two dtypes agree).  The blocks run in a Python loop: the
+reference's ``lax.scan`` and ``remat`` have no counterpart in a forward
+pass, and its stacked caches are one dict per layer here (``{"k","v"}``,
+or ``{"ckv","kr"}`` under MLA).  Every GQA attention without a cache, and
+the prefill's, goes through ``layers.sdpa``, so under
 ``attn_impl="pallas"`` a CUDA tensor runs the flash_attention kernel once
-per layer; a decode step attends over the whole cache with a length mask
-(``layers.attn_masked_decode``) and reads nothing on the host.
+per layer; MLA runs the plain chunked attention (``models/moe.py``), as
+the reference does.  A decode step reads nothing on the host.
+
+A block's FFN is the MLP, or under ``n_experts`` the MoE FFN; the first
+``first_dense_layers`` blocks of an MoE model keep the MLP (of ``d_ff``),
+as ``ModelConfig.param_count`` counts them (the reference's blocks ignore
+the field, ROADMAP C9; no config sets it).
+
+Front ends (stubs, as in the reference): under ``frontend="vision"`` a
+batch is ``{"tokens": [B, T], "patch_embeds": [B, P, d]}``, the patches
+projected by ``patch_proj`` and prepended to the text, their positions out
+of the loss; under ``"audio"`` it is ``{"embeds": [B, T, d], "labels":
+[B, T]}``, precomputed frame embeddings, and a decode step takes the next
+frame's embedding [B, 1, d] in place of a token.
 
 Prefill is causal (ROADMAP C3): it computes the teacher-forced forward's
 last logits and the caches of :meth:`DecoderLM.decode_step` called once per
-prompt token.  MoE, MLA and the audio/vision front ends come with later
-slices (ROADMAP A9).
+prompt position.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.device import resolve_device
-from .layers import (ParamTree, attention, dt_of, embed, init_attn,
-                     init_embed, init_mlp, init_norm, mlp, norm,
-                     target_logprobs, unembed)
+from .layers import (ParamTree, attention, cast_params, dt_of, embed,
+                     init_attn, init_embed, init_mlp, init_norm, mlp, norm,
+                     unembed)
+from .moe import init_mla, init_moe, mla_attention, moe_ffn
 
 
-def init_block(cfg, gen: torch.Generator) -> dict:
+def init_block(cfg, gen: torch.Generator, layer: int) -> dict:
     dev = gen.device
-    return {"ln1": init_norm(cfg.d_model, cfg.norm, dev),
-            "ln2": init_norm(cfg.d_model, cfg.norm, dev),
-            "attn": init_attn(cfg, gen), "mlp": init_mlp(cfg, gen)}
+    b = {"ln1": init_norm(cfg.d_model, cfg.norm, dev),
+         "ln2": init_norm(cfg.d_model, cfg.norm, dev),
+         "attn": init_mla(cfg, gen) if cfg.use_mla else init_attn(cfg, gen)}
+    if cfg.n_experts and layer >= cfg.first_dense_layers:
+        b["moe"] = init_moe(cfg, gen)
+    else:
+        b["mlp"] = init_mlp(cfg, gen)
+    return b
 
 
 def block_apply(cfg, bp, x, positions, cache=None, cur_len=0,
                 decode=False):
     """One block; with a cache, a prefill or decode step that updates it
-    in place (``layers.attend``)."""
-    x = x + attention(cfg, bp["attn"], norm(bp["ln1"], x, cfg.norm,
-                                            cfg.norm_eps), positions,
-                      cache, cur_len, decode)
-    return x + mlp(cfg, bp["mlp"], norm(bp["ln2"], x, cfg.norm, cfg.norm_eps))
+    in place (``layers.attend``, ``moe.mla_attention``)."""
+    attn = mla_attention if cfg.use_mla else attention
+    x = x + attn(cfg, bp["attn"], norm(bp["ln1"], x, cfg.norm, cfg.norm_eps),
+                 positions, cache, cur_len, decode)
+    inner = norm(bp["ln2"], x, cfg.norm, cfg.norm_eps)
+    if "moe" in bp:
+        return x + moe_ffn(cfg, bp["moe"], inner)
+    return x + mlp(cfg, bp["mlp"], inner)
 
 
 class DecoderLM(ParamTree):
-    """Dense decoder: ``forward`` (teacher-forced logits), ``loss``,
-    ``init_cache``, ``prefill`` and ``decode_step``.  Parameters come from a seeded ``torch.Generator`` on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    """Dense or MoE decoder: ``forward`` (teacher-forced logits),
+    ``loss``, ``init_cache``, ``prefill`` and ``decode_step``.  Parameters
+    come from a seeded ``torch.Generator`` on ``device`` (the card unless
+    the caller asks for the CPU), each cast to ``cfg.param_dtype`` as it is
+    made."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
-        if cfg.family != "dense":
-            raise ValueError(f"DecoderLM needs a dense config, got "
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError(f"DecoderLM needs a dense or moe config, got "
                              f"{cfg.family}")
-        later = [what for what, on in (
-            ("MoE", cfg.n_experts), ("MLA", cfg.use_mla),
-            (f"the {cfg.frontend} front end", cfg.frontend)) if on]
-        if later:
-            raise NotImplementedError(
-                f"{', '.join(later)} ({cfg.name}) is not in the PyTorch port "
-                f"yet; it comes with a later slice of the LM substrate "
-                f"(ROADMAP A9)")
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype={cfg.param_dtype!r}: the port keeps f32 master "
-                f"weights only until the training slice")
+        if cfg.frontend not in (None, "audio", "vision"):
+            raise ValueError(f"unknown frontend {cfg.frontend!r}")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        super().__init__({
-            "embed": init_embed(cfg, gen),
-            "final_norm": init_norm(cfg.d_model, cfg.norm, dev),
-            "blocks": [init_block(cfg, gen) for _ in range(cfg.n_layers)],
-        })
+        tree = {
+            "embed": cast_params(cfg, init_embed(cfg, gen)),
+            "final_norm": cast_params(cfg, init_norm(cfg.d_model, cfg.norm,
+                                                     dev)),
+            "blocks": [cast_params(cfg, init_block(cfg, gen, i))
+                       for i in range(cfg.n_layers)],
+        }
+        if cfg.frontend == "vision":
+            tree["patch_proj"] = cast_params(cfg, torch.randn(
+                (cfg.d_model, cfg.d_model), generator=gen, device=dev) * 0.02)
+        super().__init__(tree)
         self.cfg = cfg
 
     @property
@@ -83,9 +104,36 @@ class DecoderLM(ParamTree):
         return self.final_norm.scale.device
 
     def weights(self) -> dict:
-        """The parameter tree in compute dtype (a copy when that differs
-        from f32; norm scales stay f32, as the JAX model uses them)."""
+        """The parameter tree in compute dtype (the parameters themselves
+        where ``param_dtype`` is the compute dtype; norm scales as stored,
+        as the JAX model uses them)."""
         return self.tree(dt_of(self.cfg))
+
+    def embed_inputs(self, w, batch):
+        """(x [B,T,d], labels [B,T] or None, loss mask [B,T] bool) of a
+        batch (a dict, or token ids [B,T])."""
+        if not isinstance(batch, dict):
+            batch = {"tokens": batch}
+        cdt = dt_of(self.cfg)
+        if self.cfg.frontend == "audio":
+            # the stub: precomputed EnCodec frame embeddings.
+            x = batch["embeds"].to(cdt)
+            mask = torch.ones(x.shape[:2], dtype=torch.bool, device=x.device)
+            return x, batch.get("labels"), mask
+        tokens = batch["tokens"]
+        x = embed(w["embed"], tokens)
+        if self.cfg.frontend != "vision":
+            return x, tokens, torch.ones(tokens.shape, dtype=torch.bool,
+                                         device=x.device)
+        pe = batch["patch_embeds"].to(cdt) @ w["patch_proj"]
+        B, P = pe.shape[:2]
+        x = torch.cat([pe, x], dim=1)
+        labels = torch.cat([tokens.new_zeros((B, P)), tokens], dim=1)
+        mask = torch.cat([torch.zeros((B, P), dtype=torch.bool,
+                                      device=x.device),
+                          torch.ones(tokens.shape, dtype=torch.bool,
+                                     device=x.device)], dim=1)
+        return x, labels, mask
 
     def _run(self, w, x, positions, caches=None, cur_len=0, decode=False):
         cfg = self.cfg
@@ -96,47 +144,64 @@ class DecoderLM(ParamTree):
         return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
 
     @torch.no_grad()
-    def forward(self, tokens, w=None):
-        """Teacher-forced logits [B,T,V] (f32) of tokens [B,T]."""
+    def forward(self, batch, w=None):
+        """Teacher-forced logits [B,T,V] (f32) of a batch (token ids [B,T]
+        or a front end's dict; vision: T counts the patches)."""
         w = self.weights() if w is None else w
-        x = embed(w["embed"], tokens)
+        x, _, _ = self.embed_inputs(w, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         return unembed(self.cfg, w["embed"], self._run(w, x, positions))
 
     @torch.no_grad()
     def loss(self, batch, w=None):
-        """Next-token cross-entropy of batch["tokens"] [B,T]: the mean over
-        the loss mask, which for tokens is every prediction (0 when T=1)."""
-        tokens = batch["tokens"]
-        sel = target_logprobs(self(tokens, w), tokens)
-        return -sel.sum() / max(sel.numel(), 1)
+        """Next-token cross-entropy, the mean over the loss mask: every
+        prediction of a token batch (0 when T=1), the text of a vision
+        batch after its first token, every frame's next label of an audio
+        batch."""
+        w = self.weights() if w is None else w
+        x, labels, mask = self.embed_inputs(w, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        logits = unembed(self.cfg, w["embed"], self._run(w, x, positions))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        sel = torch.gather(lp[:, :-1], -1, labels[:, 1:, None])[..., 0]
+        m = (mask[:, 1:] & mask[:, :-1]).float()
+        return -(sel * m).sum() / m.sum().clamp(min=1.0)
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
-        """One ``{"k","v": [B, max_len, Hkv, hd]}`` per layer in the
-        compute dtype (the JAX model's ``scan_layers`` stack, unstacked)."""
+        """One cache per layer in the compute dtype: ``{"k","v": [B,
+        max_len, Hkv, hd]}``, or under MLA ``{"ckv": [B, max_len, r], "kr":
+        [B, max_len, rope_head_dim]}`` (the JAX model's ``scan_layers``
+        stack, unstacked)."""
         cfg = self.cfg
-        kv = (batch_size, max_len, cfg.n_kv_heads, cfg.hd)
-        return [{k: torch.zeros(kv, dtype=dt_of(cfg), device=self.device)
-                 for k in ("k", "v")} for _ in range(cfg.n_layers)]
+        shapes = ({"ckv": (batch_size, max_len, cfg.kv_lora_rank),
+                   "kr": (batch_size, max_len, cfg.rope_head_dim)}
+                  if cfg.use_mla else
+                  dict.fromkeys(("k", "v"), (batch_size, max_len,
+                                             cfg.n_kv_heads, cfg.hd)))
+        return [{k: torch.zeros(s, dtype=dt_of(cfg), device=self.device)
+                 for k, s in shapes.items()} for _ in range(cfg.n_layers)]
 
     @torch.no_grad()
-    def prefill(self, tokens, caches, w=None):
-        """Run prompts tokens [B,T] from empty caches (filled in place);
-        returns the last position's logits [B,1,V] f32."""
+    def prefill(self, batch, caches, w=None):
+        """Run prompts (token ids [B,T] or a front end's dict) from empty
+        caches (filled in place); returns the last position's logits
+        [B,1,V] f32."""
         w = self.weights() if w is None else w
-        x = embed(w["embed"], tokens)
+        x, _, _ = self.embed_inputs(w, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, caches)
         return unembed(self.cfg, w["embed"], x[:, -1:]), caches
 
     @torch.no_grad()
     def decode_step(self, tokens, caches, cur_len, w=None):
-        """One token per row, tokens [B,1], at position ``cur_len`` (a 0-d
-        integer tensor on the model's device, or an int); caches advance in
-        place.  Returns logits [B,1,V] f32."""
+        """One position per row at ``cur_len`` (a 0-d integer tensor on the
+        model's device, or an int): tokens [B,1], or under the audio front
+        end the frame embeddings [B,1,d]; caches advance in place.  Returns
+        logits [B,1,V] f32."""
         w = self.weights() if w is None else w
         cur_len = torch.as_tensor(cur_len, device=self.device)
-        x = embed(w["embed"], tokens)
+        x = (tokens.to(dt_of(self.cfg)) if self.cfg.frontend == "audio"
+             else embed(w["embed"], tokens))
         positions = cur_len + torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, caches, cur_len, True)
         return unembed(self.cfg, w["embed"], x), caches

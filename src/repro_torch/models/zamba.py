@@ -3,8 +3,9 @@ Mamba-2 backbone plus one weight-SHARED attention block invoked every
 ``attn_every`` layers on concat(hidden, embed0), at width 2*d_model.
 
 Weights are shared across invocations; caches are not: each invocation has
-its own KV slot.  The module's parameters are the f32 masters, named as the
-JAX parameter tree (``embed.tok``, ``blocks.3.win``, ...).
+its own KV slot.  The module's parameters are the masters, named as the
+JAX parameter tree (``embed.tok``, ``blocks.3.win``, ...), in
+``cfg.param_dtype``.
 :meth:`Zamba.weights` casts them once to the compute dtype where the JAX
 model casts at every use; a serving session keeps that copy.
 
@@ -23,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .layers import (ParamTree, attention, dense_init, dt_of, embed,
-                     init_embed, init_norm, norm, target_logprobs, unembed)
+from .layers import (ParamTree, attention, cast_params, dense_init, dt_of,
+                     embed, init_embed, init_norm, norm, target_logprobs,
+                     unembed)
 from .mamba2 import init_mamba_block, mamba_apply
 
 
@@ -64,24 +66,20 @@ class Zamba(ParamTree):
     teacher-forced ``forward`` and its ``loss``.  Parameters come from a seeded
     ``torch.Generator`` on ``device`` (the card unless the caller asks for
     the CPU); load the JAX model's with
-    ``load_state_dict(interop.zamba_params_from_numpy(tree))``."""
+    ``load_state_dict(interop.params_from_numpy(tree, cfg))``."""
 
     def __init__(self, cfg, *, device="cuda", seed: int = 0):
         if cfg.family != "hybrid":
             raise ValueError(f"Zamba needs a hybrid config, got {cfg.family}")
-        if cfg.param_dtype != "float32":
-            raise NotImplementedError(
-                f"param_dtype={cfg.param_dtype!r}: the port keeps f32 master "
-                f"weights only until the training slice")
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        super().__init__({
+        super().__init__(cast_params(cfg, {
             "embed": init_embed(cfg, gen),
             "final_norm": init_norm(cfg.d_model, cfg.norm, dev),
             "shared_attn": init_shared_attn(cfg, gen),
             "blocks": [init_mamba_block(cfg, gen)
                        for _ in range(cfg.n_layers)],
-        })
+        }))
         self.cfg = cfg
         every = cfg.attn_every or 6
         self.attn_at = [i for i in range(cfg.n_layers) if i % every == 0]
@@ -150,9 +148,11 @@ class Zamba(ParamTree):
 
     @torch.no_grad()
     def prefill(self, tokens, caches, w=None):
-        """Run prompts tokens [B,T] from empty caches (filled in place);
-        returns the last position's logits [B,1,V] f32."""
+        """Run prompts tokens [B,T] (or ``{"tokens": ...}``) from empty
+        caches (filled in place); returns the last position's logits
+        [B,1,V] f32."""
         w = self.weights() if w is None else w
+        tokens = tokens["tokens"] if isinstance(tokens, dict) else tokens
         x = embed(w["embed"], tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, caches["mamba"], caches["attn"], 0,

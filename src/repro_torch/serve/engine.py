@@ -1,20 +1,30 @@
 """Serving of the port (``repro/serve/engine.py``): a batched greedy
-prefill + decode session on one device, for the hybrid (zamba2) and the
-dense (llama3.2) family.
+prefill + decode session on one device, for every family (dense and MoE
+decoders, their vision and audio front ends, xLSTM, the zamba2 hybrid).
 
 The reference compiles its decode step once per session
 (``jax.jit(make_decode_step(model))``) and passes the position ``cur_len``
 as a device scalar.  Here the session owns, on the device, the position
-``cur_len`` (a 0-d int64 tensor), the input token buffer [B, 1] and the
-caches, which the models update in place; one decode step is
-"``decode_step`` → argmax into the token buffer → ``cur_len += 1``" and
-reads nothing on the host.  On a CUDA device the first decode step of a
-session runs eagerly (it loads what the step needs) and the second
-captures that step into one CUDA graph (``core.graphs.capture``), which it
-and every later step replay; the capture itself advances nothing.  On the
-CPU every step runs eagerly.  A failed capture or replay raises; nothing
-falls back to the eager loop.  The host keeps a mirror of the length for
-its bound checks and never reads the device's.
+``cur_len`` (a 0-d int64 tensor), the step's input buffer (tokens [B, 1],
+or frame embeddings [B, 1, d] under the audio front end) and the caches
+(KV, MLA latents, SSM or xLSTM states), which the models update in place;
+one decode step is "``decode_step`` → argmax into the token buffer →
+``cur_len += 1``" and reads nothing on the host.  On a CUDA device the
+first decode step of a session runs eagerly (it loads what the step needs)
+and the second captures that step into one CUDA graph
+(``core.graphs.capture``), which it and every later step replay; the
+capture itself advances nothing.  On the CPU every step runs eagerly.  A
+failed capture or replay raises; nothing falls back to the eager loop.  The
+host keeps a mirror of the length for its bound checks and never reads the
+device's.
+
+The position after a prefill is the prompt's whole length: under the vision
+front end ``n_patches + T_text``, where the reference takes ``T_text``
+(ROADMAP C8).  Under the audio front end the greedy loop cannot run: the
+EnCodec front end is a stub, so a generated codebook token has no frame
+embedding to feed back (the reference feeds the token ids as activations
+and fails, ROADMAP C7).  Such a session decodes given frames instead
+(:meth:`ServeSession.decode_frames`).
 
 The multi-device cache shardings come with the multi-device slice.
 """
@@ -24,6 +34,18 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.graphs import capture, replay
+from ..models.layers import dt_of
+
+
+def prompt_length(batch) -> int:
+    """Positions a prefill of ``batch`` fills: the frames of an audio
+    batch, the tokens plus a vision batch's patches, or the tokens."""
+    if "embeds" in batch:
+        return batch["embeds"].shape[1]
+    n = batch["tokens"].shape[1]
+    if "patch_embeds" in batch:
+        n += batch["patch_embeds"].shape[1]
+    return n
 
 
 class ServeSession:
@@ -51,36 +73,64 @@ class ServeSession:
         self.cur_len = torch.zeros((), dtype=torch.long, device=dev)
         #: its mirror on the host, for the bound checks.
         self.length = 0
-        #: the token each decode step reads, and its argmax overwrites.
+        #: the greedy token of each step: the next step's input, or under
+        #: the audio front end only its output.
         self.tokens = torch.zeros((batch_size, 1), dtype=torch.long,
                                   device=dev)
+        cfg = model.cfg
+        self.audio = cfg.frontend == "audio"
+        #: under the audio front end, the frame each decode step reads.
+        self.frames = (torch.zeros((batch_size, 1, cfg.d_model),
+                                   dtype=dt_of(cfg), device=dev)
+                       if self.audio else None)
         self.logits = []
         self._graph = None
         self.captures = self.replays = self.eager_steps = 0
 
     def prefill(self, batch) -> torch.Tensor:
-        """Prompts {"tokens": [B, T]} → the first generated token [B]."""
-        tokens = batch["tokens"].to(self.device)
-        if tokens.shape[1] > self.max_len:
-            raise ValueError(f"prompt of {tokens.shape[1]} tokens exceeds the "
-                             f"cache's {self.max_len}")
-        logits, self.caches = self.model.prefill(tokens, self.caches,
+        """Prompts ({"tokens": [B, T]}, or a front end's batch) → the first
+        generated token [B]."""
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        n = prompt_length(batch)
+        if n > self.max_len:
+            raise ValueError(f"prompt of {n} positions exceeds the cache's "
+                             f"{self.max_len}")
+        logits, self.caches = self.model.prefill(batch, self.caches,
                                                  self.weights)
-        self.cur_len.fill_(tokens.shape[1])
-        self.length = tokens.shape[1]
+        self.cur_len.fill_(n)
+        self.length = n
         self.logits = [logits[:, -1]]
         return torch.argmax(logits[:, -1], dim=-1)
 
     def decode(self, tokens, n_steps: int) -> torch.Tensor:
         """Feed tokens [B] and decode ``n_steps`` greedy tokens → [B, n_steps]."""
+        if self.audio:
+            raise NotImplementedError(
+                f"{self.model.cfg.name}: the EnCodec front end is a stub, so "
+                f"a generated codebook token has no frame embedding to feed "
+                f"back; decode given frames with decode_frames (ROADMAP C7)")
+        B = self.tokens.shape[0]
+        self.tokens.copy_(tokens.reshape(B, 1))
+        return self._decode(n_steps)
+
+    def decode_frames(self, frames) -> torch.Tensor:
+        """Audio front end: feed the given frame embeddings frames [B, n, d]
+        one position a step and return each step's greedy codebook token
+        → [B, n]."""
+        if not self.audio:
+            raise ValueError("decode_frames needs the audio front end")
+        return self._decode(frames.shape[1], frames.to(self.device))
+
+    def _decode(self, n_steps: int, frames=None) -> torch.Tensor:
         if self.length + n_steps > self.max_len:
             raise ValueError(f"{n_steps} steps from position {self.length} "
                              f"exceed the cache's {self.max_len}")
         B = self.tokens.shape[0]
-        self.tokens.copy_(tokens.reshape(B, 1))
         out = torch.empty((B, n_steps), dtype=torch.long, device=self.device)
         logits = None
         for i in range(n_steps):
+            if frames is not None:
+                self.frames.copy_(frames[:, i:i + 1])
             step = self._advance()
             if logits is None:
                 logits = step.new_empty((n_steps,) + tuple(step.shape))
@@ -94,8 +144,9 @@ class ServeSession:
 
     def _step(self) -> torch.Tensor:
         """One decode step on the session's device state → logits [B, V]."""
-        logits, _ = self.model.decode_step(self.tokens, self.caches,
-                                           self.cur_len, self.weights)
+        logits, _ = self.model.decode_step(
+            self.frames if self.audio else self.tokens, self.caches,
+            self.cur_len, self.weights)
         self.tokens.copy_(torch.argmax(logits[:, -1:], dim=-1))
         self.cur_len.add_(1)
         return logits[:, -1]

@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
 from repro_torch.interop import (decoder_params_from_numpy,  # noqa: E402
-                                 zamba_params_from_numpy)
+                                 params_from_numpy)
 from repro_torch.models.registry import build_model  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 
@@ -86,7 +86,7 @@ def test_zamba_loss_matches_jax(impl):
     batch = jmake(jcfg, B, 40, step=3)
     m = Zamba(dataclasses.replace(treg.get_config("zamba2-1.2b", reduced=True),
                                   attn_impl=impl), device="cpu")
-    m.load_state_dict(zamba_params_from_numpy(jax.device_get(params)))
+    m.load_state_dict(params_from_numpy(jax.device_get(params), jcfg))
     loss = m.loss({"tokens": torch.from_numpy(np.array(batch["tokens"]))
                    .long()})
     assert abs(float(loss) - float(jm.loss(params, batch))) <= ATOL
@@ -163,6 +163,21 @@ def test_compute_weights_follow_the_jax_casts():
         m32.blocks[0].attn.wq.data_ptr()
 
 
+def test_bf16_masters_are_the_compute_weights():
+    """With ``param_dtype`` equal to the compute dtype (the bf16 masters
+    that 12-16 B-parameter configs need on one card), ``weights()`` hands
+    out the parameters themselves, no copy; norm scales stay as stored."""
+    cfg = dataclasses.replace(treg.get_config(ARCH, reduced=True),
+                              dtype="bfloat16", param_dtype="bfloat16")
+    m = DecoderLM(cfg, device="cpu")
+    w = m.weights()
+    assert w["blocks"][0]["attn"]["wq"].data_ptr() == \
+        m.blocks[0].attn.wq.data_ptr()
+    assert w["embed"]["tok"].data_ptr() == m.embed.tok.data_ptr()
+    assert w["final_norm"]["scale"].dtype == torch.bfloat16
+    assert all(p.dtype == torch.bfloat16 for p in m.parameters())
+
+
 @pytest.mark.parametrize("activation", ["swiglu", "gelu"])
 def test_mlp_is_jax_mlp(activation):
     import jax
@@ -187,7 +202,7 @@ def test_loss_of_one_token_is_zero_as_in_jax():
         == 0.0
 
 
-# -- configs, registries, what is left for later slices --------------------------
+# -- configs, registries, the other block kinds ------------------------------------
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_llama_config_is_the_jax_config(reduced):
@@ -207,16 +222,27 @@ def test_registry_builds_the_dense_decoder():
         cfg.param_count() + norms
 
 
-@pytest.mark.parametrize("change,match", [
-    (dict(n_experts=4, experts_per_token=2), "MoE"),
-    (dict(use_mla=True), "MLA"),
-    (dict(frontend="vision"), "front end"),
-    (dict(param_dtype="bfloat16"), "master"),
+@pytest.mark.parametrize("change,part", [
+    (dict(family="moe", n_experts=4, experts_per_token=2, moe_d_ff=32),
+     "blocks.0.moe.router"),
+    (dict(use_mla=True, kv_lora_rank=16, rope_head_dim=8), "blocks.0.attn.wukv"),
+    (dict(frontend="vision", n_patches=4), "patch_proj"),
+    (dict(param_dtype="bfloat16"), "blocks.0.attn.wq"),
 ])
-def test_decoder_refuses_what_later_slices_bring(change, match):
+def test_decoder_builds_moe_mla_front_ends_and_bf16_masters(change, part):
+    """What the dense slice refused builds and runs: its parameters are
+    counted by ``param_count`` (plus norms, plus the vision projection),
+    kept in ``param_dtype``, and the forward is finite."""
     cfg = dataclasses.replace(treg.get_config(ARCH, reduced=True), **change)
-    with pytest.raises(NotImplementedError, match=match):
-        DecoderLM(cfg, device="cpu")
+    m = DecoderLM(cfg, device="cpu")
+    sd = m.state_dict()
+    assert sd[part].dtype == getattr(torch, cfg.param_dtype)
+    extra = (2 * cfg.n_layers + 1) * cfg.d_model + (
+        cfg.d_model ** 2 if cfg.frontend else 0)
+    assert sum(p.numel() for p in m.parameters()) == \
+        cfg.param_count() + extra
+    batch = make_batch(cfg, B, 12, device="cpu")
+    assert torch.isfinite(m(batch)).all() and torch.isfinite(m.loss(batch))
 
 
 @pytest.mark.cuda

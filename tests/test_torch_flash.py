@@ -28,6 +28,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 SHAPES = [(1, 4, 2, 128, 128, 64), (2, 8, 2, 256, 256, 64),
           (1, 2, 2, 64, 64, 32), (1, 4, 1, 96, 96, 32)]
 SHORT_Q = [(1, 4, 2, 64, 128, 32), (2, 8, 2, 96, 160, 64)]
+# stablelm-12b's head dim (160) at a small T, and its ragged edge.
+STABLELM = [(1, 4, 2, 64, 64, 160), (1, 4, 1, 96, 96, 160)]
 # llama3.2-3b and zamba2-1.2b at full width (card only).
 FULL = [(4, 24, 8, 2048, 2048, 128), (4, 32, 32, 1024, 1024, 128)]
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -66,7 +68,7 @@ def _jax(arrs, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,causal", _cases(SHAPES))
+@pytest.mark.parametrize("shape,causal", _cases(SHAPES + STABLELM))
 def test_mha_matches_jax_pallas_kernel(shape, causal, dtype):
     from repro.kernels import ops as jops
     arrs = _inputs(*shape, seed=sum(shape))
@@ -83,7 +85,7 @@ def test_mha_matches_jax_pallas_kernel(shape, causal, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("shape,causal", _cases(SHAPES + SHORT_Q))
+@pytest.mark.parametrize("shape,causal", _cases(SHAPES + SHORT_Q + STABLELM))
 def test_mha_matches_jax_oracle(shape, causal, dtype):
     from repro.kernels import ref
     arrs = _inputs(*shape, seed=sum(shape) + 1)
@@ -306,7 +308,8 @@ def _card():
 @pytest.mark.parametrize("layout", ["contiguous", "view"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape,causal", _cases(
-    SHAPES + SHORT_Q + FULL + [(1, 8, 2, 1000, 1000, 128)]))
+    SHAPES + SHORT_Q + FULL + STABLELM + [(1, 8, 2, 1000, 1000, 128),
+                                          (2, 32, 8, 1024, 1024, 160)]))
 def test_kernel_matches_plain_on_card(shape, causal, dtype, layout):
     _card()
     q, k, v = _torch(_inputs(*shape, seed=sum(shape)), dtype, "cuda")
@@ -326,7 +329,7 @@ def test_kernel_matches_plain_on_card(shape, causal, dtype, layout):
 def test_kernel_refuses_what_it_cannot_take():
     _card()
     q, k, v = _torch(_inputs(1, 2, 2, 64, 64, 48, seed=0), device="cuda")
-    with pytest.raises(NotImplementedError, match="D=48.*stablelm"):
+    with pytest.raises(NotImplementedError, match="D=48.*compiled for"):
         flash_cuda(q, k, v)
     q, k, v = _torch(_inputs(1, 2, 2, 64, 64, 32, seed=0), device="cuda")
     with pytest.raises(ValueError, match="not contiguous"):
@@ -346,22 +349,23 @@ def test_head_dims_the_kernel_is_built_for_are_taken(D):
 
 
 @pytest.mark.parametrize("D,Hq,Hkv,err", [
-    (160, 4, 2, NotImplementedError), (48, 2, 2, NotImplementedError),
+    (48, 2, 2, NotImplementedError), (96, 4, 2, NotImplementedError),
     (64, 3, 2, ValueError), (160, 3, 2, ValueError), (64, 2, 0, ValueError)])
 def test_head_refusals_name_the_slice_or_the_reference_rule(D, Hq, Hkv, err):
-    # a head dim the reference takes (stablelm_12b: D = 160) is a port gap
-    # and names the slice that brings it; a GQA ratio the reference refuses
-    # too stays a ValueError.
-    with pytest.raises(err, match="stablelm" if err is NotImplementedError
+    # a head dim the reference takes but no config uses is a port gap that
+    # names where the compiled ones are listed; a GQA ratio the reference
+    # refuses too stays a ValueError.
+    with pytest.raises(err, match="compiled for" if err is NotImplementedError
                        else "multiple of Hkv"):
         check_heads(D, Hq, Hkv)
 
 
-@pytest.mark.cuda
-def test_stablelm_head_dim_is_refused_by_name_on_card():
-    _card()
-    q, k, v = _torch(_inputs(1, 4, 2, 64, 64, 160, seed=1), device="cuda")
-    before = flash_cuda.launches
-    with pytest.raises(NotImplementedError, match="D=160.*stablelm"):
-        ops.mha(q, k, v)
-    assert flash_cuda.launches == before
+def test_every_configs_head_dim_is_compiled():
+    """Every config whose attention can reach ``sdpa`` (all but xLSTM's,
+    which has none, and MLA's, which runs the plain chunked attention)."""
+    from repro_torch.configs.registry import all_archs, get_config
+    for arch in all_archs():
+        for reduced in (False, True):
+            cfg = get_config(arch, reduced)
+            if cfg.family != "xlstm" and not cfg.use_mla:
+                assert cfg.hd in HEAD_DIMS, arch

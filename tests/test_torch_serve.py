@@ -1,7 +1,7 @@
 """zamba2 serving in the port against the JAX package, at the reduced size.
 
 The JAX model's parameters (``Zamba.init(jax.random.key(2))``) are carried
-across by ``interop.zamba_params_from_numpy``; prompts come from both
+across by ``interop.params_from_numpy``; prompts come from both
 packages' ``make_batch`` (the same numpy stream).  All in f32, atol 1e-4.
 
 The JAX model has two causal paths, the teacher-forced forward (``_run``
@@ -18,7 +18,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.data.synthetic import make_batch  # noqa: E402
-from repro_torch.interop import zamba_params_from_numpy  # noqa: E402
+from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models.zamba import Zamba  # noqa: E402
 from repro_torch.serve.engine import ServeSession  # noqa: E402
 
@@ -42,7 +42,7 @@ def ref():
     jm = build_model(jcfg)
     params = jm.init(jax.random.key(2))
     model = Zamba(treg.get_config(ARCH, reduced=True), device="cpu")
-    model.load_state_dict(zamba_params_from_numpy(jax.device_get(params)))
+    model.load_state_dict(params_from_numpy(jax.device_get(params), jcfg))
     toks = jmake(jcfg, B, T, step=2)["tokens"]
     x = embed(jcfg, params["embed"], toks)
     h, _, _ = jm._run(params, x, jnp.arange(T)[None], None, None, None, False)
@@ -154,7 +154,7 @@ def test_parameters_are_the_jax_tree():
     from repro.models.registry import build_model
     jm = build_model(get_config(ARCH, reduced=True))
     tree = jax.device_get(jm.init(jax.random.key(0)))
-    sd = zamba_params_from_numpy(tree)
+    sd = params_from_numpy(tree, get_config(ARCH, reduced=True))
     model = Zamba(treg.get_config(ARCH, reduced=True), device="cpu", seed=3)
     assert sorted(sd) == sorted(model.state_dict())
     for k, v in model.state_dict().items():
@@ -283,22 +283,24 @@ def test_zamba_config_is_the_jax_config(reduced):
         (want.hd, want.d_inner, want.ssm_heads, want.param_count())
 
 
-@pytest.mark.parametrize("arch", [a for a, mod in treg.ARCHS.items()
-                                  if mod is None])
-def test_other_archs_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="slice"):
-        treg.get_config(arch)
+@pytest.mark.parametrize("arch", list(treg.ARCHS))
+def test_every_arch_has_a_config(arch):
+    cfg = treg.get_config(arch)
+    assert cfg.name == arch and treg.get_config(arch, reduced=True).name == arch
     with pytest.raises(KeyError):
         treg.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("family", ["moe", "xlstm"])
-def test_other_families_name_their_slice(family):
+@pytest.mark.parametrize("arch,cls", [
+    ("deepseek-v2-lite-16b", "DecoderLM"), ("kimi-k2-1t-a32b", "DecoderLM"),
+    ("xlstm-1.3b", "XLSTM"), ("zamba2-1.2b", "Zamba")])
+def test_every_family_builds(arch, cls):
     from repro_torch.models.registry import build_model
-    cfg = dataclasses.replace(treg.get_config(ARCH, reduced=True),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="slice"):
-        build_model(cfg, device="cpu")
+    m = build_model(treg.get_config(arch, reduced=True), device="cpu")
+    assert type(m).__name__ == cls and m.device == torch.device("cpu")
+    bad = dataclasses.replace(m.cfg, family="no-such-family")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(bad, device="cpu")
 
 
 def test_pallas_attention_names_its_slice(monkeypatch):
