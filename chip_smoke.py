@@ -168,7 +168,9 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 and (f) over NCCL where two or more cards show.  Ranks
                 sharing one card are a correctness path, not a multi-GPU
                 speed;
-  7. serve    — zamba2 serving (``ServeSession``, whose decode replays one
+  7. serve    — zamba2 serving under ``attn_impl="pallas"`` (the SSD
+                through ssd_scan, the shared attention through
+                flash_attention; ``ServeSession``, whose decode replays one
                 CUDA graph of the step per session): the reduced config on
                 the card against the CPU; the full-width zamba2-1.2b in f32
                 through the graphed session, the prefill's and every decode
@@ -178,16 +180,17 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 and replayed; the first, eager, step; the capture; tok/s;
                 peak memory) beside a loop of eager ``decode_step`` calls
                 from the same prompts (tokens and logits equal bit for bit),
-                with 38 ssd_scan launches per prefill and 0 per decode
-                step, a profile of the prefill, of a replayed decode step
-                and of an eager one (with the ssd_scan, cumsum and
-                strided-copy launches of a prefill), and ssd_scan's own
-                time per launch on the model's view beside its bound; the
-                bf16 prefill with its shared attention through
-                flash_attention (7 launches) and through the plain f32
-                attention, in turns; then one zamba2-1.2b bf16 forward
-                (B=4, T=1024) through flash_attention (7 launches) and its
-                logits' spread against the plain attention and f32;
+                with 38 ssd_scan and 7 flash_attention launches per
+                prefill and 0 per decode step, a profile of the prefill, of
+                a replayed decode step and of an eager one (with the
+                ssd_scan, cumsum and strided-copy launches of a prefill),
+                and ssd_scan's own time per launch on the model's view
+                beside its bound; the bf16 prefill through the kernels and
+                under ``"jnp"`` (the plain SSD and the plain f32
+                attention), in turns; then one zamba2-1.2b bf16 forward
+                (B=4, T=1024) through the kernels (7 flash_attention
+                launches) and its logits' spread against the plain
+                versions and f32;
   7b. serve   — llama3.2-3b serving under ``attn_impl="pallas"`` the same
                 way: the reduced config on the card against the CPU; the
                 full width in f32 (prefill and decode logits against the
@@ -226,6 +229,25 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 160 is checked with the other shapes in phase 3 and timed
                 with them after this phase, at stablelm-12b's forward and
                 prefill shapes;
+  train.      — training on the card, whose path launches no kernel (no
+                kernel has a backward; every kernel counter set to 0 before
+                the full-width run and read after): ``ops.mha`` and
+                ``ops.ssd`` refuse a gradient on card tensors, as does the
+                training loss of the reduced llama3.2 and zamba2 under
+                ``attn_impl="pallas"``; (a) one train step of every reduced
+                config (the ten, kimi-k2's bf16 masters among them) on the
+                card against the same step on the CPU: the loss, every
+                gradient leaf, every parameter after the update; (b)
+                llama3.2-3b at full width as its config stands (3.21 B
+                parameters, f32 masters, bf16 compute, ``remat="full"``,
+                ``attn_impl="jnp"``): 8 Trainer steps on one fixed batch of
+                4 x 1024 tokens at ``microbatch=2``, the loss falling; the
+                step's ms split into forward + backward and the AdamW
+                update, tokens/s, peak memory, a profile of one step by op
+                and model FLOPs (6·N·tokens) beside 989 TFLOP/s bf16; (c)
+                checkpoint and resume on the reduced llama3.2 under
+                deterministic algorithms, with a retried step: bit-equal
+                to the uninterrupted run;
   9. a JSON line listing every ported kernel (flash_attention's with a
      ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
      plain version's and SDPA's ms, the bound, the prefill shape's ms and
@@ -234,7 +256,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
 
 ``python3 chip_smoke.py --only-archs`` runs phases 1-2, flash_attention's
 checks at D = 160, phase archs and the D = 160 timings, and prints no
-result lines.
+result lines; ``--only-train`` runs phases 1-2 and phase train, and prints
+no result lines.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -244,6 +267,8 @@ import concurrent.futures
 import dataclasses
 import itertools
 import json
+import math
+import os
 import statistics
 import subprocess
 import sys
@@ -2554,34 +2579,46 @@ def ssd_bound(b, T, H, P, N, Q, x_bytes):
 
 def _served_model(dev, arch, **changes):
     """The full-width model of ``arch`` (random weights, seed 0) on the
-    card, with those config fields changed: llama3.2-3b under
-    ``attn_impl="pallas"``, zamba2-1.2b under its own attention."""
+    card, with those config fields changed, under ``attn_impl="pallas"``:
+    llama3.2-3b's attention through flash_attention, zamba2-1.2b's SSD
+    through ssd_scan and its shared attention through flash_attention
+    (the reference's dispatch: under its default ``"jnp"`` zamba2 runs
+    the plain SSD)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models.registry import build_model
     cfg = get_config(arch)
-    if arch == "llama3.2-3b":
-        changes = {"attn_impl": "pallas", **changes}
+    changes = {"attn_impl": "pallas", **changes}
     return build_model(dataclasses.replace(cfg, **changes), device=dev,
                        seed=0)
 
 
+def _prefill_launches(m) -> dict:
+    """{kernel wrapper name: launches per prefill or forward} of a model:
+    under ``"pallas"`` zamba2's prefill runs ssd_scan once per Mamba-2
+    layer and flash_attention once per shared-attention call, a dense or
+    MoE model's GQA attention flash_attention once per layer; MLA, xLSTM
+    and ``"jnp"`` run no kernel."""
+    cfg = m.cfg
+    if cfg.attn_impl != "pallas" or cfg.use_mla or cfg.family == "xlstm":
+        return {}
+    if cfg.family == "hybrid":
+        return {"ssd_cuda": cfg.n_layers, "flash_cuda": len(m.attn_at)}
+    return {"flash_cuda": cfg.n_layers}
+
+
 def _prefill_kernel(m):
-    """(kernel wrapper, launches per prefill or forward) of a model:
-    zamba2's prefill runs ssd_scan once per Mamba-2 layer; a dense or MoE
-    model's GQA attention under ``"pallas"`` runs flash_attention once per
-    layer; MLA and xLSTM run no kernel (flash_attention, 0)."""
+    """(kernel wrapper, launches per prefill or forward) of a model's
+    leading kernel: zamba2's ssd_scan, else flash_attention (0 launches
+    where the model runs none; :func:`_prefill_launches` has them all)."""
     from repro_torch.kernels.flash_attention import flash_cuda
     from repro_torch.kernels.ssd_scan import ssd_cuda
-    cfg = m.cfg
-    if cfg.family == "hybrid":
-        return ssd_cuda, cfg.n_layers
-    flash = cfg.attn_impl == "pallas" and not cfg.use_mla and \
-        cfg.family in ("dense", "moe")
-    return flash_cuda, cfg.n_layers if flash else 0
+    kernel = ssd_cuda if m.cfg.family == "hybrid" else flash_cuda
+    return kernel, _prefill_launches(m).get(kernel.__name__, 0)
 
 
 def serve_reduced(dev, arch) -> float:
-    """The reduced config on the card (a graphed session) and on the CPU,
+    """The reduced config under ``attn_impl="pallas"`` on the card (a
+    graphed session; the kernels) and on the CPU (their plain versions),
     same weights and prompts, prefill + 8 greedy tokens: tokens equal,
     logits within 1e-4."""
     import torch
@@ -2589,9 +2626,8 @@ def serve_reduced(dev, arch) -> float:
     from repro_torch.data.synthetic import make_batch
     from repro_torch.models.registry import build_model
     from repro_torch.serve.engine import ServeSession
-    cfg = get_config(arch, reduced=True)
-    if arch == "llama3.2-3b":
-        cfg = dataclasses.replace(cfg, attn_impl="pallas")
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              attn_impl="pallas")
     cpu = build_model(cfg, device="cpu", seed=0)
     card = build_model(cfg, device=dev, seed=0)
     card.load_state_dict(cpu.state_dict())
@@ -2711,9 +2747,9 @@ def serve_runs(dev, m, n_dec, repeats):
     followed by the eager ``decode_step`` loop from the same prompts with
     the session's weights: tokens and logits equal bit for bit.  Under the
     audio front end the steps read given frames.  Every kernel count is
-    set to 0 just before and read just after: the prefill kernel
-    (:func:`_prefill_kernel`) launches once per layer in each prefill and
-    never in a decode step, no other kernel runs.  Returns (prompts, the
+    set to 0 just before and read just after: the prefill's kernels
+    (:func:`_prefill_launches`) launch as often as it says in each prefill
+    and never in a decode step, no other kernel runs.  Returns (prompts, the
     runs' times, their medians over the runs after the warm-up (all, with
     no repeat), the launches)."""
     import torch
@@ -2780,8 +2816,9 @@ def serve_runs(dev, m, n_dec, repeats):
                      "steady_ms": steady, "eager_ms": eager_ms})
         del sess, logits, e_logits
     launches = {fn.__name__: fn.launches for fn in KERNELS}
-    want = {fn.__name__: 2 * per_prefill * (1 + repeats)
-            if fn is kernel else 0 for fn in KERNELS}
+    per = _prefill_launches(m)
+    want = {fn.__name__: 2 * per.get(fn.__name__, 0) * (1 + repeats)
+            for fn in KERNELS}
     if launches != want:
         raise AssertionError(f"{arch} serving launched {launches}, not "
                              f"{want} (a prefill per session and per eager "
@@ -2837,9 +2874,8 @@ def serve_timed(dev, arch):
         + " (the first is the warm-up)")
     log("serve", f"{arch} graphed decode == eager decode_step loop: tokens "
                  f"and logits equal bit for bit in every run; kernel "
-                 f"launches on the path: {launches} ({per_prefill} "
-                 f"{kernel.__name__} per prefill, 2 prefills a run, 0 per "
-                 f"decode step)")
+                 f"launches on the path: {launches} ({_prefill_launches(m)} "
+                 f"per prefill, 2 prefills a run, 0 per decode step)")
     return m, batch, med, launches[kernel.__name__]
 
 
@@ -3176,9 +3212,10 @@ def _with(model, **changes):
 
 
 def bf16_spread(name, model, tokens):
-    """bf16 logits through the kernel and through the plain attention, each
-    against the same model's f32 forward (plain attention): how far the
-    kernel moves the logits beside the model's own bf16 rounding.  Logged,
+    """bf16 logits through the kernels (``"pallas"``) and through their
+    plain versions (``"jnp"``: the plain attention, and zamba2's plain SSD),
+    each against the same model's f32 forward under ``"jnp"``: how far the
+    kernels move the logits beside the model's own bf16 rounding.  Logged,
     not gated; leaves the model's config as it found it."""
     import torch
     cfg = model.cfg
@@ -3194,8 +3231,8 @@ def bf16_spread(name, model, tokens):
                 f"agreement {float((a.argmax(-1) == b.argmax(-1)).float().mean()):.4f}")
     log("lm", f"{name} bf16 logits, {tokens.shape[0]} x {tokens.shape[1]} "
               f"tokens (max |logit| {float(ref.abs().max()):.3g} in f32): "
-              f"kernel vs plain attention {cmp(kern, plain)}; plain bf16 vs "
-              f"f32 {cmp(plain, ref)}; kernel bf16 vs f32 {cmp(kern, ref)} "
+              f"kernels vs plain {cmp(kern, plain)}; plain bf16 vs "
+              f"f32 {cmp(plain, ref)}; kernels bf16 vs f32 {cmp(kern, ref)} "
               f"(logged, not gated)")
     del kern, plain, ref
     torch.cuda.empty_cache()
@@ -3399,35 +3436,41 @@ def zamba_pallas_forward(dev, model):
 
 
 def zamba_pallas_prefill(dev, model, batch):
-    """The zamba2-1.2b bf16 prefill with its shared-attention calls through
-    the kernel (``attn_impl="pallas"``: one launch per invocation) beside
-    its own plain f32 attention, in turns (plain, kernel, kernel, plain):
-    ms by the host clock, launches, the last logits' spread (logged, not
-    gated)."""
+    """The zamba2-1.2b bf16 prefill under ``attn_impl="pallas"`` (the SSD
+    through ssd_scan, one launch per Mamba-2 layer, the shared attention
+    through flash_attention, one per invocation) beside ``"jnp"`` (the
+    plain SSD and the plain f32 attention, no kernel), in turns (plain,
+    kernels, kernels, plain): ms by the host clock, launches, the last
+    logits' spread (logged, not gated)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_cuda
+    from repro_torch.kernels.ssd_scan import ssd_cuda
     cfg, w = model.cfg, model.weights()
     ms, last = {"jnp": [], "pallas": []}, {}
     for impl in ("jnp", "pallas", "pallas", "jnp"):
         caches = model.init_cache(SERVE_BATCH, SERVE_PROMPT + SERVE_TOKENS)
-        before, t = flash_cuda.launches, []
+        before, t = (flash_cuda.launches, ssd_cuda.launches), []
         _clock(t)
         last[impl], _ = _with(model, attn_impl=impl).prefill(
             batch["tokens"], caches, w)
         _clock(t)
-        launched = flash_cuda.launches - before
-        if launched != (len(model.attn_at) if impl == "pallas" else 0):
-            raise AssertionError(f"zamba2 prefill under {impl}: {launched} "
-                                 f"flash launches")
+        launched = (flash_cuda.launches - before[0],
+                    ssd_cuda.launches - before[1])
+        if launched != ((len(model.attn_at), cfg.n_layers)
+                        if impl == "pallas" else (0, 0)):
+            raise AssertionError(f"zamba2 prefill under {impl}: "
+                                 f"{launched} flash and ssd_scan launches")
         ms[impl].append((t[1] - t[0]) * 1e3)
         del caches
     model.cfg = cfg
     d = last["pallas"] - last["jnp"]
     log("lm", f"full-width zamba2-1.2b bf16 prefill, {SERVE_BATCH} x "
-              f"{SERVE_PROMPT} tokens, in turns: shared attention through "
-              f"flash_attention ({len(model.attn_at)} launches) "
+              f"{SERVE_PROMPT} tokens, in turns: through the kernels "
+              f"(flash_attention {len(model.attn_at)} launches, ssd_scan "
+              f"{cfg.n_layers}) "
               f"{', '.join(f'{x:.2f}' for x in ms['pallas'])} ms, through the "
-              f"plain f32 attention {', '.join(f'{x:.2f}' for x in ms['jnp'])}"
+              f"plain SSD and f32 attention "
+              f"{', '.join(f'{x:.2f}' for x in ms['jnp'])}"
               f" ms; last logits max |diff| {float(d.abs().max()):.3g}, "
               f"argmax agreement "
               f"{float((last['pallas'].argmax(-1) == last['jnp'].argmax(-1)).float().mean()):.4f}"
@@ -3648,6 +3691,362 @@ def archs_phase(dev, smi):
     return stablelm_launches
 
 
+# -- phase train: training on the card -------------------------------------------------
+
+#: the full-width step: prompts, tokens per row, microbatches, the
+#: Trainer's steps on one fixed batch, then steps timed split in two.
+TRAIN_BATCH, TRAIN_T, TRAIN_MICRO, TRAIN_STEPS, TRAIN_SPLIT = 4, 1024, 2, 8, 2
+#: one reduced train step, card against CPU: the loss within
+#: TRAIN_LOSS_TOL; every gradient leaf within TRAIN_GRAD_TOL of the leaf's
+#: largest |g| (f32 leaves), or within one bf16 ulp of it (BF16_ULP, the
+#: bf16 masters of kimi-k2-1t-a32b: autograd rounds their f32 gradient to
+#: bf16, and the two devices' f32 sums can round to neighbours).
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, BF16_ULP = 1e-5, 1e-4, 2.0 ** -8
+#: AdamW moves a parameter by about lr·sign(g) wherever |g| is far below the
+#: running scale, so float noise in a near-zero gradient can move it by up
+#: to 2·lr: the updated parameters are held to TRAIN_LR_GAP·lr.
+TRAIN_LR_GAP = 2.5
+
+
+class _FixedBatch:
+    """A loader that gives the same batch at every step."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def batch_at(self, step):
+        return self.batch
+
+
+def train_refusals(dev):
+    """The kernels have no backward: ``ops.mha`` and ``ops.ssd`` on card
+    tensors that require grad raise ``NotImplementedError``, and so does
+    the training loss of the reduced llama3.2 and zamba2 under
+    ``attn_impl="pallas"``."""
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.registry import build_model
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((1, 2, 64, 64), generator=g, device=dev,
+                    requires_grad=True)
+    x = torch.randn((1, 64, 2, 16), generator=g, device=dev)
+    dt, A = torch.rand((1, 64, 2), generator=g, device=dev), torch.rand(
+        (2,), generator=g, device=dev).neg().requires_grad_()
+    Bm = torch.randn((1, 64, 16), generator=g, device=dev)
+    refused = []
+    for name, call in (("mha", lambda: ops.mha(q, q, q)),
+                       ("ssd", lambda: ops.ssd(x, dt, A, Bm, Bm, chunk=64))):
+        try:
+            call()
+        except NotImplementedError:
+            refused.append(name)
+    for arch in ("llama3.2-3b", "zamba2-1.2b"):
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  attn_impl="pallas")
+        m = build_model(cfg, device=dev, seed=0)
+        try:
+            m.train_loss(make_batch(cfg, 2, 32, device=dev))
+        except NotImplementedError:
+            refused.append(arch)
+        del m
+    if refused != ["mha", "ssd", "llama3.2-3b", "zamba2-1.2b"]:
+        raise AssertionError(f"only {refused} refused a gradient through a "
+                             f"kernel")
+    log("train", "no kernel has a backward: ops.mha and ops.ssd on card "
+                 "tensors that require grad raise NotImplementedError, and "
+                 "so does the training loss of the reduced llama3.2-3b and "
+                 "zamba2-1.2b under attn_impl='pallas'")
+
+
+def train_reduced(dev, arch) -> dict:
+    """One train step of the reduced config (f32 compute, its own
+    ``attn_impl="jnp"``) on the card and on the CPU from the same weights
+    and batch: the loss, every gradient leaf (none of them zero on one
+    device alone) and, after the AdamW update, every parameter."""
+    import torch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import loss_and_grads
+    cfg = get_config(arch, reduced=True)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    cpu = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=dev, seed=0)
+    card.load_state_dict(cpu.state_dict())
+    batch = make_batch(cfg, 2, 32, step=1, device="cpu")
+    out = {}
+    for name, m, b in (("cpu", cpu, batch),
+                       ("card", card, {k: v.to(dev) for k, v in
+                                       batch.items()})):
+        loss, grads = loss_and_grads(m, b)
+        params = dict(m.named_parameters())
+        _, _, met = opt.update(grads, opt.init(params), params, tcfg)
+        out[name] = (float(loss), {k: g.cpu() for k, g in grads.items()},
+                     {k: p.detach().cpu() for k, p in params.items()},
+                     float(met["lr"]))
+    (l0, g0, p0, lr), (l1, g1, p1, _) = out["cpu"], out["card"]
+    gerr = perr = 0.0
+    for k, want in g0.items():
+        scale = float(want.abs().max())
+        tol = (BF16_ULP if want.dtype == torch.bfloat16 else TRAIN_GRAD_TOL)
+        err = float((g1[k].float() - want.float()).abs().max())
+        if err > tol * scale or (scale == 0) != (
+                float(g1[k].abs().max()) == 0):
+            raise AssertionError(f"reduced {arch}: gradient {k} differs on "
+                                 f"the card by {err} (max |g| {scale})")
+        gerr = max(gerr, err / max(scale, 1e-30))
+        gap = float((p1[k].float() - p0[k].float()).abs().max())
+        ulp = (BF16_ULP * float(p0[k].float().abs().max())
+               if p0[k].dtype == torch.bfloat16 else 0.0)
+        if gap > TRAIN_LR_GAP * lr + ulp:
+            raise AssertionError(f"reduced {arch}: parameter {k} after the "
+                                 f"update differs on the card by {gap}")
+        perr = max(perr, gap)
+    if abs(l1 - l0) > TRAIN_LOSS_TOL:
+        raise AssertionError(f"reduced {arch}: loss {l1} on the card, {l0} "
+                             f"on the CPU")
+    return {"loss": abs(l1 - l0), "grad": gerr, "param": perr,
+            "leaves": len(g0)}
+
+
+def train_resume(dev):
+    """A reduced llama3.2-3b Trainer on the card (f32, microbatch 2, a
+    checkpoint every 4 steps) under ``torch.use_deterministic_algorithms``:
+    8 steps straight, against 4 steps, the checkpoint at step 4 and a fresh
+    Trainer (another model, other weights) resuming it for steps 4-7, with
+    the first attempt of step 5 failing in its backward and retried; each
+    step's loss, grad norm and lr, every parameter, moment and the count
+    equal bit for bit."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import SyntheticLoader
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.loop import Trainer
+    cfg = get_config("llama3.2-3b", reduced=True)
+    loader = SyntheticLoader(cfg, 4, 32, device=dev)
+    quiet = lambda s: None  # noqa: E731
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            tcfg = TrainConfig(learning_rate=3e-3, total_steps=8,
+                               warmup_steps=2, microbatch=2,
+                               checkpoint_every=4,
+                               checkpoint_dir=f"{d}/straight")
+            pa, oa, ha = Trainer(build_model(cfg, device=dev), tcfg,
+                                 loader=loader, log=quiet).run(8)
+            tcfg = dataclasses.replace(tcfg, checkpoint_dir=f"{d}/resumed")
+            Trainer(build_model(cfg, device=dev), tcfg, loader=loader,
+                    log=quiet).run(4)
+            saved = ckpt.latest_step(tcfg.checkpoint_dir)
+            m = build_model(cfg, device=dev, seed=9)
+            calls, failed = [0], []
+
+            def fail_once(grad):
+                # the backwards run 2 a step (microbatch 2): the third is
+                # the first of step 5.
+                calls[0] += 1
+                if calls[0] == 3:
+                    failed.append(calls[0])
+                    raise RuntimeError("injected failure in step 5")
+                return grad
+            m.embed.tok.register_hook(fail_once)
+            logs = []
+            tr = Trainer(m, tcfg, loader=loader, log=logs.append)
+            pc, oc, hc = tr.run(8)
+    finally:
+        torch.use_deterministic_algorithms(was)
+    same = all(torch.equal(pa[k], pc[k]) and torch.equal(oa.mu[k], oc.mu[k])
+               and torch.equal(oa.nu[k], oc.nu[k]) for k in pa)
+    metrics = [{k: h[k] for k in ("step", "loss", "grad_norm", "lr")}
+               for h in hc]
+    if saved != 4 or logs[:1] != ["[train] resumed from step 4"] or \
+            failed != [3] or tr.step_fn.failures != 1 or not same or \
+            not torch.equal(oa.count, oc.count) or metrics != [
+                {k: h[k] for k in ("step", "loss", "grad_norm", "lr")}
+                for h in ha[4:]]:
+        raise AssertionError(f"resume: checkpoint at {saved}, log {logs[:1]}"
+                             f", failures {tr.step_fn.failures}, states equal "
+                             f"{same}, metrics {metrics} against "
+                             f"{ha[4:]}")
+    log("train", f"resume on the card (reduced llama3.2-3b, f32, microbatch "
+                 f"2, deterministic algorithms): 8 steps straight == 4 "
+                 f"steps + checkpoint at step 4 + a fresh Trainer resuming "
+                 f"steps 4-7, bit for bit (losses, grad norms, lr, "
+                 f"{len(pa)} parameters, both moments, the count); the first "
+                 f"attempt of step 5 failed in its backward (injected) and "
+                 f"its retry gave the same bits; losses "
+                 + ", ".join(f"{h['loss']:.5f}" for h in ha))
+
+
+def _op_kind(key: str) -> str:
+    """A device op's kind, by its kernel's name: f32 products on the CUDA
+    cores, tensor-core products, casts and copies, reductions, the other
+    elementwise passes."""
+    k = key.lower()
+    if "sgemm" in k or "f32f32" in k:
+        return "f32 SIMT GEMMs"
+    if "gemm" in k or "nvjet" in k or "xmma" in k:
+        return "tensor-core GEMMs"
+    if "direct_copy" in k or "copy" in k:
+        return "casts and copies"
+    if "reduce" in k:
+        return "reductions"
+    if "elementwise" in k:
+        return "elementwise"
+    return "other"
+
+
+def train_full(dev, smi) -> dict:
+    """llama3.2-3b at full width as its config stands (f32 masters, bf16
+    compute, ``remat="full"``, ``attn_impl="jnp"``): the Trainer's
+    TRAIN_STEPS steps on one fixed batch of TRAIN_BATCH x TRAIN_T tokens
+    at ``microbatch=TRAIN_MICRO`` (the loss must fall; every kernel
+    count set to 0 before and read after: no kernel runs), then
+    TRAIN_SPLIT steps timed in two parts by CUDA events (forward +
+    backward, the AdamW update), a profile of one step by op, peak memory,
+    model FLOPs (6·N·tokens) against the card's bf16 rate."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import loss_and_grads
+    cfg = get_config("llama3.2-3b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = build_model(cfg, device=dev, seed=0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n = _n_params(m)
+    tokens = TRAIN_BATCH * TRAIN_T
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_T, device=dev)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, microbatch=TRAIN_MICRO,
+                       checkpoint_every=0)
+    lines = []
+    tr = Trainer(m, tcfg, loader=_FixedBatch(batch), log=lines.append)
+    params = dict(m.named_parameters())
+    for fn in KERNELS:
+        fn.launches = 0
+    _, state, hist = tr.run(TRAIN_STEPS, start=(params, opt.init(params), 0))
+    launches = {fn.__name__: fn.launches for fn in KERNELS}
+    peak_run = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    if any(launches.values()) or not all(map(math.isfinite, losses)) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"full-width llama3.2-3b training: losses "
+                             f"{losses}, kernel launches {launches}")
+    step_ms = [1e3 * h["step_s"] for h in hist]
+    med_ms = statistics.median(step_ms[1:])
+    split = []
+    for _ in range(TRAIN_SPLIT):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        _, grads = loss_and_grads(m, batch, TRAIN_MICRO)
+        ev[1].record()
+        _, state, _ = opt.update(grads, state, params, tcfg)
+        ev[2].record()
+        torch.cuda.synchronize()
+        del grads
+        split.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+    fb_ms = statistics.median(a for a, _ in split)
+    up_ms = statistics.median(b for _, b in split)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = tr.step_fn.fn(state, batch)
+        torch.cuda.synchronize()
+    rows = _device_rows(prof)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    flops = 6 * n * tokens
+    peak = torch.cuda.max_memory_allocated()
+    log("train", f"full-width llama3.2-3b ({n:,} params, f32 masters, "
+                 f"{cfg.dtype} compute, remat={cfg.remat!r}, attn_impl="
+                 f"{cfg.attn_impl!r}), built in {t_build:.1f} s; "
+                 f"{TRAIN_STEPS} Trainer steps on one fixed batch of "
+                 f"{TRAIN_BATCH} x {TRAIN_T} tokens, microbatch "
+                 f"{TRAIN_MICRO}, lr {tcfg.learning_rate} (warmup 1, cosine "
+                 f"to step {TRAIN_STEPS}): losses "
+                 + ", ".join(f"{x:.4f}" for x in losses)
+                 + f" (falls); kernel launches {launches} (no kernel on the "
+                 f"training path)")
+    log("train", f"full-width llama3.2-3b step: median {med_ms:.1f} ms "
+                 f"(host clock, steps 1-{TRAIN_STEPS - 1}; step 0 "
+                 f"{step_ms[0]:.1f} ms with the warm-up), "
+                 f"{tokens / (med_ms / 1e3):.0f} tokens/s; split by CUDA "
+                 f"events (median of {TRAIN_SPLIT}): forward + backward "
+                 f"{fb_ms:.1f} ms, AdamW update {up_ms:.1f} ms; model "
+                 f"FLOPs 6·N·tokens = {flops:.4g} per step = "
+                 f"{flops / (med_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+                 f"{100 * flops / (med_ms / 1e3) / BF16_FLOPS:.1f} % of "
+                 f"{BF16_FLOPS / 1e12:g} TFLOP/s bf16; peak device memory "
+                 f"{peak_run / 2**30:.2f} GiB in the Trainer's steps "
+                 f"({peak / 2**30:.2f} GiB by the end); {smi}")
+    log("train", "per step (ms, host clock): "
+        + ", ".join(f"{x:.1f}" for x in step_ms) + "; split (fwd+bwd, "
+        "update) " + ", ".join(f"{a:.1f}/{b:.1f}" for a, b in split))
+    log("profile", f"llama3.2-3b train step: device busy {busy_ms:.1f} ms in "
+                   f"{sum(r[1] for r in rows)} device ops = " + (
+                       f"{100 * busy_ms / med_ms:.1f} % of the untraced "
+                       f"median {med_ms:.1f} ms" if busy_ms else
+                       "not measured (the profiler saw no device time)"))
+    for us, cnt, key in rows[:12]:
+        log("profile", f"  {us / 1e3:9.3f} ms {cnt:6d}x  {key[:90]}")
+    kinds = {}
+    for us, cnt, key in rows:
+        kind = _op_kind(key)
+        kinds[kind] = [a + b for a, b in zip(kinds.get(kind, (0, 0)),
+                                              (us, cnt))]
+    log("profile", "llama3.2-3b train step by kind: " + "; ".join(
+        f"{k} {us / 1e3:.1f} ms ({cnt}x)" for k, (us, cnt) in sorted(
+            kinds.items(), key=lambda kv: -kv[1][0])))
+    del m, tr, params, state, batch
+    torch.cuda.empty_cache()
+    return {"step_ms": med_ms, "fwd_bwd_ms": fb_ms, "update_ms": up_ms,
+            "tok_s": tokens / (med_ms / 1e3), "peak_gib": peak_run / 2**30,
+            "busy": busy_ms / med_ms if busy_ms else None}
+
+
+def train_phase(dev, smi):
+    """(refusals) the kernels refuse a gradient; (a) every reduced config's
+    train step, card against CPU; (b) full-width llama3.2-3b trained; (c)
+    checkpoint, resume and a retried step on the card."""
+    import torch
+    from repro_torch.configs.registry import all_archs
+    t_phase = time.perf_counter()
+    train_refusals(dev)
+    errs = {arch: train_reduced(dev, arch) for arch in all_archs()}
+    log("train", f"one train step of every reduced config (f32 compute, "
+                 f"attn_impl='jnp', 2 x 32 positions), card == CPU from the "
+                 f"same weights: loss within {TRAIN_LOSS_TOL}, every "
+                 f"gradient leaf within {TRAIN_GRAD_TOL} of its largest |g| "
+                 f"(bf16 leaves {BF16_ULP}), none zero on one device alone, "
+                 f"every parameter after the update within "
+                 f"{TRAIN_LR_GAP}·lr; max |loss diff|, max gradient error "
+                 f"/ max |g|, max parameter gap: " + "; ".join(
+                     f"{a} {e['loss']:.3g} {e['grad']:.3g} {e['param']:.3g} "
+                     f"({e['leaves']} leaves)" for a, e in errs.items()))
+    torch.cuda.empty_cache()
+    full = train_full(dev, smi)
+    train_resume(dev)
+    log("train", f"phase time {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return full
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3656,7 +4055,14 @@ def main(argv=None) -> int:
     ap.add_argument("--only-archs", action="store_true",
                     help="run phases 1-2, flash_attention at D = 160 and "
                          "phase archs, and print no result lines")
+    ap.add_argument("--only-train", action="store_true",
+                    help="run phases 1-2 and phase train, and print no "
+                         "result lines")
     args = ap.parse_args(argv)
+    # phase train's resume check runs under deterministic algorithms, whose
+    # cuBLAS needs this before its first handle (32 MiB of workspace, the
+    # default on Hopper).
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -3734,6 +4140,11 @@ def main(argv=None) -> int:
         time_flash(dev, torch.empty(64 * 2**20, dtype=torch.uint8,
                                     device=dev), FLASH_TIMED[-2:])
         log("archs", "--only-archs: the other phases and the result lines "
+                     "were not run")
+        return 0
+    if args.only_train:
+        train_phase(dev, smi)
+        log("train", "--only-train: the other phases and the result lines "
                      "were not run")
         return 0
 
@@ -3968,6 +4379,10 @@ def main(argv=None) -> int:
             for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
     d160["prefill_ms"] = flash_times["stablelm-12b prefill", "bfloat16"]["ms"]
     d160["launches_per_forward"] = d160_launches
+
+    # train. training on the card: no kernel on its path -------------------------
+    train_phase(dev, smi)
+    torch.cuda.empty_cache()
 
     # 9. result lines --------------------------------------------------------------
     kernels = [{

@@ -2,10 +2,11 @@
 ``ModelConfig`` (``repro/configs/base.py``), copied field for field so that
 ``reduced()`` and ``dataclasses.replace`` work alike in both packages.
 
-Fields that select a TPU execution strategy (``scan_layers``, ``remat``,
-``sharding_mode``, ``decode_attn``, ``moe_buf_layout``, ...) are kept for the
-copy's sake and read by nothing in the port yet.  ``ShapeConfig`` and
-``TrainConfig`` come with the training slice.
+``remat`` selects the training loss's checkpointing (``layers.remat``).
+Fields that select a TPU execution strategy (``scan_layers``,
+``sharding_mode``, ``decode_attn``, ``moe_buf_layout``, ...) are kept for
+the copy's sake and read by nothing in the port yet.  ``TrainConfig`` is
+the reference's, field for field; ``ShapeConfig`` comes with the dry run.
 """
 from __future__ import annotations
 
@@ -136,3 +137,20 @@ class ModelConfig:
         all_experts = moe_layers * self.n_experts * n_mat * d * self.moe_d_ff
         active_experts = moe_layers * self.experts_per_token * n_mat * d * self.moe_d_ff
         return full - all_experts + active_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: int = 0              # 0 → no accumulation
+    seed: int = 0
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "ckpt"
+    keep_checkpoints: int = 3

@@ -4,7 +4,10 @@ package, so both packages see the same prompts, patches and frames.
 
 Token ids and labels are int64 here (int32 in the JAX package); front-end
 embeddings are drawn in float64 and cast once to the compute dtype.
-``SyntheticLoader`` is training's and comes with the training slice.
+``SyntheticLoader`` is training's: shard ``shard`` of ``n_shards`` draws
+its slice of step ``step`` from the seed ``seed * 131 + shard``, the
+reference's rule, so a restarted run reads exactly the batches it would
+have read.
 """
 from __future__ import annotations
 
@@ -53,3 +56,23 @@ def make_batch(cfg, batch: int, seq: int, step: int = 0, seed: int = 0,
         return {"tokens": tokens,
                 "patch_embeds": normal((batch, cfg.n_patches, cfg.d_model))}
     return {"tokens": ints((batch, seq))}
+
+
+class SyntheticLoader:
+    """Sharded iterator: each data shard regenerates its slice of a step's
+    global batch on its own, on ``device``."""
+
+    def __init__(self, cfg, global_batch: int, seq: int, seed: int = 0,
+                 shard: int = 0, n_shards: int = 1, *, device="cuda"):
+        if global_batch % n_shards:
+            raise ValueError(f"a global batch of {global_batch} does not "
+                             f"split into {n_shards} shards")
+        self.cfg, self.seq, self.seed = cfg, seq, seed
+        self.local_batch = global_batch // n_shards
+        self.shard = shard
+        self.device = resolve_device(device)
+
+    def batch_at(self, step: int):
+        return make_batch(self.cfg, self.local_batch, self.seq, step,
+                          seed=self.seed * 131 + self.shard,
+                          device=self.device)

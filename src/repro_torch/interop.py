@@ -37,6 +37,12 @@ the host, as the port's ({"k","v"} or MLA's {"ckv","kr"} per layer, the
 zamba2 parts, xLSTM's matrix memories and (c, n, h) triples);
 :func:`caches_to_numpy` goes the other way, so that both packages can
 decode on from the same mid-decode state.
+
+:func:`opt_state_from_numpy` carries the JAX ``AdamWState`` across (read
+by field name: ``mu``, ``nu`` shaped as the parameters, in bf16 or f32,
+and the int32 ``count``) as the port's, with the moments keyed as the
+port's parameters and in f32; gradient trees cross as parameter trees
+(:func:`params_from_numpy`).
 """
 from __future__ import annotations
 
@@ -48,6 +54,7 @@ from .core.device import resolve_device
 from .core.events import EventBatch
 from .core.pipeline.base import EngineState, Stats
 from .models.layers import DTYPES
+from .train.optimizer import AdamWState
 
 
 def _to(a, device, dtype=None) -> torch.Tensor:
@@ -254,3 +261,18 @@ def caches_to_numpy(caches, cfg):
     if cfg.scan_layers:
         return {k: np.stack([d[k] for d in layers]) for k in layers[0]}
     return layers
+
+
+def opt_state_from_numpy(tree, cfg, device="cuda"):
+    """A host copy of the JAX ``AdamWState`` of ``cfg``'s model (``mu`` and
+    ``nu`` shaped as its parameters, a ``scan_layers`` stack unstacked;
+    bf16 or f32) → the port's ``train.optimizer.AdamWState`` on ``device``:
+    the moments keyed as the port's parameters, in f32 (bf16 values are
+    exact in f32), the count an int32 0-d tensor."""
+    dev = resolve_device(device)
+
+    def moments(t):
+        return {k: v.to(dev, torch.float32)
+                for k, v in params_from_numpy(t, cfg).items()}
+    count = torch.from_numpy(np.array(tree.count, np.int32).reshape(()))
+    return AdamWState(moments(tree.mu), moments(tree.nu), count.to(dev))

@@ -2,9 +2,17 @@
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a tensor on
 a CUDA device goes to the hand-written kernel, which launches or raises.
+
+No kernel has a backward (nor has any of the JAX package's Pallas kernels:
+``jax.grad`` through its ``ops.mha`` fails), so :func:`mha` and :func:`ssd`
+refuse to run when autograd would differentiate them, on the CPU as on the
+card: a loss taken through them would otherwise hand every parameter
+upstream a zero gradient.  Training runs under ``attn_impl="jnp"``, whose
+plain attention and :func:`ssd_plain` differentiate.
 """
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 
 from .event_apply import event_apply_cuda, event_apply_ref
@@ -18,6 +26,15 @@ KERNELS = (event_apply_cuda, flash_cuda, ssd_cuda)
 #: the key block of the JAX package's ``ops.mha``; its non-causal rule
 #: (Tk a multiple of the block) is kept, though the kernel masks the edge.
 KEY_BLOCK = 128
+
+
+def _refuse_grad(name, *inputs):
+    """Raise when grad mode is on and an input requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise NotImplementedError(
+            f"{name}: the kernel has no backward, so a gradient cannot pass "
+            f"through it; train under attn_impl=\"jnp\" (attn_impl="
+            f"\"pallas\" is a serving and evaluation setting)")
 
 
 def _route(name, t, cuda_fn, cpu_fn):
@@ -50,7 +67,11 @@ def mha(q, k, v, *, causal: bool = True):
     Nothing is padded: the kernel masks the ragged edges itself.  Nothing is
     copied either: the kernel reads q, k and v through their strides, so a
     [B, H, T, D] view of the model's [B, T, H, D] activations goes in as it
-    is, and on the card the output has q's layout."""
+    is, and on the card the output has q's layout.
+
+    Raises ``NotImplementedError`` when autograd would differentiate it
+    (see the module's docstring)."""
+    _refuse_grad("mha (flash_attention)", q, k, v)
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 \
             or k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3]:
         raise ValueError(f"mha: needs q [B,Hq,Tq,D] and k, v [B,Hkv,Tk,D], "
@@ -91,8 +112,24 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, final_state=None):
     """Mamba-2 SSD.  x: [b,T,H,P]; dt: [b,T,H]; A: [H]; B,C: [b,T,N] →
     y [b,T,H,P] like x.  T is padded and the output sliced back
     (:func:`ssd_pad`).  ``final_state`` (f32 [b,H,N,P]), if given, receives
-    the SSM state after step T (the padded steps leave it unchanged)."""
+    the SSM state after step T (the padded steps leave it unchanged).
+
+    Raises ``NotImplementedError`` when autograd would differentiate it
+    (see the module's docstring)."""
+    _refuse_grad("ssd (ssd_scan)", x, dt, A, B, C)
     fn = _route("ssd", x, ssd_cuda, ssd_ref)
     x_, dt_, B_, C_, ch = ssd_pad(x, dt, B, C, chunk=chunk)
     return fn(x_, dt_, A.contiguous(), B_, C_, chunk=ch,
               final_state=final_state)[:, :x.shape[1]]
+
+
+def ssd_plain(x, dt, A, B, C, *, chunk: int = 128, final_state=None):
+    """The plain Mamba-2 SSD on any device, under :func:`ssd`'s chunk rule:
+    what ``mamba_apply`` runs under ``attn_impl="jnp"``, the counterpart of
+    the JAX package's ``ref.ssd_ref``, which its ``mamba_apply`` runs under
+    that setting.  It is that setting's production function, not a
+    fall-back: it runs on a CUDA tensor as on the CPU, and differentiates.
+    Same arguments and result as :func:`ssd`."""
+    x_, dt_, B_, C_, ch = ssd_pad(x, dt, B, C, chunk=chunk)
+    return ssd_ref(x_, dt_, A, B_, C_, chunk=ch,
+                   final_state=final_state)[:, :x.shape[1]]

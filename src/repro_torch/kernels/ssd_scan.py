@@ -39,9 +39,12 @@ MAX_BF16_STATE = 64
 
 def ssd_ref(x, dt, A, B, C, *, chunk: int, final_state=None):
     """Plain PyTorch version: the chunked form, vectorised over (b, h), one
-    loop step per chunk.  Used on the CPU and as the kernel's yardstick.
-    With ``final_state`` (f32 [b, H, N, P]) the carried h is copied into it
-    at the end."""
+    loop step per chunk.  Used on the CPU, as the kernel's yardstick, and on
+    any device as the port's counterpart of the JAX package's
+    ``ref.ssd_ref``: the production SSD of ``attn_impl="jnp"``
+    (``ops.ssd_plain``), through which training differentiates.  With
+    ``final_state`` (f32 [b, H, N, P]) the carried h is copied into it at
+    the end."""
     b, T, H, P = x.shape
     N = B.shape[-1]
     Q = chunk

@@ -8,7 +8,8 @@ statistics and logits are f32.  Ported: ``dt_of``, ``dense_init``,
 the chunked online-softmax attention, ``sdpa`` (the plain attention or,
 under ``attn_impl="pallas"``, the flash_attention kernel through
 ``ops.mha``), the masked decode attention, the GQA attention block with
-and without a cache, and the MLP.
+and without a cache, and the MLP; the trainable parameter tree and the
+``cfg.remat`` policy of the training loss (:func:`remat`).
 
 With a cache ({"k","v": [B, Smax, Hkv, hd]}, updated in place) the new k
 and v are written at rows ``cur_len + arange(T)``, where ``cur_len`` may be
@@ -22,11 +23,14 @@ prompt position see later ones; the port does not copy that.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels import ops
 
@@ -296,8 +300,9 @@ AS_STORED = frozenset({"scale", "bias", "a_log", "dt_bias", "r"})
 
 
 class ParamTree(nn.Module):
-    """A nested dict/list of tensors as frozen parameters, so that the
-    state-dict keys are the JAX tree's paths (``blocks.0.ln.scale``)."""
+    """A nested dict/list of tensors as trainable parameters (the masters),
+    so that the state-dict keys are the JAX tree's paths
+    (``blocks.0.ln.scale``)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -307,15 +312,49 @@ class ParamTree(nn.Module):
             elif isinstance(v, list):
                 self.add_module(k, nn.ModuleList(ParamTree(x) for x in v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self, cdt: torch.dtype) -> dict:
         """The parameters as a nested dict, cast to ``cdt`` except
-        :data:`AS_STORED` (no copy where the dtype is already right)."""
+        :data:`AS_STORED` (no copy where the dtype is already right).  Under
+        grad mode the casts stay in the autograd graph, so gradients reach
+        the masters in their own dtype; the models' ``weights()`` take this
+        copy under ``no_grad``, for serving and evaluation."""
         out = {}
         for k, v in self.named_parameters(recurse=False):
-            out[k] = v.detach() if k in AS_STORED else v.detach().to(cdt)
+            out[k] = v if k in AS_STORED else v.to(cdt)
         for k, m in self.named_children():
             out[k] = ([x.tree(cdt) for x in m] if isinstance(m, nn.ModuleList)
                       else m.tree(cdt))
         return out
+
+
+# -- rematerialisation ----------------------------------------------------------------
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``checkpoint_dots_with_no_batch_dims``: keep the outputs of plain 2-D
+    products (``aten.mm``, which ``x @ w`` of an activation and a weight
+    lowers to), recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT = ("none", "full", "dots")
+
+
+def remat(policy: str, fn, *args):
+    """``fn(*args)`` under the reference's ``_maybe_remat`` policy
+    (``repro/models/transformer.py:47``): ``"none"`` keeps every
+    intermediate for the backward, ``"full"`` keeps only the inputs and
+    recomputes ``fn`` in the backward, ``"dots"`` keeps the outputs of 2-D
+    products and recomputes the rest.  Without grad mode there is no
+    backward, and ``fn`` simply runs."""
+    if policy not in REMAT:
+        raise ValueError(f"unknown remat policy {policy!r}; one of {REMAT}")
+    if policy == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=functools.partial(
+                          create_selective_checkpoint_contexts, _save_dots))

@@ -1,8 +1,12 @@
 """Mamba-2 block (SSD) of the zamba2 hybrid (``repro/models/mamba2.py``).
 
-Prefill and the teacher-forced forward run the chunked SSD through
+Prefill and the teacher-forced forward run the chunked SSD as the JAX
+package dispatches it: under ``attn_impl="pallas"`` through
 :func:`repro_torch.kernels.ops.ssd` (the ``ssd_scan`` kernel on the card,
-its plain version on the CPU); decode runs the O(1) per-step recurrence.
+its plain version on the CPU; no backward), otherwise through
+:func:`repro_torch.kernels.ops.ssd_plain`, the counterpart of the JAX
+package's ``ref.ssd_ref`` on any device, which training differentiates.
+Decode runs the O(1) per-step recurrence.
 State = (conv window ``[B, W-1, C]``, SSM state ``h [B, H, N, P]`` f32),
 constant in sequence length.  Parameters ``p`` are the block's weights in
 compute dtype (see :meth:`repro_torch.models.zamba.Zamba.weights`).
@@ -102,9 +106,11 @@ def mamba_apply(cfg, p, x, state=None, decode=False):
         y = torch.einsum("bn,bhnp->bhp", Cm[:, 0].float(), h)
         y = y[:, None].to(cdt)                                     # [B,1,H,P]
     else:
-        # with a state, the scan itself leaves its final h there.
-        y = ops.ssd(xs, dt, A, Bm.float(), Cm.float(), chunk=cfg.ssd_chunk,
-                    final_state=None if state is None else state["h"]).to(cdt)
+        # the reference's dispatch (``repro/models/mamba2.py:95``); with a
+        # state, the scan itself leaves its final h there.
+        scan = ops.ssd if cfg.attn_impl == "pallas" else ops.ssd_plain
+        y = scan(xs, dt, A, Bm.float(), Cm.float(), chunk=cfg.ssd_chunk,
+                 final_state=None if state is None else state["h"]).to(cdt)
     if state is not None:
         state["conv"].copy_(new_conv)
 

@@ -133,6 +133,21 @@ def moe_ffn(cfg, p, x):
     return y.reshape(B, T, d)
 
 
+def aux_load_balance_loss(cfg, router_logits):
+    """The Switch-style load-balance auxiliary of the reference
+    (``repro/models/moe.py:108``; per layer, averaged by the caller, and,
+    as there, called by no loss): E · Σ_e frac_e · imp_e over the leading
+    axis of ``router_logits`` [..., E], frac the share of rows whose top-1
+    expert is e (``torch.argmax`` takes the first of tied maxima, as
+    ``jnp.argmax`` does) and imp the mean router probability of e."""
+    probs = torch.softmax(router_logits.float(), dim=-1)
+    E = probs.shape[-1]
+    top1 = torch.argmax(probs, dim=-1)
+    frac = F.one_hot(top1, E).float().mean(dim=0)
+    imp = probs.mean(dim=0)
+    return E * torch.sum(frac * imp)
+
+
 # -- MLA attention -----------------------------------------------------------------
 
 def init_mla(cfg, gen: torch.Generator) -> dict:

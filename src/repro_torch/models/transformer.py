@@ -10,11 +10,19 @@ the JAX parameter tree with its stacked layer axis unstacked
 ``patch_proj``; load the JAX model's with
 ``interop.decoder_params_from_numpy``).  :meth:`DecoderLM.weights` casts
 them once to the compute dtype where the JAX model casts at every use (no
-copy where the two dtypes agree).  The blocks run in a Python loop: the
-reference's ``lax.scan`` and ``remat`` have no counterpart in a forward
-pass, and its stacked caches are one dict per layer here (``{"k","v"}``,
-or ``{"ckv","kr"}`` under MLA).  Every GQA attention without a cache, and
-the prefill's, goes through ``layers.sdpa``, so under
+copy where the two dtypes agree).  The blocks run in a Python loop where
+the reference scans them, and its stacked caches are one dict per layer
+here (``{"k","v"}``, or ``{"ckv","kr"}`` under MLA).
+
+Serving and evaluation (``forward``, ``loss``, ``prefill``,
+``decode_step``) run under ``no_grad``.  :meth:`DecoderLM.train_loss` is
+the reference's ``loss`` as ``train_step`` differentiates it: the masters
+cast to the compute dtype inside the autograd graph, each block under the
+``cfg.remat`` policy (``layers.remat``: none, full, or keep the 2-D
+products), the same number as ``loss``.
+
+Every GQA attention without a cache, and the prefill's, goes through
+``layers.sdpa``, so under
 ``attn_impl="pallas"`` a CUDA tensor runs the flash_attention kernel once
 per layer; MLA runs the plain chunked attention (``models/moe.py``), as
 the reference does.  A decode step reads nothing on the host.
@@ -42,7 +50,7 @@ import torch
 from ..core.device import resolve_device
 from .layers import (ParamTree, attention, cast_params, dt_of, embed,
                      init_attn, init_embed, init_mlp, init_norm, mlp, norm,
-                     unembed)
+                     remat, unembed)
 from .moe import init_mla, init_moe, mla_attention, moe_ffn
 
 
@@ -103,10 +111,11 @@ class DecoderLM(ParamTree):
     def device(self) -> torch.device:
         return self.final_norm.scale.device
 
+    @torch.no_grad()
     def weights(self) -> dict:
-        """The parameter tree in compute dtype (the parameters themselves
-        where ``param_dtype`` is the compute dtype; norm scales as stored,
-        as the JAX model uses them)."""
+        """The parameter tree in compute dtype, for serving and evaluation
+        (the parameters themselves where ``param_dtype`` is the compute
+        dtype; norm scales as stored, as the JAX model uses them)."""
         return self.tree(dt_of(self.cfg))
 
     def embed_inputs(self, w, batch):
@@ -135,12 +144,15 @@ class DecoderLM(ParamTree):
                                      device=x.device)], dim=1)
         return x, labels, mask
 
-    def _run(self, w, x, positions, caches=None, cur_len=0, decode=False):
+    def _run(self, w, x, positions, caches=None, cur_len=0, decode=False,
+             policy="none"):
         cfg = self.cfg
         for i, bp in enumerate(w["blocks"]):
-            x = block_apply(cfg, bp, x, positions,
-                            None if caches is None else caches[i], cur_len,
-                            decode)
+            if caches is None:
+                x = remat(policy, block_apply, cfg, bp, x, positions)
+            else:
+                x = block_apply(cfg, bp, x, positions, caches[i], cur_len,
+                                decode)
         return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
 
     @torch.no_grad()
@@ -152,20 +164,29 @@ class DecoderLM(ParamTree):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         return unembed(self.cfg, w["embed"], self._run(w, x, positions))
 
+    def _loss(self, w, batch, policy="none"):
+        x, labels, mask = self.embed_inputs(w, batch)
+        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        logits = unembed(self.cfg, w["embed"],
+                         self._run(w, x, positions, policy=policy))
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        sel = torch.gather(lp[:, :-1], -1, labels[:, 1:, None])[..., 0]
+        m = (mask[:, 1:] & mask[:, :-1]).float()
+        return -(sel * m).sum() / m.sum().clamp(min=1.0)
+
     @torch.no_grad()
     def loss(self, batch, w=None):
         """Next-token cross-entropy, the mean over the loss mask: every
         prediction of a token batch (0 when T=1), the text of a vision
         batch after its first token, every frame's next label of an audio
         batch."""
-        w = self.weights() if w is None else w
-        x, labels, mask = self.embed_inputs(w, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        logits = unembed(self.cfg, w["embed"], self._run(w, x, positions))
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        sel = torch.gather(lp[:, :-1], -1, labels[:, 1:, None])[..., 0]
-        m = (mask[:, 1:] & mask[:, :-1]).float()
-        return -(sel * m).sum() / m.sum().clamp(min=1.0)
+        return self._loss(self.weights() if w is None else w, batch)
+
+    def train_loss(self, batch):
+        """:meth:`loss` as training differentiates it: from the masters,
+        each block under ``cfg.remat``; ``backward()`` leaves each
+        parameter's gradient in its ``param_dtype``."""
+        return self._loss(self.tree(dt_of(self.cfg)), batch, self.cfg.remat)
 
     def init_cache(self, batch_size: int, max_len: int) -> list:
         """One cache per layer in the compute dtype: ``{"k","v": [B,

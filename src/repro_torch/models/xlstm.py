@@ -14,6 +14,9 @@ dk, dv] matrix memory, per sLSTM block an f32 (c, n, h) [B, H, dh] triple.
 ``prefill`` and ``decode_step`` update them in place (``copy_``), so a
 serving session can capture a decode step into a CUDA graph; ``cur_len`` is
 taken and ignored.  No Pallas kernel is on this path in the reference.
+Serving and evaluation run under ``no_grad``; :meth:`XLSTM.train_loss`,
+which training differentiates, runs ``_run`` without states, so the
+in-place updates stay out of its graph.
 """
 from __future__ import annotations
 
@@ -210,10 +213,12 @@ class XLSTM(ParamTree):
     def device(self) -> torch.device:
         return self.final_norm.scale.device
 
+    @torch.no_grad()
     def weights(self) -> dict:
-        """The parameter tree in compute dtype (the parameters themselves
-        where ``param_dtype`` is the compute dtype; norm scales and sLSTM's
-        ``r`` as stored, as the JAX model uses them)."""
+        """The parameter tree in compute dtype, for serving and evaluation
+        (the parameters themselves where ``param_dtype`` is the compute
+        dtype; norm scales and sLSTM's ``r`` as stored, as the JAX model
+        uses them)."""
         return self.tree(dt_of(self.cfg))
 
     def _run(self, w, x, states=None, decode=False):
@@ -244,6 +249,16 @@ class XLSTM(ParamTree):
         mean over the B x (T-1) predictions."""
         tokens = batch["tokens"]
         return -target_logprobs(self(tokens, w), tokens).mean()
+
+    def train_loss(self, batch):
+        """:meth:`loss` as training differentiates it, from the masters
+        (the reference remats no xLSTM block): the chunkwise mLSTM and the
+        sLSTM loop, neither writing any state in place."""
+        tokens = batch["tokens"]
+        w = self.tree(dt_of(self.cfg))
+        x = self._run(w, embed(w["embed"], tokens))
+        return -target_logprobs(unembed(self.cfg, w["embed"], x),
+                                tokens).mean()
 
     def init_cache(self, batch_size: int, max_len: int = 0) -> list:
         """The recurrent states before step 0, one per block: an f32 [B, H,

@@ -9,7 +9,8 @@ JAX parameter tree (``embed.tok``, ``blocks.3.win``, ...), in
 :meth:`Zamba.weights` casts them once to the compute dtype where the JAX
 model casts at every use; a serving session keeps that copy.
 
-Caches are updated in place.  Prefill is causal (ROADMAP C3): it computes
+Serving and evaluation run under ``no_grad``; :meth:`Zamba.train_loss` is
+the loss that training differentiates.  Caches are updated in place.  Prefill is causal (ROADMAP C3): it computes
 the same logits as the teacher-forced :meth:`Zamba.forward`, and the same
 caches as :meth:`Zamba.decode_step` called once per prompt token.  A decode
 step takes its position ``cur_len`` as a 0-d tensor on the device (a host
@@ -88,10 +89,11 @@ class Zamba(ParamTree):
     def device(self) -> torch.device:
         return self.final_norm.scale.device
 
+    @torch.no_grad()
     def weights(self) -> dict:
-        """The parameter tree in compute dtype (a copy when that differs
-        from f32; norms and SSM scalars stay f32, as the JAX model uses
-        them)."""
+        """The parameter tree in compute dtype, for serving and evaluation
+        (a copy when that differs from f32; norms and SSM scalars stay f32,
+        as the JAX model uses them)."""
         return self.tree(dt_of(self.cfg))
 
     def _run(self, w, x, positions, mamba_states, attn_caches, cur_len,
@@ -109,14 +111,16 @@ class Zamba(ParamTree):
             x = mamba_apply(cfg, bp, x, st, decode)
         return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
 
-    @torch.no_grad()
-    def forward(self, tokens, w=None):
-        """Teacher-forced logits [B,T,V] (f32) of tokens [B,T], no cache."""
-        w = self.weights() if w is None else w
+    def _logits(self, w, tokens):
         x = embed(w["embed"], tokens)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         x = self._run(w, x, positions, None, None, 0, False)
         return unembed(self.cfg, w["embed"], x)
+
+    @torch.no_grad()
+    def forward(self, tokens, w=None):
+        """Teacher-forced logits [B,T,V] (f32) of tokens [B,T], no cache."""
+        return self._logits(self.weights() if w is None else w, tokens)
 
     @torch.no_grad()
     def loss(self, batch, w=None):
@@ -124,6 +128,14 @@ class Zamba(ParamTree):
         mean over the B x (T-1) predictions (``repro/models/zamba.py``)."""
         tokens = batch["tokens"]
         return -target_logprobs(self(tokens, w), tokens).mean()
+
+    def train_loss(self, batch):
+        """:meth:`loss` as training differentiates it, from the masters
+        (the reference remats no zamba2 block).  Under ``attn_impl=
+        "pallas"`` the kernels refuse the gradient (``kernels.ops``)."""
+        tokens = batch["tokens"]
+        w = self.tree(dt_of(self.cfg))
+        return -target_logprobs(self._logits(w, tokens), tokens).mean()
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         """Per-layer SSM state (conv window in the compute dtype, ``h``
