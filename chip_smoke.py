@@ -248,6 +248,22 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 checkpoint and resume on the reduced llama3.2 under
                 deterministic algorithms, with a retried step: bit-equal
                 to the uninterrupted run;
+  roofline.   — the dry run's estimates against the card: (a)
+                llama3.2-3b's full-width train step at phase train's
+                shape, first as the dry run runs it (``launch.specs``
+                fake tensors under ``roofline.analysis.FlopCounter``), then
+                on the card under the same counter: the estimate
+                (arguments + peak temporaries) within ROOF_MEM_TOL of
+                ``max_memory_allocated``, the counts equal op by op, the
+                roofline row beside the measured step, the model-FLOPs
+                arithmetic against the records' 7.896e13; (b) forward +
+                loss at LM_BATCH x LM_T under ``"pallas"`` and ``"jnp"``,
+                card and fake pass counting alike, pallas and jnp the
+                same products and the rest apart by exactly the
+                attention's split (``analysis.attention_split``), one
+                attention's products beside the hand bound; (c) the three examples'
+                twins (``examples/*_torch.py``), run on the card, each in
+                its own process alongside (a);
   9. a JSON line listing every ported kernel (flash_attention's with a
      ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
      plain version's and SDPA's ms, the bound, the prefill shape's ms and
@@ -257,7 +273,7 @@ Phases, each reported on its own lines; any failure exits nonzero:
 ``python3 chip_smoke.py --only-archs`` runs phases 1-2, flash_attention's
 checks at D = 160, phase archs and the D = 160 timings, and prints no
 result lines; ``--only-train`` runs phases 1-2 and phase train, and prints
-no result lines.
+no result lines; so does ``--only-roofline`` with phase roofline.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -278,10 +294,14 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), bytes/s.
-HBM_BYTES_PER_S = 3.35e12
-#: H100 SXM f32 rate outside the tensor cores, flop/s.
-F32_FLOPS = 67e12
+from repro_torch.roofline.analysis import HW  # noqa: E402
+
+#: the card's rates, one table for the port (``roofline.analysis.HW``:
+#: NVIDIA's H100 SXM data sheet): device memory in bytes/s, f32 outside
+#: the tensor cores and dense bf16 tensor cores in flop/s.
+HBM_BYTES_PER_S = HW["hbm_bw"]
+F32_FLOPS = HW["f32_flops"]
+BF16_FLOPS = HW["peak_flops"]
 MAIN_EPOCHS_CHECKED = 32
 MAIN_EPOCHS_TIMED = 256
 #: epochs of the graphed-against-eager and drain checks; eager epochs timed.
@@ -297,8 +317,6 @@ SSD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 #: the f32 decode-vs-teacher-forced check at full width: the JAX package's
 #: tolerance at the reduced size (tests/test_models_smoke.py).
 CAUSAL_TOL = 2e-3
-#: H100 SXM dense bf16 tensor-core rate, flop/s.
-BF16_FLOPS = 989e12
 #: flash_attention tolerances against the plain version: the JAX package's
 #: own (tests/test_kernels.py), f32 and bf16.
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -4047,6 +4065,287 @@ def train_phase(dev, smi):
     return full
 
 
+# -- phase roofline: the dry run's estimates against the card -------------------------
+
+#: the dry run's memory estimate (arguments + peak temporaries of the fake
+#: pass) against ``max_memory_allocated`` of the same step on the card.
+ROOF_MEM_TOL = 0.05
+#: the examples' twins, each run on the card in its own process, and a
+#: line each must print.
+ROOF_EXAMPLES = {
+    "quickstart_torch": "parallel engine == sequential oracle (bit-exact)",
+    "cluster_sim_torch": "(goodput 100%)",
+    "serve_lm_torch": "sampled continuations (token ids):"}
+#: the records' model FLOPs of a full-width llama3.2-3b train step (PERF.md
+#: §6: 6·N·tokens with N the model's 3,212,749,824 parameters).
+ROOF_MODEL_FLOPS = 7.896e13
+
+
+def _counts(c) -> str:
+    return f"{c.dot:.6g} products + {c.rest:.6g} rest"
+
+
+def _same_counts(a, b, ctx):
+    """A card run's counter against a fake pass's: products, rest and each
+    aten op's FLOPs equal."""
+    if (a.dot, a.rest) != (b.dot, b.rest) or a.by_op != b.by_op:
+        diff = {k: (a.by_op.get(k), b.by_op.get(k))
+                for k in set(a.by_op) | set(b.by_op)
+                if a.by_op.get(k) != b.by_op.get(k)}
+        raise AssertionError(f"{ctx}: {_counts(a)} against {_counts(b)}; "
+                             f"ops that differ: {diff}")
+
+
+def _split_counts(pallas, jnp, split, ctx):
+    """A count under ``attn_impl="pallas"`` against one under ``"jnp"``:
+    the products equal, and each aten op apart by exactly ``split``
+    (``analysis.attention_split`` over the run's attention calls)."""
+    got = {k: pallas.by_op.get(k, 0.0) - jnp.by_op.get(k, 0.0)
+           for k in set(pallas.by_op) | set(jnp.by_op)}
+    if pallas.dot != jnp.dot or {k: v for k, v in got.items() if v} != \
+            {k: v for k, v in split.items() if v}:
+        raise AssertionError(f"{ctx}: {_counts(pallas)} against "
+                             f"{_counts(jnp)}; apart by {got}, the "
+                             f"attention's split {split}")
+
+
+def check_model_flops(mf, mf_real):
+    """``model_flops_for``'s arithmetic (the analytic N, which leaves out
+    the norm scales as the reference's does) against 6·N·tokens with the
+    model's own parameters, and that against the records' 7.896e13."""
+    if abs(mf_real - ROOF_MODEL_FLOPS) / ROOF_MODEL_FLOPS > 5e-4 or \
+            abs(mf - mf_real) / mf_real > 1e-4:
+        raise AssertionError(f"model FLOPs {mf:.6g} (analytic) and "
+                             f"{mf_real:.6g} (the model's parameters) "
+                             f"against the records' {ROOF_MODEL_FLOPS:.4g}")
+
+
+def roof_train(dev, smi) -> dict:
+    """(a) llama3.2-3b's full-width train step at phase train's shape: the
+    dry run's fake pass (its memory estimate and count), then the same
+    step on the card under the counter (the counts equal, the peak within
+    ROOF_MEM_TOL of the estimate), the roofline row beside the step's
+    time, and the model-FLOPs arithmetic."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.launch.specs import specs_for
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline import analysis as A
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.step import make_train_step
+    cfg = get_config("llama3.2-3b")
+    shape = ShapeConfig("chip_smoke_train", TRAIN_T, TRAIN_BATCH, "train")
+    tcfg = TrainConfig(microbatch=TRAIN_MICRO)
+    t0 = time.perf_counter()
+    spec = specs_for(cfg, shape)
+    fake_step = make_train_step(spec["model"], tcfg)
+    with spec["mode"], A.FlopCounter() as fake:
+        fake_step(spec["opt_state"], spec["batch"])
+    t_fake = time.perf_counter() - t0
+    args = A._bytes_of([spec["params"], spec["opt_state"], spec["batch"]])
+    est = args + fake.peak
+    rec = {"cost_analysis": {"bytes accessed": fake.bytes},
+           "analytic_memory_floor": A.memory_floor(spec),
+           "collectives": fake.collectives}
+    del spec, fake_step
+    mf = A.model_flops(cfg, shape)
+
+    torch.cuda.empty_cache()
+    m = build_model(cfg, device=dev, seed=0)
+    params = dict(m.named_parameters())
+    n_real = sum(p.numel() for p in params.values())
+    state = opt.init(params)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_T, device=dev)
+    step = make_train_step(m, tcfg)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with A.FlopCounter() as real:
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    _same_counts(real, fake, "llama3.2-3b train step, card against the "
+                             "fake pass")
+    gap = (est - peak) / peak
+    if abs(gap) > ROOF_MEM_TOL or not math.isfinite(float(metrics["loss"])):
+        raise AssertionError(f"llama3.2-3b train step: the dry run's "
+                             f"estimate {est / 2**30:.3f} GiB against the "
+                             f"card's peak {peak / 2**30:.3f} GiB "
+                             f"({gap:+.2%}); loss {metrics['loss']}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    step_s = statistics.median(times)
+    row = A.roofline_row(rec, flops_global=fake.total, chips=1,
+                         model_flops=mf, kind="train")
+    mf_real = 6.0 * n_real * TRAIN_BATCH * TRAIN_T
+    check_model_flops(mf, mf_real)
+    log("roofline", f"(a) full-width llama3.2-3b train step, {TRAIN_BATCH} "
+                    f"x {TRAIN_T} tokens, microbatch {TRAIN_MICRO}: the dry "
+                    f"run's fake pass ({t_fake:.1f} s on the host) "
+                    f"estimates arguments {args / 2**30:.3f} GiB + "
+                    f"temporaries {fake.peak / 2**30:.3f} GiB = "
+                    f"{est / 2**30:.3f} GiB; the card's "
+                    f"max_memory_allocated {peak / 2**30:.3f} GiB ({gap:+.2%}"
+                    f", within {ROOF_MEM_TOL:.0%}; allocated before the "
+                    f"step {base / 2**30:.3f} GiB; the counter's own tally "
+                    f"of the card's allocations {real.peak / 2**30:.3f} "
+                    f"GiB); {smi}")
+    log("roofline", f"(a) counted FLOPs, card == fake pass: "
+                    f"{_counts(real)} = {real.total:.6g} ({len(real.by_op)} "
+                    f"aten ops, each equal); bytes accessed "
+                    f"{real.bytes:.6g} (card) / {fake.bytes:.6g} (fake)")
+    log("roofline", f"(a) roofline row: compute {row['compute_s'] * 1e3:.1f}"
+                    f" ms, memory {row['memory_s'] * 1e3:.1f} ms, "
+                    f"collective {row['collective_s'] * 1e3:.1f} ms -> "
+                    f"{row['dominant']}; ideal (model FLOPs at "
+                    f"{HW['peak_flops'] / 1e12:g} TFLOP/s) "
+                    f"{row['ideal_s'] * 1e3:.1f} ms, useful-FLOP ratio "
+                    f"{row['useful_flops_ratio']:.3f}; the measured step "
+                    f"{step_s * 1e3:.1f} ms (median of 3, host clock; "
+                    + ", ".join(f"{1e3 * t:.1f}" for t in times) + "), "
+                    f"{row['ideal_s'] / step_s:.2%} of it ideal, the "
+                    f"larger term {max(row['compute_s'], row['memory_s']) / step_s:.2%}"
+                    f" of it")
+    log("roofline", f"(a) model FLOPs 6·N·tokens: analytic N "
+                    f"{cfg.active_param_count():,} (no norm scales) -> "
+                    f"{mf:.6g}; the model's {n_real:,} parameters -> "
+                    f"{mf_real:.6g}, the records' {ROOF_MODEL_FLOPS:.4g} "
+                    f"(ratio {mf / mf_real:.6f})")
+    del state, batch, step, params
+    torch.cuda.empty_cache()
+    return {"model": m, "fake": fake, "real": real, "est": est,
+            "peak": peak, "step_s": step_s, "row": row}
+
+
+def roof_forward(dev, m, smi):
+    """(b) forward + loss of the full-width model at LM_BATCH x LM_T in
+    bf16, under ``attn_impl="pallas"`` and ``"jnp"``: counted on the card
+    and in a fake pass, each equal to its fake pass; pallas and jnp the
+    same products, the rest apart by the attention's split; the
+    attention's products beside the hand bound."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ops import KERNELS
+    from repro_torch.launch.specs import specs_for
+    from repro_torch.models.layers import dt_of
+    from repro_torch.roofline import analysis as A
+    cfg = m.cfg
+    shape = ShapeConfig("chip_smoke_lm", LM_T, LM_BATCH, "prefill")
+    batch = make_batch(cfg, LM_BATCH, LM_T, device=dev)
+    counts, fakes = {}, {}
+    for impl in ("pallas", "jnp"):
+        icfg = dataclasses.replace(cfg, attn_impl=impl)
+        spec = specs_for(icfg, shape)
+        with spec["mode"], A.FlopCounter() as fake:
+            spec["model"].loss(spec["batch"])
+        del spec
+        for fn in KERNELS:
+            fn.launches = 0
+        with A.FlopCounter() as real:
+            loss = _with(m, attn_impl=impl).loss(batch)
+            torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in KERNELS}
+        want = cfg.n_layers if impl == "pallas" else 0
+        if launches["flash_cuda"] != want or not bool(torch.isfinite(loss)):
+            raise AssertionError(f"forward + loss under {impl}: launches "
+                                 f"{launches}, loss {loss}")
+        _same_counts(real, fake, f"forward + loss under {impl}, card "
+                                 f"against the fake pass")
+        counts[impl], fakes[impl] = real, fake
+    # the same products; the rest apart by each flash_attention call's
+    # split of the softmax (attention_ref's against the chunked form's).
+    one = A.attention_split(cfg, (LM_BATCH, LM_T, cfg.n_heads, cfg.hd),
+                            (LM_BATCH, LM_T, cfg.n_kv_heads, cfg.hd),
+                            dt_of(cfg))
+    _split_counts(counts["pallas"], counts["jnp"],
+                  {op: cfg.n_layers * f for op, f in one.items()},
+                  "forward + loss, pallas against jnp")
+    m.cfg = cfg
+    # one attention call as the model makes it, through the kernel.
+    B, Hq, Hkv, T, D = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_T, cfg.hd
+    q = torch.randn(B, Hq, T, D, device=dev, dtype=torch.bfloat16)
+    k = torch.randn(B, Hkv, T, D, device=dev, dtype=torch.bfloat16)
+    with A.FlopCounter() as att:
+        ops.mha(q, k, k, causal=True)
+        torch.cuda.synchronize()
+    _, hand = flash_bound(B, Hq, Hkv, T, T, D, True, 2)
+    per_layer = counts["jnp"].by_op.get("bmm", 0.0) / cfg.n_layers
+    log("roofline", f"(b) full-width llama3.2-3b forward + loss, {LM_BATCH} "
+                    f"x {LM_T} tokens, bf16: counted under pallas "
+                    f"({cfg.n_layers} flash_attention launches) == the "
+                    f"fake pass: {_counts(counts['pallas'])}; under jnp == "
+                    f"its fake pass: {_counts(counts['jnp'])}: the same "
+                    f"products, the rest apart by {cfg.n_layers} x the "
+                    f"attention's split {sum(one.values()):.6g}"
+                    f"; the attention's products {per_layer:.6g} per layer "
+                    f"(the count's bmm), one ops.mha launch counted "
+                    f"{att.dot:.6g}, the hand bound {hand:.6g} (causal), "
+                    f"ratio {att.dot / hand:.4f}: the plain version computes"
+                    f" the masked half too; {smi}")
+    del q, k, batch
+    torch.cuda.empty_cache()
+    return {"count": counts["jnp"], "attn": att.dot, "hand": hand}
+
+
+def roof_examples_start():
+    """The examples' twins, each in a process of its own on the card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return {name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in ROOF_EXAMPLES}
+
+
+def roof_examples_check(procs, t0):
+    """(c) every example exited 0 and printed its line."""
+    for name, proc in procs.items():
+        _, out, err = _finish(proc, timeout=300)
+        lines = out.strip().splitlines()
+        if proc.returncode != 0 or not any(ROOF_EXAMPLES[name] in line
+                                           for line in lines):
+            raise AssertionError(f"examples/{name}.py on the card: exit "
+                                 f"{proc.returncode}\n{out}\n{err[-2000:]}")
+        log("roofline", f"(c) examples/{name}.py on the card: exit 0: "
+            + " | ".join(line.strip() for line in lines[:8])[:600])
+    log("roofline", f"(c) the three examples took "
+                    f"{time.perf_counter() - t0:.1f} s (in parallel with "
+                    f"(a))")
+
+
+def roofline_phase(dev, smi):
+    """(c) the examples started, (a) the train step's estimates, (c) the
+    examples checked, (b) forward + loss under both attentions, and the
+    card's memory beside the dry-run summary's."""
+    from repro_torch.roofline.dryrun_summary import CARD_MEMORY, HBM_PER_CHIP
+    t_phase = time.perf_counter()
+    procs = roof_examples_start()
+    try:
+        a = roof_train(dev, smi)
+        roof_examples_check(procs, t_phase)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    roof_forward(dev, a.pop("model"), smi)
+    mem = nvidia_smi("memory.total")
+    log("roofline", f"the card's memory.total {mem}; the dry-run summary's "
+                    f"HBM_PER_CHIP {HBM_PER_CHIP} B = {CARD_MEMORY}")
+    log("roofline", f"phase time {time.perf_counter() - t_phase:.1f} s; "
+                    f"{smi}")
+    return a
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4057,6 +4356,9 @@ def main(argv=None) -> int:
                          "phase archs, and print no result lines")
     ap.add_argument("--only-train", action="store_true",
                     help="run phases 1-2 and phase train, and print no "
+                         "result lines")
+    ap.add_argument("--only-roofline", action="store_true",
+                    help="run phases 1-2 and phase roofline, and print no "
                          "result lines")
     args = ap.parse_args(argv)
     # phase train's resume check runs under deterministic algorithms, whose
@@ -4146,6 +4448,11 @@ def main(argv=None) -> int:
         train_phase(dev, smi)
         log("train", "--only-train: the other phases and the result lines "
                      "were not run")
+        return 0
+    if args.only_roofline:
+        roofline_phase(dev, smi)
+        log("roofline", "--only-roofline: the other phases and the result "
+                        "lines were not run")
         return 0
 
     # 3. kernels vs plain versions ----------------------------------------------
@@ -4382,6 +4689,10 @@ def main(argv=None) -> int:
 
     # train. training on the card: no kernel on its path -------------------------
     train_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # roofline. the dry run's estimates and counts against the card ------------
+    roofline_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # 9. result lines --------------------------------------------------------------

@@ -6,7 +6,8 @@
 Fields that select a TPU execution strategy (``scan_layers``,
 ``sharding_mode``, ``decode_attn``, ``moe_buf_layout``, ...) are kept for
 the copy's sake and read by nothing in the port yet.  ``TrainConfig`` is
-the reference's, field for field; ``ShapeConfig`` comes with the dry run.
+the reference's, field for field; so are ``ShapeConfig`` and ``SHAPES``,
+the dry run's cells (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -137,6 +138,22 @@ class ModelConfig:
         all_experts = moe_layers * self.n_experts * n_mat * d * self.moe_d_ff
         active_experts = moe_layers * self.experts_per_token * n_mat * d * self.moe_d_ff
         return full - all_experts + active_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,6 +20,14 @@ ARCHS = {
     "zamba2-1.2b": "zamba2_1_2b",
 }
 
+# archs whose attention is quadratic-only → long_500k is skipped (the
+# reference's list, ``repro/configs/registry.py``).
+FULL_ATTENTION_ONLY = {
+    "granite-3-2b", "stablelm-12b", "starcoder2-7b", "llama3.2-3b",
+    "kimi-k2-1t-a32b", "deepseek-v2-lite-16b", "musicgen-medium",
+    "internvl2-1b",
+}
+
 
 def get_config(arch: str, reduced: bool = False):
     if arch not in ARCHS:

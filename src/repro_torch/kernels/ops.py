@@ -9,12 +9,17 @@ refuse to run when autograd would differentiate them, on the CPU as on the
 card: a loss taken through them would otherwise hand every parameter
 upstream a zero gradient.  Training runs under ``attn_impl="jnp"``, whose
 plain attention and :func:`ssd_plain` differentiate.
+
+Under a FLOP counter (``roofline.analysis.FlopCounter``) :func:`mha` and
+:func:`ssd` count as the work of their plain versions for the same call,
+on every device (``counting.counted_as``); without one nothing changes.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from .counting import counted_as
 from .event_apply import event_apply_cuda, event_apply_ref
 from .flash_attention import attention_ref, flash_cuda
 from .ssd_scan import ssd_cuda, ssd_ref
@@ -84,7 +89,8 @@ def mha(q, k, v, *, causal: bool = True):
     if Tk % min(KEY_BLOCK, max(8, Tk)) and not causal:
         raise ValueError("non-causal attention requires Tk % bk == 0")
     fn = _route("mha", q, flash_cuda, attention_ref)
-    return fn(q, k, v, causal=causal)
+    with counted_as(attention_ref, q, k, v, causal=causal):
+        return fn(q, k, v, causal=causal)
 
 
 def ssd_pad(x, dt, B, C, *, chunk: int):
@@ -118,9 +124,11 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, final_state=None):
     (see the module's docstring)."""
     _refuse_grad("ssd (ssd_scan)", x, dt, A, B, C)
     fn = _route("ssd", x, ssd_cuda, ssd_ref)
-    x_, dt_, B_, C_, ch = ssd_pad(x, dt, B, C, chunk=chunk)
-    return fn(x_, dt_, A.contiguous(), B_, C_, chunk=ch,
-              final_state=final_state)[:, :x.shape[1]]
+    with counted_as(ssd_plain, x, dt, A, B, C, chunk=chunk,
+                    final_state=final_state):
+        x_, dt_, B_, C_, ch = ssd_pad(x, dt, B, C, chunk=chunk)
+        return fn(x_, dt_, A.contiguous(), B_, C_, chunk=ch,
+                  final_state=final_state)[:, :x.shape[1]]
 
 
 def ssd_plain(x, dt, A, B, C, *, chunk: int = 128, final_state=None):

@@ -1,0 +1,191 @@
+"""Dry run of the port: every (arch x shape) cell's step run once over fake
+tensors on the CPU, at full size, with nothing allocated
+(``repro/launch/dryrun.py``, whose cells are lowered and compiled by XLA on
+512 placeholder devices instead).
+
+For each cell this writes ``<out>/<arch>__<shape>__<mesh>.json`` with the
+reference's record:
+
+* ``argument_size_in_bytes``: the exact bytes of the step's inputs
+  (parameters, optimizer state and batch; or parameters, batch or tokens,
+  and caches);
+* ``temp_size_in_bytes``: the peak of the live bytes the step allocates
+  above them (``roofline.analysis.FlopCounter``'s tally of the storages its
+  ops make, freed as they die); ``output_size_in_bytes``: what the step
+  returns that is not an input;
+* ``cost_analysis``: ``flops`` (the counter's total), ``dot flops`` (its
+  products) and ``bytes accessed``, the bytes each eager op reads and
+  writes.  The reference's is XLA's count over fused HLO, so it is smaller
+  for the same step;
+* ``collectives``: the reference's kinds, counted from the
+  ``torch.distributed`` collectives the pass issues (all zero on one
+  device).  Layers run unrolled, so each collective is counted as it is
+  issued: the reference's HLO parser (``collective_bytes``) has no
+  counterpart and ``scaled_bytes`` equals ``bytes``;
+* ``param_count``, ``active_param_count`` (analytic), the
+  ``analytic_memory_floor``, and the seconds: ``build_s`` (the fake inputs)
+  and ``pass_s`` (the step).
+
+Only ``--mesh local`` runs (the devices there are, one card on the records'
+machine); ``single`` and ``multi``, the reference's pods, need
+``distributed/sharding.py`` (ROADMAP A12) and refuse by name.
+
+Usage:
+  python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
+  python -m repro_torch.launch.dryrun --all --mesh local
+  python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k \\
+      --override remat=none --variant remat_none
+"""
+import argparse
+import json
+import time
+import traceback
+from pathlib import Path
+
+from ..configs.base import SHAPES
+from ..configs.registry import all_archs
+from ..launch.mesh import make_local_mesh, make_production_mesh
+from ..launch.specs import cell_is_skipped, input_specs
+from ..roofline.analysis import (FlopCounter, _bytes_of, _tensors,
+                                 memory_floor, step_call)
+
+MESHES = ("local", "single", "multi")
+
+
+def mesh_for(kind: str):
+    """The mesh ``--mesh kind`` names; ``single`` and ``multi`` raise
+    ``NotImplementedError`` (``launch.mesh.make_production_mesh``)."""
+    if kind == "local":
+        return make_local_mesh()
+    if kind in ("single", "multi"):
+        return make_production_mesh(multi_pod=kind == "multi")
+    raise ValueError(f"unknown mesh {kind!r}; one of {MESHES}")
+
+
+def _parse_overrides(pairs):
+    out = {}
+    for p in pairs or []:
+        k, v = p.split("=", 1)
+        for cast in (int, float):
+            try:
+                v = cast(v)
+                break
+            except ValueError:
+                continue
+        if v in ("true", "True"):
+            v = True
+        elif v in ("false", "False"):
+            v = False
+        out[k] = v
+    return out
+
+
+def _inputs(spec: dict) -> list:
+    keys = {"train": ("params", "opt_state", "batch"),
+            "prefill": ("params", "batch", "caches"),
+            "decode": ("params", "tokens", "caches", "cur_len")}
+    return [spec[k] for k in keys[spec["kind"]]]
+
+
+def run_cell(arch: str, shape_name: str, mesh_kind: str,
+             skip_collectives: bool = False, mesh=None,
+             overrides: dict | None = None) -> dict:
+    rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "status": "ok"}
+    if overrides:
+        rec["overrides"] = dict(overrides)
+    reason = cell_is_skipped(arch, shape_name)
+    if reason:
+        rec["status"] = "skipped"
+        rec["skip_reason"] = reason
+        return rec
+
+    if mesh is None:
+        mesh = mesh_for(mesh_kind)
+    rec["n_devices"] = mesh.size
+    t0 = time.time()
+    spec = input_specs(arch, shape_name, overrides=overrides)
+    cfg = spec["cfg"]
+    run = step_call(spec, overrides)
+    rec["build_s"] = round(time.time() - t0, 2)
+
+    t1 = time.time()
+    with spec["mode"], FlopCounter() as c:
+        out = run()
+    rec["pass_s"] = round(time.time() - t1, 2)
+
+    inputs = _inputs(spec)
+    held = {id(t.untyped_storage()) for t in _tensors(inputs)}
+    rec["argument_size_in_bytes"] = int(_bytes_of(inputs))
+    rec["output_size_in_bytes"] = int(sum(
+        t.numel() * t.element_size() for t in _tensors(out)
+        if id(t.untyped_storage()) not in held))
+    rec["temp_size_in_bytes"] = int(c.peak)
+    rec["cost_analysis"] = {"flops": c.total, "dot flops": c.dot,
+                            "bytes accessed": c.bytes}
+    if not skip_collectives:
+        rec["collectives"] = c.collectives
+    rec["analytic_memory_floor"] = memory_floor(spec)
+
+    # model params (analytic) for §Roofline MODEL_FLOPS = 6 N D
+    rec["param_count"] = int(cfg.param_count())
+    rec["active_param_count"] = int(cfg.active_param_count())
+    return rec
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--mesh", choices=MESHES, default="local")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--skip-collectives", action="store_true")
+    ap.add_argument("--variant", default=None,
+                    help="tag for hillclimb runs (adds __<variant> to files)")
+    ap.add_argument("--override", action="append", default=[],
+                    help="ModelConfig field=value (train.* → TrainConfig)")
+    args = ap.parse_args(argv)
+    overrides = _parse_overrides(args.override)
+
+    mesh = mesh_for(args.mesh)
+    outdir = Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+    cells = []
+    if args.all:
+        for a in all_archs():
+            for s in SHAPES:
+                cells.append((a, s))
+    else:
+        shapes = [args.shape] if args.shape else list(SHAPES)
+        cells = [(args.arch, s) for s in shapes]
+
+    failures = 0
+    for arch, shape in cells:
+        tag = f"{arch}__{shape}__{args.mesh}"
+        if args.variant:
+            tag += f"__{args.variant}"
+        path = outdir / f"{tag}.json"
+        if path.exists():
+            print(f"[dryrun] {tag}: cached", flush=True)
+            continue
+        print(f"[dryrun] {tag}: running...", flush=True)
+        try:
+            rec = run_cell(arch, shape, args.mesh,
+                           skip_collectives=args.skip_collectives, mesh=mesh,
+                           overrides=overrides)
+        except Exception as e:
+            rec = {"arch": arch, "shape": shape, "mesh": args.mesh,
+                   "status": "error", "error": str(e),
+                   "traceback": traceback.format_exc()}
+            failures += 1
+        path.write_text(json.dumps(rec, indent=1))
+        print(f"[dryrun] {tag}: {rec['status']} (build "
+              f"{rec.get('build_s', '-')}s, pass {rec.get('pass_s', '-')}s)",
+              flush=True)
+    print(f"[dryrun] done, {failures} failures")
+    raise SystemExit(1 if failures else 0)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,213 @@
+"""The port's dry run (``repro_torch.launch.{specs,mesh,dryrun}``,
+``repro_torch.roofline.{report,variant,dryrun_summary}``) on the CPU, held
+against the reference's where the two compute the same thing.
+
+* ``cell_is_skipped``, ``model_flops_for`` and ``analytic_memory_floor``
+  for every (arch x shape) cell against the reference's, each arch's fake
+  model built once;
+* a cell's record: the exact argument bytes, the FLOPs ``count_cell``
+  gives, the floor, zero collectives on one device, and a collective
+  counted when one is issued;
+* the CLI's artifact names, the report's, the summary's and the variant's
+  tables from them; ``--mesh single`` and ``multi`` refused by name.
+"""
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+from repro.roofline import analysis as RA  # noqa: E402
+from repro_torch.configs.base import SHAPES, ShapeConfig  # noqa: E402
+from repro_torch.configs.registry import all_archs, get_config  # noqa: E402
+from repro_torch.roofline import analysis as A  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: these tests' tensors are small or fake, and the
+    suite's other workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+# -- model_flops_for, cell_is_skipped, analytic_memory_floor, every cell -------
+
+@pytest.mark.parametrize("arch", all_archs())
+def test_model_flops_and_skips_equal_the_references(arch):
+    from repro.launch.specs import cell_is_skipped as ref_skip
+    from repro_torch.launch.specs import cell_is_skipped
+    for shape in SHAPES:
+        assert cell_is_skipped(arch, shape) == ref_skip(arch, shape)
+        assert A.model_flops_for(arch, shape) == \
+            RA.model_flops_for(arch, shape)
+
+
+def _batch_gap(ref_batch, port_batch) -> int:
+    """Bytes by which the port's batch exceeds the reference's: the same
+    leaves and shapes, token ids and labels int64 where the reference's
+    are int32 (``data.synthetic``), every other leaf in the same dtype."""
+    assert set(ref_batch) == set(port_batch)
+    gap = 0
+    for k, r in ref_batch.items():
+        p = port_batch[k]
+        assert tuple(r.shape) == tuple(p.shape), k
+        if np.dtype(r.dtype) == np.int32:
+            assert p.dtype == torch.int64, k
+            gap += 4 * p.numel()
+        else:
+            assert np.dtype(r.dtype).itemsize == p.element_size(), k
+    return gap
+
+
+@pytest.mark.parametrize("arch", all_archs())
+def test_memory_floor_equals_the_references(arch):
+    """Parameters and caches are the reference's to the byte in every
+    cell, so every decode cell's floor is equal bit for bit.  A train or
+    prefill floor differs by exactly the bytes of the leaves the port
+    keeps wider: int64 token ids and labels (its batch, read once), and
+    under bf16 masters (kimi-k2-1t-a32b) f32 AdamW moments, which the
+    reference makes in the masters' dtype (``train.optimizer``; the floor
+    reads and writes them)."""
+    from repro.launch.specs import input_specs as ref_specs
+    from repro_torch.launch.specs import cell_is_skipped, specs_for
+    cfg, first = get_config(arch), None
+    for shape in SHAPES:
+        if cell_is_skipped(arch, shape):
+            continue
+        spec = specs_for(cfg, SHAPES[shape], reuse=first)
+        first = first or spec
+        ref = ref_specs(arch, shape)
+        assert A._bytes_of(spec["params"]) == RA._bytes_of(ref["params"])
+        got, want = A.memory_floor(spec), _ref_floor(ref)
+        if spec["kind"] != "train":
+            assert A._bytes_of(spec["caches"]) == RA._bytes_of(ref["caches"])
+        if spec["kind"] == "decode":
+            assert got == want, (shape, got, want)
+            continue
+        gap = _batch_gap(ref["batch"], spec["batch"])
+        if spec["kind"] == "train":
+            n = sum(p.numel() for p in spec["params"].values())
+            wider = 4 - np.dtype(jax.tree.leaves(ref["opt_state"].mu)[0]
+                                 .dtype).itemsize
+            assert wider == (2 if cfg.param_dtype == "bfloat16" else 0)
+            gap += 2 * 2 * n * wider        # mu and nu, read and written
+        assert got - want == gap, (shape, got - want, gap)
+
+
+def _ref_floor(ref) -> float:
+    """The reference's ``analytic_memory_floor`` of specs it has built."""
+    pb = RA._bytes_of(ref["params"])
+    if ref["kind"] == "train":
+        return 4 * pb + 2 * RA._bytes_of(ref["opt_state"]) \
+            + RA._bytes_of(ref["batch"])
+    cb = RA._bytes_of(ref["caches"])
+    if ref["kind"] == "prefill":
+        return pb + 2 * cb + RA._bytes_of(ref["batch"])
+    return pb + cb + cb
+
+
+def test_ref_floor_helper_is_the_references():
+    from repro.launch.specs import input_specs as ref_specs
+    for shape in ("train_4k", "prefill_32k", "decode_32k"):
+        assert _ref_floor(ref_specs("llama3.2-3b", shape)) == \
+            RA.analytic_memory_floor("llama3.2-3b", shape)
+
+
+# -- the dry run's records and tables ---------------------------------------------
+
+#: a small train cell of a reduced-width config, in the port's ``SHAPES``.
+TINY = ShapeConfig("tiny_train", 32, 2, "train")
+
+
+@pytest.fixture
+def tiny(monkeypatch):
+    monkeypatch.setitem(SHAPES, TINY.name, TINY)
+    monkeypatch.setattr("repro_torch.launch.specs.get_config",
+                        lambda arch: get_config(arch, reduced=True))
+    return TINY.name
+
+
+def test_meshes_other_than_local_refuse_by_name():
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    for mesh in ("single", "multi"):
+        with pytest.raises(NotImplementedError, match=f"{mesh}.*A12"):
+            dryrun.main(["--arch", "llama3.2-3b", "--mesh", mesh])
+    m = make_local_mesh()
+    assert m.shape == {"data": len(m.devices)} and m.size >= 1
+
+
+def test_run_cell_record(tiny):
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import input_specs
+    rec = run_cell("granite-3-2b", tiny, "local")
+    assert rec["status"] == "ok" and rec["n_devices"] == 1
+    spec = input_specs("granite-3-2b", tiny)
+    want = sum(A._bytes_of(spec[k]) for k in ("params", "opt_state",
+                                              "batch"))
+    assert rec["argument_size_in_bytes"] == want
+    c = A.count_cell("granite-3-2b", tiny)
+    assert rec["cost_analysis"] == {"flops": c.total, "dot flops": c.dot,
+                                    "bytes accessed": c.bytes}
+    assert rec["temp_size_in_bytes"] == c.peak > 0
+    assert rec["analytic_memory_floor"] == A.memory_floor(spec)
+    assert all(v == {"bytes": 0, "count": 0, "scaled_bytes": 0.0}
+               for v in rec["collectives"].values())
+    assert rec["param_count"] == get_config("granite-3-2b",
+                                            reduced=True).param_count()
+
+
+def test_cli_artifacts_and_tables(tiny, tmp_path, capsys):
+    from repro_torch.launch import dryrun
+    from repro_torch.roofline import dryrun_summary, report, variant
+    out = tmp_path / "dryrun"
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llama3.2-3b", "--shape", tiny,
+                     "--out", str(out)])
+    assert e.value.code == 0
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "llama3.2-3b", "--shape", tiny,
+                     "--out", str(out), "--override", "remat=full",
+                     "--variant", "remat_full"])
+    assert e.value.code == 0
+    names = sorted(p.name for p in out.iterdir())
+    assert names == [f"llama3.2-3b__{tiny}__local.json",
+                     f"llama3.2-3b__{tiny}__local__remat_full.json"]
+    rows = report.build_rows(out, "local")
+    assert [r["shape"] for r in rows] == [tiny]
+    r = rows[0]
+    assert r["hlo_jaxpr_flops"] == json.loads(
+        (out / names[0]).read_text())["cost_analysis"]["flops"]
+    assert r["compute_s"] == r["hlo_jaxpr_flops"] / A.HW["peak_flops"]
+    assert "llama3.2-3b" in report.to_markdown(rows, "local")
+    table = dryrun_summary.build(out)
+    assert table.count("llama3.2-3b") == 1      # the variant is left out
+    assert "| yes |" in table
+    v = variant.row_for(str(out / names[1]))
+    assert v["variant"] == "remat_full" and v["overrides"] == {
+        "remat": "full"}
+    # a full remat recomputes the forward, so it counts more.
+    assert v["hlo_jaxpr_flops"] > r["hlo_jaxpr_flops"]
+    capsys.readouterr()
+
+
+def test_a_collective_is_counted(tmp_path):
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        t = torch.ones(16)
+        with A.FlopCounter() as c:
+            dist.all_reduce(t)
+        want = {"bytes": 64, "count": 1, "scaled_bytes": 64.0}
+        assert c.collectives["all-reduce"] == want
+        assert sum(v["count"] for v in c.collectives.values()) == 1
+    finally:
+        dist.destroy_process_group()

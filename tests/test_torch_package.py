@@ -139,6 +139,25 @@ def test_scans_cover_the_training_slice():
         assert not FORBIDDEN.findall(path.read_text()), mod
 
 
+ROOFLINE_MODULES = ("configs.base", "configs.registry", "launch.specs",
+                    "launch.mesh", "launch.dryrun", "roofline.analysis",
+                    "roofline.variant", "roofline.report",
+                    "roofline.dryrun_summary", "kernels.counting")
+EXAMPLES = ("quickstart_torch", "cluster_sim_torch", "serve_lm_torch")
+
+
+def test_scans_cover_the_roofline_slice():
+    # test_importing_every_module_loads_no_jax_and_no_repro imports them.
+    for mod in ROOFLINE_MODULES:
+        path = PKG.joinpath(*mod.split(".")).with_suffix(".py")
+        assert path.is_file(), mod
+        assert not FORBIDDEN.findall(path.read_text()), mod
+    for name in EXAMPLES:
+        path = ROOT / "examples" / f"{name}.py"
+        assert "repro_torch" in path.read_text(), name
+        assert not FORBIDDEN.findall(path.read_text()), name
+
+
 def test_spawned_ranks_import_only_the_port():
     # the spawned rank code (the rank functions, the device axis) loads
     # nothing of JAX or of the JAX package, in the parent or in a rank.
@@ -173,6 +192,7 @@ def test_campaign_needs_a_card_unless_asked_for_the_cpu(tmp_path):
 
 def test_sources_import_neither_jax_nor_repro():
     files = (sorted(PKG.rglob("*.py")) + sorted((ROOT / "tools").glob("*.py"))
+             + sorted((ROOT / "examples").glob("*_torch.py"))
              + [ROOT / "chip_smoke.py"])
     assert len(files) > 20
     for f in files:
