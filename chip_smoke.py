@@ -67,9 +67,9 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 objects, dyadic): 32 epochs of ``rounds`` held against the
                 oracle, the same 32 under ``packed`` (tile 64) equal to
                 them, the padded rounds grid against the events present
-                over 16 epochs, 128 timed epochs of each scheduler (ms/epoch
+                over 8 epochs, 64 timed epochs of each scheduler (ms/epoch
                 by CUDA events and host clock, events/s, host syncs per
-                epoch, peak memory) and a profile of 16 (device busy share
+                epoch, peak memory) and a profile of 8 (device busy share
                 and ops per epoch); 10 epochs of ``ltf`` on queueing and
                 wireless, timed and equal to ``rounds`` at epoch 10 (bucket
                 and fallback events as multisets); and three drains
@@ -264,6 +264,28 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 attention's products beside the hand bound; (c) the three examples'
                 twins (``examples/*_torch.py``), run on the card, each in
                 its own process alongside (a);
+  mesh.       — serving over a device mesh (``distributed.sharding``):
+                flash_attention against its plain version at one rank's
+                prefill shape (12 q and 4 kv heads); llama3.2-3b at full
+                width, weights from seed 0, MESH_B prompts of MESH_T
+                tokens, served by the one-device session on the card (f32
+                and bf16), then over a (1, 2) ("data", "model") mesh of two
+                gloo ranks sharing cuda:0 (every collective through the
+                host: a correctness path that says nothing of an NVLink
+                exchange) from one placed model: (a) in f32, a prefill
+                (flash_f32 on each rank's heads, MESH_FLASH_PER_PREFILL
+                launches) and MESH_N decode steps fed the session's tokens
+                under "gather" and "sp", the logits within MESH_TOL of max
+                |logit| of the session's, sp within MESH_SP_TOL of gather;
+                (b) as served (bf16, the config's "gather"): max |Δlogit|
+                and greedy agreement; per rank the prefill's and a decode
+                step's host time, one step's collectives (calls, bytes,
+                host µs), one all-reduce's latency, every leaf's local
+                shape against ``shard_shape``; the NCCL mesh where two
+                cards show; (c) beside them, ``launch/dryrun.py --mesh
+                single`` on llama3.2-3b's decode_32k and prefill_32k (the
+                fake 256-rank group, the host's CPU), per-device bytes,
+                FLOPs and collectives;
   9. a JSON line listing every ported kernel (flash_attention's with a
      ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
      plain version's and SDPA's ms, the bound, the prefill shape's ms and
@@ -273,7 +295,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
 ``python3 chip_smoke.py --only-archs`` runs phases 1-2, flash_attention's
 checks at D = 160, phase archs and the D = 160 timings, and prints no
 result lines; ``--only-train`` runs phases 1-2 and phase train, and prints
-no result lines; so does ``--only-roofline`` with phase roofline.
+no result lines; so do ``--only-roofline`` with phase roofline and
+``--only-mesh`` with phase mesh.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -720,7 +743,7 @@ def profile_graphed(eng, st, name, n=16):
 #: the five workloads of the zoo that run the rounds path, at bench scale.
 ZOO = ("queueing", "cluster", "open-queueing", "epidemic", "wireless")
 #: epochs held against the oracle, then timed, then profiled, per scheduler.
-ZOO_EPOCHS_CHECKED, ZOO_EPOCHS_TIMED, ZOO_EPOCHS_PROFILED = 32, 128, 16
+ZOO_EPOCHS_CHECKED, ZOO_EPOCHS_TIMED, ZOO_EPOCHS_PROFILED = 32, 64, 8
 #: the ltf run: the length of the reference bench's ``ltf_reference_scheduler``
 #: rung, on the two workloads it names.
 LTF_EPOCHS, LTF_ZOO = 10, ("queueing", "wireless")
@@ -825,8 +848,8 @@ def profile_zoo(eng, st, n=ZOO_EPOCHS_PROFILED):
 
 def zoo_workload(dev, name):
     """One workload at bench scale: 32 epochs of rounds against the oracle,
-    the same 32 under packed equal to them, then 128 timed and 16 profiled
-    epochs of each."""
+    the same 32 under packed equal to them, then ZOO_EPOCHS_TIMED timed
+    and ZOO_EPOCHS_PROFILED profiled epochs of each."""
     import torch
     from repro_torch.core.engine import ParsirEngine
     from repro_torch.core.graphs import clone_state
@@ -4345,6 +4368,215 @@ def roofline_phase(dev, smi):
                     f"{smi}")
     return a
 
+# -- phase mesh: llama3.2-3b served over a (1, 2) mesh of two ranks ------------
+
+#: the served batch: B prompts of T tokens (seeded), N decode steps.
+MESH_B, MESH_T, MESH_N = 4, 1024, 32
+#: (a)'s gates, relative to max |logit| of the one-device session: f32
+#: over ranks against one device (the row-parallel partial sums add in
+#: another order), and sp against gather.
+MESH_TOL, MESH_SP_TOL = 1e-4, 1e-4
+#: one rank's flash_attention call in the mesh prefill: its 12 q and 4 kv
+#: heads of llama3.2-3b (B, Hq, Hkv, Tq, Tk, D, causal).
+LLAMA_MESH_PRE = (4, 12, 4, 1024, 1024, 128, True)
+#: flash_attention launches per rank per prefill: one per layer.
+MESH_FLASH_PER_PREFILL = 28
+MESH_DRYRUN = ("decode_32k", "prefill_32k")
+
+
+def _mesh_cfg(dtype):
+    """llama3.2-3b at full width as phase 7b serves it (``"pallas"``), in
+    ``dtype``."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("llama3.2-3b"), attn_impl="pallas",
+                               dtype=dtype)
+
+
+def mesh_reference(dev, cfg, prompts):
+    """The one-device session on the card (weights from seed 0): its
+    logits [N + 1, B, V] (the prefill's, then each decode step's; f32 on
+    the host) and the tokens its decode steps were fed [B, N]."""
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeSession
+    m = build_model(cfg, device=dev, seed=0)
+    sess = ServeSession(m, MESH_B, MESH_T + MESH_N, device=dev)
+    first = sess.prefill({"tokens": torch.as_tensor(prompts, device=dev)})
+    out = sess.decode(first, MESH_N)
+    logits = torch.stack(sess.logits).float().cpu().numpy()
+    feed = torch.cat([first[:, None], out[:, :-1]], 1).cpu().numpy()
+    del sess, m
+    torch.cuda.empty_cache()
+    return logits, feed
+
+
+def mesh_check(ranks, backend, refs, smi):
+    """(a) and (b) from the ranks' results: logits against the one-device
+    session, sp against gather, flash launches, local shapes, times,
+    collectives and one collective's latency."""
+    import numpy as np
+    for idx, (tag, (ref, _)) in enumerate(refs.items()):
+        part = "a" if tag == "f32" else "b"
+        scale = float(np.abs(ref).max())
+        want_tokens = ref.argmax(-1)
+        for r, res in enumerate(ranks):
+            out = res["runs"][idx]
+            launches = out["launches"]["flash_cuda"]
+            if launches != MESH_FLASH_PER_PREFILL:
+                raise AssertionError(
+                    f"[mesh] {tag} rank {r}: flash_attention launched "
+                    f"{launches} times in a prefill, not "
+                    f"{MESH_FLASH_PER_PREFILL}")
+            log("mesh", f"({part}) {tag} rank {r}: prefill "
+                        f"{out['prefill_s'] * 1e3:.1f} ms (host clock), "
+                        f"flash_attention {launches} launches in it (one "
+                        f"per layer, on the rank's 12 q and 4 kv heads)")
+            for mode, rec in out["modes"].items():
+                rel = rec["err"] / scale
+                agree = float((rec["tokens"] == want_tokens).mean())
+                if part == "a" and not rel <= MESH_TOL:
+                    raise AssertionError(
+                        f"[mesh] (a) rank {r} {mode}: max |logit - one "
+                        f"device| {rec['err']} = {rel:.3g} of max |logit| "
+                        f"{scale:.4g} > {MESH_TOL}")
+                coll = ", ".join(f"{k} {v['count']} x, {v['bytes']} B"
+                                 for k, v in rec["collectives"].items())
+                log("mesh", f"({part}) llama3.2-3b {tag} over {backend} "
+                            f"ranks (1, 2), rank {r}, decode_attn={mode!r}: "
+                            f"max |logit - one-device session| "
+                            f"{rec['err']:.6g} ({rel:.3g} of max |logit| "
+                            f"{scale:.4g}) over the prefill and {MESH_N} "
+                            f"steps; greedy tokens equal to the session's "
+                            f"{agree:.1%}; decode "
+                            f"{rec['decode_s_per_token'] * 1e3:.2f} ms/token "
+                            f"(host clock, the logits' vocab gather "
+                            f"included); one decode step's collectives: "
+                            f"{coll}, {rec['collective_us']:.0f} µs of host "
+                            f"time in c10d calls; {smi}")
+            if "sp_vs_gather" in out:
+                sp = out["sp_vs_gather"] / scale
+                if part == "a" and not sp <= MESH_SP_TOL:
+                    raise AssertionError(f"[mesh] (a) rank {r}: sp against "
+                                         f"gather {out['sp_vs_gather']} = "
+                                         f"{sp:.3g} of max |logit|")
+                log("mesh", f"({part}) {tag} rank {r}: sp against gather "
+                            f"max |diff| {out['sp_vs_gather']:.6g} ({sp:.3g}"
+                            f" of max |logit|)")
+            log("mesh", f"({part}) {tag} rank {r}: one all-reduce of a "
+                        f"[{MESH_B}, 1, 3072] activation between the ranks "
+                        f"{out['allreduce_s'] * 1e3:.3f} ms ({backend})")
+    shapes = ranks[0]["shapes"]
+    bad = [s for s in shapes if tuple(s[2]) != tuple(s[3])]
+    if bad:
+        raise AssertionError(f"[mesh] local shapes off shard_shape: "
+                             f"{bad[:4]}")
+    show = {k: v for _, k, v, _ in shapes
+            if k in ("embed.tok", "blocks.0.attn.wq", "blocks.0.attn.wk",
+                     "blocks.0.attn.wo", "blocks.0.mlp.wd",
+                     "blocks.0.ln1.scale", "0.k")}
+    log("mesh", f"every parameter and cache leaf's local shape equals its "
+                f"shard_shape ({len(shapes)} leaves); e.g. {show}")
+
+
+def mesh_dryrun_start(tmp):
+    """(c) the dry run on the production 16x16 mesh, one process a cell
+    on the host's CPU (beside (a) and (b))."""
+    return {shape: _cli("repro_torch.launch.dryrun",
+                        ["--arch", "llama3.2-3b", "--shape", shape,
+                         "--mesh", "single", "--out", str(tmp)])
+            for shape in MESH_DRYRUN}
+
+
+def mesh_dryrun_check(procs, tmp):
+    for shape, proc in procs.items():
+        rc, out, err = _finish(proc, timeout=900)
+        path = Path(tmp) / f"llama3.2-3b__{shape}__single.json"
+        if rc != 0 or not path.exists():
+            raise AssertionError(f"[mesh] (c) dry run {shape} --mesh single:"
+                                 f" exit {rc}\n{out}\n{err[-2000:]}")
+        rec = json.loads(path.read_text())
+        coll = {k: (v["count"], v["bytes"])
+                for k, v in rec["collectives"].items() if v["count"]}
+        log("mesh", f"(c) launch/dryrun.py --arch llama3.2-3b --shape "
+                    f"{shape} --mesh single (the fake 256-rank group, on "
+                    f"this machine's CPU): per device arguments "
+                    f"{rec['argument_size_in_bytes']} B, peak temporaries "
+                    f"{rec['temp_size_in_bytes']} B, outputs "
+                    f"{rec['output_size_in_bytes']} B, {rec['cost_analysis']['flops']:.6g}"
+                    f" FLOPs ({rec['cost_analysis']['dot flops']:.6g} in "
+                    f"products), {rec['cost_analysis']['bytes accessed']:.6g}"
+                    f" B accessed, collectives (count, bytes) {coll}; pass "
+                    f"{rec['pass_s']} s")
+
+
+def mesh_phase(dev, smi):
+    """Phase mesh: llama3.2-3b at full width over a (1, 2) ("data",
+    "model") mesh of two gloo ranks sharing cuda:0 (``distributed.
+    sharding``): (a) in f32 under "gather" and "sp" and (b) as served
+    (bf16, the config's "gather"), each against the one-device session on
+    the card; (c) the dry run on the production mesh.  Gloo moves
+    everything through the host: a correctness path that says nothing of
+    an NVLink exchange."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.core.dist import spawn
+    from repro_torch.testing import multidevice as tmd
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_dryrun_")
+    procs = mesh_dryrun_start(tmp)
+    try:
+        flash_err = check_flash(dev, [LLAMA_MESH_PRE])
+        rng = np.random.default_rng(0)
+        prompts = rng.integers(0, _mesh_cfg("float32").vocab_size,
+                               (MESH_B, MESH_T), dtype=np.int64)
+        refs = {}
+        for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+            refs[tag] = mesh_reference(dev, _mesh_cfg(dtype), prompts)
+        t_ref = time.perf_counter() - t_phase
+        # (a) under both decode attentions; (b) as the config stands, its
+        # decode_attn "gather".  One model (f32 masters, seed 0) serves both.
+        runs = [("float32", refs["f32"][1], ("gather", "sp"), refs["f32"][0]),
+                ("bfloat16", refs["bf16"][1],
+                 (_mesh_cfg("bfloat16").decode_attn,), refs["bf16"][0])]
+        args = (_mesh_cfg("float32"), (1, 2), prompts, runs, None, "cuda",
+                False, True)
+        t0 = time.perf_counter()
+        ranks = spawn(tmd.serve_mesh_rank, 2, *args, backend="gloo",
+                      timeout=600, join_timeout=900)
+        t_ranks = time.perf_counter() - t0
+        log("mesh", "two gloo ranks share cuda:0: every collective runs "
+                    "through the host, a correctness path that says "
+                    "nothing of an NVLink exchange; the all-gathers are "
+                    "staged explicitly (card -> pinned host buffer -> a "
+                    "gloo all-gather of host tensors -> card: gloo's own "
+                    "all-gather of a CUDA tensor ends its process), the "
+                    "all-reduces use gloo's CUDA path")
+        mesh_check(ranks, "gloo", refs, smi)
+        cards = torch.cuda.device_count()
+        if cards >= 2:
+            ranks = spawn(tmd.serve_mesh_rank, 2, *args, backend="nccl",
+                          timeout=600, join_timeout=900)
+            mesh_check(ranks, "nccl", refs, smi)
+        else:
+            log("mesh", f"NCCL mesh not run: the machine shows {cards} CUDA "
+                        f"device (NCCL needs one card per rank); serving "
+                        f"over NCCL is unverified")
+        mesh_dryrun_check(procs, tmp)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("mesh", f"flash_attention at one rank's prefill shape "
+                f"{LLAMA_MESH_PRE}: max |kernel - plain| {flash_err}")
+    log("mesh", f"phase time {time.perf_counter() - t_phase:.1f} s: the "
+                f"one-device sessions {t_ref:.1f} s, the ranks {t_ranks:.1f}"
+                f" s; {smi}")
+
 
 def main(argv=None) -> int:
     import argparse
@@ -4359,6 +4591,9 @@ def main(argv=None) -> int:
                          "result lines")
     ap.add_argument("--only-roofline", action="store_true",
                     help="run phases 1-2 and phase roofline, and print no "
+                         "result lines")
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="run phases 1-2 and phase mesh, and print no "
                          "result lines")
     args = ap.parse_args(argv)
     # phase train's resume check runs under deterministic algorithms, whose
@@ -4453,6 +4688,11 @@ def main(argv=None) -> int:
         roofline_phase(dev, smi)
         log("roofline", "--only-roofline: the other phases and the result "
                         "lines were not run")
+        return 0
+    if args.only_mesh:
+        mesh_phase(dev, smi)
+        log("mesh", "--only-mesh: the other phases and the result lines "
+                    "were not run")
         return 0
 
     # 3. kernels vs plain versions ----------------------------------------------
@@ -4693,6 +4933,10 @@ def main(argv=None) -> int:
 
     # roofline. the dry run's estimates and counts against the card ------------
     roofline_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # mesh. llama3.2-3b served over two ranks, the production mesh's dry run --
+    mesh_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # 9. result lines --------------------------------------------------------------

@@ -3,9 +3,11 @@
 ``reduced()`` and ``dataclasses.replace`` work alike in both packages.
 
 ``remat`` selects the training loss's checkpointing (``layers.remat``).
-Fields that select a TPU execution strategy (``scan_layers``,
-``sharding_mode``, ``decode_attn``, ``moe_buf_layout``, ...) are kept for
-the copy's sake and read by nothing in the port yet.  ``TrainConfig`` is
+``sharding_mode`` (megatron or fsdp, ``distributed.sharding.set_mode``)
+and ``decode_attn`` (a decode step's ``"gather"`` or sequence-parallel
+``"sp"`` attention, ``layers.attend``) are read over a device mesh.
+``scan_layers`` and ``moe_buf_layout`` are kept for the copy's sake and
+read by nothing in the port yet (MoE over a mesh is ROADMAP A20).  ``TrainConfig`` is
 the reference's, field for field; so are ``ShapeConfig`` and ``SHAPES``,
 the dry run's cells (``launch/dryrun.py``).
 """

@@ -1,0 +1,544 @@
+"""Sharding rules of the port (``repro/distributed/sharding.py``): logical
+axes onto mesh axes, as ``torch.distributed.tensor`` (DTensor) placements.
+
+Logical names used across the stack (the reference's)::
+
+  batch   → ("pod", "data")   activations' leading batch dim
+  vocab   → "model"           embedding / logits vocab dim
+  heads   → "model"           attention heads (when divisible)
+  ffn     → "model"           MLP hidden dim
+  expert  → "model"           MoE expert dim
+  capacity→ "data"            MoE expert-buffer capacity dim
+
+A *spec* is the port's ``PartitionSpec``: a plain tuple with one entry per
+tensor dim, each an axis name, a tuple of names or ``None``; ``()`` is
+replicated at any rank.  A *mesh* is a ``DeviceMesh`` with named dims or,
+where only its geometry is read (the rules, :func:`shard_shape`), a mapping
+``{axis: size}``, the counterpart of the reference's ``AbstractMesh``.
+
+The rules (:func:`params_shardings`, :func:`batch_shardings`,
+:func:`replicated`, and ``serve.engine.cache_shardings``) give each leaf
+the reference's spec.  Leaf paths are the port's state-dict keys
+(``blocks.0.attn.wq``), matched as the reference's ``/``-joined paths
+(``blocks/0/attn/wq``): the rules' substrings mean the same thing.  The
+reference stacks its layers (``scan_layers``); the port's leaves are one
+layer each, so a stacked leaf's spec loses its leading entry here.
+:func:`to_placements` turns a spec into placements (a dim sharded over
+``("pod", "data")`` is ``Shard(d)`` on both mesh dims, pod-major),
+:func:`place` and :func:`place_module` distribute leaves by their specs,
+:func:`shard_shape` gives a leaf's per-device shape.
+
+:func:`use_mesh` is the port's ``with mesh:``.  Under it
+:func:`ambient_mesh` returns the mesh, and a plain tensor that meets a
+DTensor counts as replicated (``implicit_replication``), so the models'
+positions, masks and rotary tables need no placing.  The model code calls
+:func:`maybe_constraint` and :func:`use_param` where the reference does;
+with no ambient mesh (or on a plain tensor) both return their input, so
+one-device paths keep their bits.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+import sys
+
+import torch
+
+BATCH = ("pod", "data")
+_MODE = {"value": "megatron"}
+_AMBIENT: list = []
+
+
+def set_mode(mode: str):
+    """megatron: TP over 'model', batch over ('pod','data').
+    fsdp: ZeRO-3 — params sharded over every axis on their largest divisible
+    dim; batch/activations sharded over ALL axes; no tensor parallelism."""
+    _MODE["value"] = mode
+
+
+def get_mode() -> str:
+    return _MODE["value"]
+
+
+def batch_axes():
+    return ("pod", "data", "model") if _MODE["value"] == "fsdp" else BATCH
+
+
+def ambient_mesh():
+    """The mesh of the innermost :func:`use_mesh`, or None."""
+    return _AMBIENT[-1] if _AMBIENT else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Make ``mesh`` (a ``DeviceMesh``) ambient, the reference's ``with
+    mesh:``; plain tensors meeting DTensors inside count as replicated."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    _AMBIENT.append(mesh)
+    try:
+        with implicit_replication():
+            yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def axis_sizes(mesh) -> dict:
+    """``{axis: size}`` of a ``DeviceMesh`` or of a mapping."""
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, mesh.shape))
+    return dict(mesh)
+
+
+def _names(entry) -> tuple:
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _size(entry, sizes: dict) -> int:
+    return math.prod(sizes[n] for n in _names(entry))
+
+
+def _resolve(axis, sizes: dict):
+    """Map a logical spec entry onto the mesh, dropping absent axes."""
+    if axis is None:
+        return None
+    if isinstance(axis, (tuple, list)):
+        got = tuple(a for a in axis if a in sizes)
+        return got if got else None
+    return axis if axis in sizes else None
+
+
+def logical(*axes) -> tuple:
+    """A spec against the ambient mesh from logical entries, dropping axes
+    the mesh doesn't have (``()`` without a mesh)."""
+    mesh = ambient_mesh()
+    if mesh is None:
+        return ()
+    sizes = axis_sizes(mesh)
+    return tuple(_resolve(a, sizes) for a in axes)
+
+
+def batch_spec() -> tuple:
+    return logical(batch_axes())
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (without importing DTensor: none exists
+    before its module is imported, so one-device paths never load it)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def maybe_constraint(x, *axes):
+    """Redistribute the DTensor ``x`` to the spec ``axes`` (one entry per
+    dim) under an ambient mesh; the identity without one or on a plain
+    tensor.  Axes the mesh lacks or that do not divide their dim are
+    dropped, and the literal ``BATCH`` tuple is remapped per sharding mode
+    (fsdp shards batch over every axis), as in the reference.
+
+    Unlike the reference, a redistribution that fails raises: the
+    reference's ``except Exception: return x`` around
+    ``with_sharding_constraint`` (``repro/distributed/sharding.py:72-75``)
+    is not copied, so a constraint that cannot hold is an error here, not
+    a silent no-op."""
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    return redistribute(x, to_placements(fit(x.shape, axes, mesh), mesh))
+
+
+def fit(shape, axes, mesh) -> tuple:
+    """The logical spec ``axes`` (one entry per dim of ``shape``) on
+    ``mesh``: the literal ``BATCH`` remapped per sharding mode, axes the
+    mesh lacks dropped, an entry dropped where it does not divide its
+    dim."""
+    sizes = axis_sizes(mesh)
+    spec = []
+    for dim, a in enumerate(axes):
+        if isinstance(a, tuple) and a == BATCH:
+            a = batch_axes()
+        r = _resolve(a, sizes)
+        if r is not None and shape[dim] % _size(r, sizes) != 0:
+            r = None
+        spec.append(r)
+    return tuple(spec)
+
+
+def use_param(w):
+    """ZeRO-3 use-site materialization: under fsdp mode and an ambient
+    mesh, a stored-sharded weight is replicated right before its product
+    (the per-layer all-gather); the identity otherwise."""
+    if _MODE["value"] != "fsdp":
+        return w
+    mesh = ambient_mesh()
+    if mesh is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    return redistribute(w, [Replicate()] * mesh.ndim)
+
+
+# -- parameter sharding rules ---------------------------------------------------
+
+_RULES = [
+    # (path substring match, spec by array ndim)
+    ("embed/tok", lambda nd: _pad(("model", None), nd)),
+    ("embed/head", lambda nd: _pad((None, "model"), nd)),
+    ("patch_proj", lambda nd: _pad((None, None), nd)),
+    ("attn/wq", lambda nd: _pad((None, "model"), nd)),
+    ("attn/wk", lambda nd: _pad((None, "model"), nd)),
+    ("attn/wv", lambda nd: _pad((None, "model"), nd)),
+    ("attn/wo", lambda nd: _pad(("model", None), nd)),
+    ("attn/wdkv", lambda nd: _pad((None, None), nd)),
+    ("attn/wkr", lambda nd: _pad((None, None), nd)),
+    ("attn/wukv", lambda nd: _pad((None, "model"), nd)),
+    ("moe/router", lambda nd: _pad((None, None), nd)),
+    # expert-FSDP: experts shard over "model", the ff dim over "data".
+    ("moe/wg", lambda nd: _pad(("model", None, "data"), nd)),
+    ("moe/wu", lambda nd: _pad(("model", None, "data"), nd)),
+    ("moe/wd", lambda nd: _pad(("model", "data", None), nd)),
+    ("shared/wg", lambda nd: _pad((None, "model"), nd)),
+    ("shared/wu", lambda nd: _pad((None, "model"), nd)),
+    ("shared/wd", lambda nd: _pad(("model", None), nd)),
+    ("mlp/wg", lambda nd: _pad((None, "model"), nd)),
+    ("mlp/wu", lambda nd: _pad((None, "model"), nd)),
+    ("mlp/wd", lambda nd: _pad(("model", None), nd)),
+    # zamba shared attention / mlstm / mamba projections
+    ("wq", lambda nd: _pad((None, "model"), nd)),
+    ("wk", lambda nd: _pad((None, "model"), nd)),
+    ("wv", lambda nd: _pad((None, "model"), nd)),
+    ("wo", lambda nd: _pad(("model", None), nd)),
+    ("wg", lambda nd: _pad((None, "model"), nd)),
+    ("wu", lambda nd: _pad((None, "model"), nd)),
+    ("wd", lambda nd: _pad(("model", None), nd)),
+    ("wup", lambda nd: _pad((None, "model"), nd)),
+    ("wdown", lambda nd: _pad(("model", None), nd)),
+    ("win", lambda nd: _pad((None, "model"), nd)),
+    ("wout", lambda nd: _pad(("model", None), nd)),
+    ("wproj", lambda nd: _pad(("model", None), nd)),
+    ("wx", lambda nd: _pad((None, "model"), nd)),
+]
+
+
+def _pad(spec: tuple, nd: int) -> tuple:
+    """Left-pad a spec with None for leading dims (the last ``nd`` entries
+    where the spec is longer)."""
+    pad = nd - len(spec)
+    if pad < 0:
+        return spec[-nd:] if nd else ()
+    return (None,) * pad + spec
+
+
+def param_spec(path: str, ndim: int) -> tuple:
+    for frag, builder in _RULES:
+        if frag in path:
+            return builder(ndim)
+    return (None,) * ndim
+
+
+def tree_map_with_path(fn, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over a nest of dicts, lists and tuples; a leaf's
+    path joins its keys with ``/``, a dict key split at its dots (so a
+    state-dict key ``blocks.0.attn.wq`` is ``blocks/0/attn/wq``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + tuple(str(k).split(".")))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    return fn("/".join(path), tree)
+
+
+def _zip_map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def params_shardings(params, mesh, mode: str | None = None):
+    """The spec of every leaf of a parameter tree (a state dict, or the
+    nested tree of ``weights()``; fake tensors do), megatron or fsdp."""
+    mode = mode or _MODE["value"]
+    sizes = axis_sizes(mesh)
+
+    if mode == "fsdp":
+        axes = tuple(a for a in ("pod", "data", "model") if a in sizes)
+        size = math.prod(sizes[a] for a in axes)
+
+        def spec_fsdp(path, leaf):
+            # shard the largest divisible dim over ALL axes (ZeRO-3)
+            cands = [(s, i) for i, s in enumerate(leaf.shape)
+                     if s % size == 0 and s >= size]
+            spec = [None] * leaf.ndim
+            if cands:
+                _, dim = max(cands)
+                spec[dim] = axes
+            return tuple(spec)
+
+        return tree_map_with_path(spec_fsdp, params)
+
+    def spec_for(path, leaf):
+        fixed = []
+        for dim, a in enumerate(param_spec(path, leaf.ndim)):
+            if a is None or any(n not in sizes for n in _names(a)):
+                fixed.append(None)
+                continue
+            fixed.append(a if leaf.shape[dim] % _size(a, sizes) == 0
+                         else None)
+        return tuple(fixed)
+
+    return tree_map_with_path(spec_for, params)
+
+
+def batch_shardings(batch, mesh, mode: str | None = None):
+    """The batch's leading dim over ``("pod", "data")`` (fsdp: every axis)
+    where it divides."""
+    mode = mode or _MODE["value"]
+    src = ("pod", "data", "model") if mode == "fsdp" else BATCH
+    sizes = axis_sizes(mesh)
+    names = tuple(a for a in src if a in sizes)
+
+    def spec_for(path, leaf):
+        if not names:
+            return ()
+        lead = names if leaf.shape and \
+            leaf.shape[0] % _size(names, sizes) == 0 else None
+        return (lead,) + (None,) * (leaf.ndim - 1)
+    return tree_map_with_path(spec_for, batch)
+
+
+def replicated(mesh) -> tuple:
+    return ()
+
+
+# -- placements ---------------------------------------------------------------
+
+def to_placements(spec: tuple, mesh) -> list:
+    """DTensor placements of a spec on ``mesh``: mesh dim ``i`` is
+    ``Shard(d)`` where tensor dim ``d``'s entry names axis ``i``, else
+    ``Replicate()``.  A dim over several axes must name them in the mesh's
+    order: DTensor shards a dim over mesh dims major to minor in that
+    order, which is the reference's ``("pod", "data")``."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        idx = [names.index(n) for n in _names(e)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {e} is not in the mesh's axis "
+                             f"order {names}")
+        for i in idx:
+            if not isinstance(out[i], Replicate):
+                raise ValueError(f"axis {names[i]} shards two dims in "
+                                 f"{spec}")
+            out[i] = Shard(d)
+    return out
+
+
+def shard_shape(shape, spec: tuple, mesh) -> tuple:
+    """The per-device shape of a leaf of ``shape`` under ``spec``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        n = _size(e, sizes)
+        if out[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not divide "
+                             f"over {e} ({n})")
+        out[d] //= n
+    return tuple(out)
+
+
+def _local_chunk(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` under ``spec``, as a tensor of its own."""
+    coord = mesh.get_coordinate()
+    names = list(mesh.mesh_dim_names)
+    local = t
+    for d, e in enumerate(spec):
+        if e is None:
+            continue
+        idx, n = 0, 1
+        for name in _names(e):
+            i = names.index(name)
+            idx = idx * mesh.size(i) + coord[i]
+            n *= mesh.size(i)
+        if t.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not divide "
+                             f"over {e} ({n})")
+        chunk = t.shape[d] // n
+        local = local.narrow(d, idx * chunk, chunk)
+    return local.clone(memory_format=torch.contiguous_format)
+
+
+def place(tree, shardings, mesh):
+    """The leaves of ``tree`` as DTensors on ``mesh`` by their specs
+    (``shardings``, a tree of the same structure): each rank keeps a copy
+    of its own block only (no collective; every rank holds the whole
+    leaf)."""
+    from torch.distributed.tensor import DTensor
+
+    def one(t, spec):
+        return DTensor.from_local(_local_chunk(t, spec, mesh), mesh,
+                                  to_placements(spec, mesh), run_check=False,
+                                  shape=t.shape,
+                                  stride=_contiguous_stride(t.shape))
+    return _zip_map(one, tree, shardings)
+
+
+def place_module(module: torch.nn.Module, mesh, mode: str | None = None):
+    """Replace ``module``'s parameters by DTensors placed by
+    :func:`params_shardings`, each rank keeping its own block; returns the
+    specs by state-dict key."""
+    specs = params_shardings(dict(module.named_parameters()), mesh, mode)
+    for key, spec in specs.items():
+        owner, _, name = key.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        p = getattr(sub, name)
+        placed = place(p.detach(), spec, mesh)
+        setattr(sub, name, torch.nn.Parameter(placed,
+                                              requires_grad=p.requires_grad))
+    return specs
+
+
+def _contiguous_stride(shape) -> tuple:
+    stride, acc = [], 1
+    for s in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= s
+    return tuple(reversed(stride))
+
+
+def redistribute(t, placements):
+    """``t.redistribute`` to ``placements``.  A shard that moves from one
+    tensor dim to another goes through replicate (an all-gather, then a
+    local chunk) rather than DTensor's all-to-all.  Every shard → replicate
+    step of a CUDA tensor on a gloo mesh is staged through the host
+    (:func:`_gather_staged`)."""
+    from torch.distributed.tensor import Replicate
+    cur = list(t.placements)
+    mid = [Replicate() if (c.is_shard() and p.is_shard() and c != p) else c
+           for c, p in zip(cur, placements)]
+    if mid != cur:
+        t = _redistribute(t, mid)
+    if list(t.placements) != list(placements):
+        t = _redistribute(t, list(placements))
+    return t
+
+
+def _redistribute(t, placements):
+    if not (t.is_cuda and _gloo(t.device_mesh)):
+        return t.redistribute(t.device_mesh, placements)
+    t = _gather_staged(t, placements)
+    if list(t.placements) != list(placements):
+        t = t.redistribute(t.device_mesh, placements)
+    return t
+
+
+def _gloo(mesh) -> bool:
+    import torch.distributed as dist
+    return all(str(dist.get_backend(mesh.get_group(i))) == "gloo"
+               for i in range(mesh.ndim))
+
+
+def _gather_staged(t, placements):
+    """The shard → replicate steps of ``t`` toward ``placements``, each an
+    all-gather of the host copy of the local block over its mesh dim (the
+    innermost first, so a dim sharded over several mesh dims comes back in
+    order), copied back to the card.  Gloo's own all-gather of a CUDA
+    tensor, which DTensor would issue, ends its process (SIGSEGV) on the
+    records' card, while its all-reduce works; so the port stages this one
+    collective explicitly, as ``core.dist.Comm`` stages all of its own."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+    # (``all_gather_into_tensor`` is named ``all_gather_single`` in newer
+    # torch)
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    mesh = t.device_mesh
+    local, cur = t.to_local(), list(t.placements)
+    for i in reversed(range(mesh.ndim)):
+        c = cur[i]
+        if c.is_shard() and isinstance(placements[i], Replicate):
+            # the gathered dim leads on the card, so the host copies are
+            # one block each way, through pinned buffers.
+            block = local.movedim(c.dim, 0).contiguous()
+            host = torch.empty(block.shape, dtype=block.dtype,
+                               pin_memory=t.is_cuda)
+            host.copy_(block)
+            got = torch.empty((mesh.size(i) * block.shape[0],)
+                              + block.shape[1:], dtype=block.dtype,
+                              pin_memory=t.is_cuda)
+            gather(got, host, group=mesh.get_group(i))
+            local = got.to(t.device, non_blocking=t.is_cuda)
+            local = local.movedim(0, c.dim).contiguous()
+            cur[i] = Replicate()
+    return DTensor.from_local(local, mesh, cur, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def full(t) -> torch.Tensor:
+    """The whole of a DTensor on every rank (a plain tensor)."""
+    from torch.distributed.tensor import Replicate
+    return redistribute(t, [Replicate()] * t.device_mesh.ndim).to_local()
+
+
+def wrap(local: torch.Tensor, like, placements, shape):
+    """``local`` (made contiguous) as a DTensor of global ``shape`` on
+    ``like``'s mesh."""
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local.contiguous(), like.device_mesh,
+                              placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=_contiguous_stride(shape))
+
+
+def aligned(t, dim: int, groups: int):
+    """``t`` with ``dim`` replicated over the mesh dims that shard it into
+    blocks that cut one of ``groups`` equal groups (a head); the identity
+    on a plain tensor or where the blocks align."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    dim %= t.ndim
+    mesh = t.device_mesh
+    on = [i for i, p in enumerate(t.placements)
+          if p.is_shard() and p.dim == dim]
+    if groups % math.prod(mesh.size(i) for i in on) == 0:
+        return t
+    return redistribute(t, [Replicate() if i in on else p
+                            for i, p in enumerate(t.placements)])
+
+
+def rank_on(mesh, axis: str) -> int:
+    """This rank's index along ``axis`` (0 where the mesh lacks it)."""
+    if axis not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_local_rank(axis)
+
+
+def all_reduce(t: torch.Tensor, op: str, mesh, axis: str) -> torch.Tensor:
+    """A functional all-reduce (``"sum"`` or ``"max"``) of a local tensor
+    over ``axis``'s mesh dim (what the counter and the tracer see as a
+    ``_c10d_functional`` collective)."""
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, op, (mesh, mesh.mesh_dim_names.index(axis)))
+    return funcol.wait_tensor(out)
+
+
+def refuse_unported(cfg, kind: str) -> None:
+    """Refuse by name what does not run over a mesh yet: training (ROADMAP
+    A19) and every family but the dense decoders (A20)."""
+    if kind == "train":
+        raise NotImplementedError(
+            f"{cfg.name}: training over a mesh (Trainer(mesh=), the ZeRO-2 "
+            f"gradient constraint, the train cells on the production "
+            f"meshes) is not ported yet (ROADMAP A19)")
+    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family over a mesh (MoE experts, "
+            f"MLA's latent cache, zamba2's and xLSTM's rules) is not ported "
+            f"yet (ROADMAP A20)")

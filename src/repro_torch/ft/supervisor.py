@@ -10,7 +10,7 @@ feed an EWMA, and a step slower than ``straggler_factor`` times it is
 counted as a straggler.  The clock stops after the step's output is ready
 on its device (:func:`_block`), so on the card it measures device time too.
 Checkpoint and restart are the loop's (``train/loop.py``); an elastic
-restart onto another device count is not ported (ROADMAP A12).
+restart onto another device count is not ported (ROADMAP A19).
 """
 from __future__ import annotations
 

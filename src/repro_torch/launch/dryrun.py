@@ -26,9 +26,20 @@ reference's record:
   ``analytic_memory_floor``, and the seconds: ``build_s`` (the fake inputs)
   and ``pass_s`` (the step).
 
-Only ``--mesh local`` runs (the devices there are, one card on the records'
-machine); ``single`` and ``multi``, the reference's pods, need
-``distributed/sharding.py`` (ROADMAP A12) and refuse by name.
+``--mesh local`` runs the step on the devices there are (one card on the
+records' machine).  ``--mesh single`` and ``multi`` run it on the
+reference's 16x16 or 2x16x16 pod, over a fake process group of 256 or 512
+ranks in this process (``launch.mesh.fake_mesh``): the parameters, the
+batch or tokens and the caches are placed by the reference's rules
+(``distributed.sharding``, ``serve.engine.cache_shardings``, the config's
+``sharding_mode``) and the step runs on DTensors with the mesh ambient, so
+the record is rank 0's, per device: ``argument_size_in_bytes`` its
+shards, ``temp_size_in_bytes`` its peak, ``cost_analysis`` its ops,
+``collectives`` its collectives and their bytes, ``n_devices`` 256 or 512
+(the floor stays the global one, as in the reference).  Those meshes run
+the prefill and decode cells of the dense decoders; a train cell refuses
+naming ROADMAP A19, the other families naming A20 (a ``"refused"``
+record).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -37,29 +48,50 @@ Usage:
       --override remat=none --variant remat_none
 """
 import argparse
+import contextlib
+import dataclasses
 import json
 import time
 import traceback
 from pathlib import Path
 
 from ..configs.base import SHAPES
-from ..configs.registry import all_archs
+from ..configs.registry import all_archs, get_config
+from ..distributed import sharding
 from ..launch.mesh import make_local_mesh, make_production_mesh
 from ..launch.specs import cell_is_skipped, input_specs
 from ..roofline.analysis import (FlopCounter, _bytes_of, _tensors,
                                  memory_floor, step_call)
+from ..serve.engine import cache_shardings
 
 MESHES = ("local", "single", "multi")
 
 
 def mesh_for(kind: str):
-    """The mesh ``--mesh kind`` names; ``single`` and ``multi`` raise
-    ``NotImplementedError`` (``launch.mesh.make_production_mesh``)."""
+    """The mesh ``--mesh kind`` names: ``single`` and ``multi`` over a fake
+    process group made in this process (``make_production_mesh(fake=
+    True)``)."""
     if kind == "local":
         return make_local_mesh()
     if kind in ("single", "multi"):
-        return make_production_mesh(multi_pod=kind == "multi")
+        return make_production_mesh(multi_pod=kind == "multi", fake=True)
     raise ValueError(f"unknown mesh {kind!r}; one of {MESHES}")
+
+
+def place_spec(spec: dict, mesh, batch_size: int) -> None:
+    """Place a cell's inputs on ``mesh``, in place in ``spec`` (under its
+    fake mode): the model's parameters (``sharding.place_module``; the
+    config's ``sharding_mode`` must be set), the batch or the tokens
+    (``batch_shardings``) and the caches (``cache_shardings``)."""
+    with spec["mode"]:
+        sharding.place_module(spec["model"], mesh)
+        spec["params"] = dict(spec["model"].named_parameters())
+        spec["caches"] = sharding.place(
+            spec["caches"], cache_shardings(spec["caches"], mesh, batch_size),
+            mesh)
+        key = "batch" if spec["kind"] == "prefill" else "tokens"
+        spec[key] = sharding.place(
+            spec[key], sharding.batch_shardings(spec[key], mesh), mesh)
 
 
 def _parse_overrides(pairs):
@@ -100,19 +132,36 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
         rec["skip_reason"] = reason
         return rec
 
+    sharded = mesh_kind != "local"
+    if sharded:
+        model_over = {k: v for k, v in (overrides or {}).items()
+                      if not k.startswith(("train.", "_"))}
+        sharding.refuse_unported(
+            dataclasses.replace(get_config(arch), **model_over),
+            SHAPES[shape_name].kind)
     if mesh is None:
         mesh = mesh_for(mesh_kind)
-    rec["n_devices"] = mesh.size
+    rec["n_devices"] = mesh.size() if sharded else mesh.size
     t0 = time.time()
     spec = input_specs(arch, shape_name, overrides=overrides)
     cfg = spec["cfg"]
-    run = step_call(spec, overrides)
-    rec["build_s"] = round(time.time() - t0, 2)
+    floor = memory_floor(spec)
+    mode = sharding.get_mode()
+    try:
+        if sharded:
+            sharding.set_mode(cfg.sharding_mode)
+            place_spec(spec, mesh, SHAPES[shape_name].global_batch)
+        run = step_call(spec, overrides)
+        rec["build_s"] = round(time.time() - t0, 2)
 
-    t1 = time.time()
-    with spec["mode"], FlopCounter() as c:
-        out = run()
-    rec["pass_s"] = round(time.time() - t1, 2)
+        t1 = time.time()
+        ambient = (sharding.use_mesh(mesh) if sharded
+                   else contextlib.nullcontext())
+        with spec["mode"], ambient, FlopCounter() as c:
+            out = run()
+        rec["pass_s"] = round(time.time() - t1, 2)
+    finally:
+        sharding.set_mode(mode)
 
     inputs = _inputs(spec)
     held = {id(t.untyped_storage()) for t in _tensors(inputs)}
@@ -125,7 +174,7 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str,
                             "bytes accessed": c.bytes}
     if not skip_collectives:
         rec["collectives"] = c.collectives
-    rec["analytic_memory_floor"] = memory_floor(spec)
+    rec["analytic_memory_floor"] = floor
 
     # model params (analytic) for §Roofline MODEL_FLOPS = 6 N D
     rec["param_count"] = int(cfg.param_count())
@@ -174,6 +223,9 @@ def main(argv=None):
             rec = run_cell(arch, shape, args.mesh,
                            skip_collectives=args.skip_collectives, mesh=mesh,
                            overrides=overrides)
+        except NotImplementedError as e:
+            rec = {"arch": arch, "shape": shape, "mesh": args.mesh,
+                   "status": "refused", "skip_reason": str(e)}
         except Exception as e:
             rec = {"arch": arch, "shape": shape, "mesh": args.mesh,
                    "status": "error", "error": str(e),

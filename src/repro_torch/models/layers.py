@@ -20,6 +20,19 @@ attends over every cache row with the columns ``>= cur_len + 1`` masked, as
 the JAX package's ``_attn_masked_decode`` does.  The JAX package also masks
 its cached prefill only by ``cols < valid_len`` (ROADMAP C3), which lets a
 prompt position see later ones; the port does not copy that.
+
+Over a device mesh (``distributed.sharding``: DTensor parameters, caches
+and activations, the mesh ambient) the same functions run on DTensors.
+The reference's call sites are here: ``use_param`` at every weight use,
+and the port adds what DTensor needs where GSPMD places it itself: a
+head-cutting projection replicated before its reshape (``_heads``), each
+branch's partial sum reduced before the residual add (``_residual``), a
+vocab-sharded embedding lookup reduced (``embed``), the cache written by
+each rank's own rows (``write_rows``), and every attention run on each
+rank's plain block of heads (``local_heads``), so the kernel never sees a
+DTensor.  A decode step's ``cfg.decode_attn`` is ``"gather"`` (the cache
+all-gathered) or ``"sp"`` (:func:`attn_decode_sp`, the reference's
+flash-decoding).  With no mesh every one of these is the identity.
 """
 from __future__ import annotations
 
@@ -32,6 +45,11 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..distributed import sharding
+from ..distributed.sharding import (BATCH, aligned, ambient_mesh, axis_sizes,
+                                    fit, is_dtensor, maybe_constraint,
+                                    rank_on, redistribute, to_placements,
+                                    use_param, wrap)
 from ..kernels import ops
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -140,7 +158,13 @@ def attn_masked_decode(q, k, v, valid_len):
     device; shapes depend on nothing else, so no value is read on the host.
     In f32 throughout, over chunks of 1024 columns where 1024 divides Smax,
     else one chunk.  Every row sees the same columns: at T=1 that is the
-    causal mask, at T>1 it is not (ROADMAP C3)."""
+    causal mask, at T>1 it is not (ROADMAP C3).
+
+    Under a mesh (DTensor inputs) this is ``decode_attn="gather"``: the
+    cache's sequence shards are all-gathered and each rank attends with
+    its own heads (:func:`local_heads`)."""
+    if is_dtensor(q):
+        return local_heads(attn_masked_decode, q, k, v, valid_len)
     B, T, Hq, hd = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -175,7 +199,11 @@ def sdpa(cfg, q, k, v):
     ``ops.mha`` with [B,H,T,hd] views of them (the flash_attention kernel
     on a CUDA tensor, which reads the views in place and returns o in q's
     layout, so the transpose back is contiguous) and, as in the JAX
-    package, ignores ``attn_f32``."""
+    package, ignores ``attn_f32``.  Under a mesh each rank attends with
+    its own heads (:func:`local_heads`): the kernel sees plain local
+    tensors, never a DTensor."""
+    if is_dtensor(q):
+        return local_heads(functools.partial(sdpa, cfg), q, k, v)
     if cfg.attn_impl == "pallas":
         o = ops.mha(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                     causal=True)
@@ -199,13 +227,22 @@ def init_attn(cfg, gen: torch.Generator) -> dict:
     }
 
 
+def _heads(t, H: int, hd: int):
+    """[B,T,H*hd] → [B,T,H,hd].  Under a mesh the rules shard a
+    projection's columns over "model", which can cut a head (llama3.2-3b's
+    ``wk``, 1,024 columns, over the production mesh's 16-wide axis gives
+    half-heads): such a product is replicated first (``sharding.aligned``)
+    so that every rank's block holds whole heads."""
+    B, T, _ = t.shape
+    return aligned(t, -1, H).reshape(B, T, H, hd)
+
+
 def qkv(cfg, p, x, positions):
     """x [B,T,d] → rotated q [B,T,Hq,hd] and k, v [B,T,Hkv,hd]."""
-    B, T, _ = x.shape
     hd, Hq, Hkv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
-    q = (x @ p["wq"]).reshape(B, T, Hq, hd)
-    k = (x @ p["wk"]).reshape(B, T, Hkv, hd)
-    v = (x @ p["wv"]).reshape(B, T, Hkv, hd)
+    q = _heads(x @ use_param(p["wq"]), Hq, hd)
+    k = _heads(x @ use_param(p["wk"]), Hkv, hd)
+    v = _heads(x @ use_param(p["wv"]), Hkv, hd)
     return (rope(q, positions, cfg.rope_theta),
             rope(k, positions, cfg.rope_theta), v)
 
@@ -219,22 +256,155 @@ def attend(cfg, q, k, v, cache=None, cur_len=0, decode=False):
     the cache's device).  A prefill (``decode`` False; the cache empty,
     ``cur_len`` 0) then attends as the forward does, through ``sdpa``, so
     it stays causal; a decode step (T=1) attends over the whole cache in
-    the compute dtype with the columns ``>= cur_len + 1`` masked
-    (:func:`attn_masked_decode`)."""
+    the compute dtype with the columns ``>= cur_len + 1`` masked:
+    ``cfg.decode_attn="sp"`` through :func:`attn_decode_sp`, anything else
+    (``"gather"``) through :func:`attn_masked_decode`."""
     T = q.shape[1]
     if decode and T != 1:
         raise ValueError(f"a decode step takes one token a row, got {T}: "
                          f"the length mask is causal only at T=1 "
                          f"(ROADMAP C3)")
     if cache is not None:
-        rows = cur_len + torch.arange(T, device=q.device)
-        cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+        write_rows((cache["k"], cache["v"]), (k, v), cur_len)
     if not decode:
         return sdpa(cfg, q, k, v)
     cdt = dt_of(cfg)
-    return attn_masked_decode(q, cache["k"].to(cdt), cache["v"].to(cdt),
-                              cur_len + 1)
+    attend_fn = (attn_decode_sp if cfg.decode_attn == "sp"
+                 else attn_masked_decode)
+    return attend_fn(q, cache["k"].to(cdt), cache["v"].to(cdt), cur_len + 1)
+
+
+def write_rows(caches, news, cur_len) -> None:
+    """Write each ``news[i]`` [B,T,...] into ``caches[i]`` [B,Smax,...] at
+    rows ``cur_len + arange(T)``, in place (``index_copy_``).
+
+    Under a mesh the caches are DTensors in their own layout
+    (``serve.engine.cache_shardings``: the sequence over "model" for a GQA
+    cache), where an ``index_copy_`` along a sharded dim raises.  So the
+    new rows (stacked, one collective for all of them) are first brought
+    to the caches' layout with the rows replicated, and each rank writes
+    the rows that fall in its own block: by a host slice where
+    ``cur_len`` is an int (a prefill), else (a decode step, T=1,
+    ``cur_len`` on the device) by one clamped row kept as it was on every
+    rank but its owner's."""
+    if not is_dtensor(caches[0]):
+        for cache, new in zip(caches, news):
+            rows = cur_len + torch.arange(new.shape[1], device=cache.device)
+            cache.index_copy_(1, rows, new.to(cache.dtype))
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    cache = caches[0]
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements)
+           if p.is_shard() and p.dim == 1]
+    # the caches' layout one dim down (the stack's), the rows replicated
+    spec = [Replicate() if i in seq else Shard(p.dim + 1) if p.is_shard()
+            else p for i, p in enumerate(cache.placements)]
+    rows = redistribute(torch.stack([n.to(cache.dtype) for n in news]),
+                        spec).to_local()
+    S_loc, T = cache.to_local().shape[1], rows.shape[2]
+    block = 0
+    for i in seq:
+        block = block * mesh.size(i) + mesh.get_coordinate()[i]
+    base = block * S_loc
+    if not isinstance(cur_len, int) and T != 1:
+        raise ValueError(f"a sharded cache takes rows at a device position "
+                         f"one at a time, got {T}")
+    for c, r in zip(caches, rows.unbind(0)):
+        local = c.to_local()
+        if isinstance(cur_len, int):
+            lo, hi = max(cur_len, base), min(cur_len + T, base + S_loc)
+            if lo < hi:
+                local[:, lo - base:hi - base] = r[:, lo - cur_len:hi - cur_len]
+            continue
+        j = (cur_len - base).clamp(0, S_loc - 1).reshape(1)
+        mine = (cur_len >= base) & (cur_len < base + S_loc)
+        local.index_copy_(1, j, torch.where(mine, r, local.index_select(1, j)))
+
+
+def local_heads(fn, q, k, v, *args):
+    """``fn(q, k, v, *args)`` on each rank's block of DTensors q [B,T,Hq,hd]
+    and k, v [B,S,Hkv,hd]: the batch over the batch axes where it divides,
+    the heads over "model" where both Hq and Hkv divide it (the GQA
+    pairing is then right within a rank's block), everything else
+    replicated (a sequence-sharded cache is all-gathered).  Heads the
+    rules leave misaligned (Hkv below the axis size: granite-3-2b's 8 kv
+    heads on the production mesh's 16-wide axis) are replicated here,
+    before the kernel, and every rank of the axis attends with all of
+    them.  Returns the output as a DTensor laid out as q was brought."""
+    mesh = q.device_mesh
+    b, _, hq, _ = fit(q.shape, (BATCH, None, "model", None), mesh)
+    hk = fit(k.shape, (None, None, "model", None), mesh)[2]
+    h = hq if hq == hk and "model" not in (b or ()) else None
+    spec = to_placements((b, None, h, None), mesh)
+    q = redistribute(q, spec)
+    kl, vl = (t.to_local() for t in _pair(k, v, spec))
+    o = fn(q.to_local(), kl, vl, *args)
+    return wrap(o, q, spec, q.shape[:-1] + (v.shape[-1],))
+
+
+def _pair(k, v, spec):
+    """k and v in ``spec``: where either must move, both move stacked, in
+    one collective."""
+    if list(k.placements) == spec and list(v.placements) == spec:
+        return k, v
+    from torch.distributed.tensor import Shard
+    kv = redistribute(torch.stack([k, v]),
+                      [Shard(p.dim + 1) if p.is_shard() else p
+                       for p in spec])
+    return kv.unbind(0)
+
+
+def attn_decode_sp(q, k, v, valid_len):
+    """Sequence-parallel decode attention (flash-decoding; the reference's
+    ``_attn_decode_sp``, ``repro/models/layers.py:284``): each "model"
+    rank computes the partial ``(m, l, acc)`` of q [B,T,Hq,hd] over its
+    own slice of the sequence-sharded cache k, v [B,S,Hkv,hd] (columns
+    ``rank * S/n + arange(S/n)``, those ``>= valid_len`` masked), and the
+    partials merge by an all-reduce MAX of m and SUM of the rescaled l and
+    acc (one collective) over the mesh's "model" dim; the cache never
+    moves, only [B,T,H]-sized statistics do.  q is replicated over
+    "model" first, as the reference's ``in_specs`` do.  In f32, as the
+    reference.  With no ambient mesh, no "model" axis or S not divisible
+    by it, this is :func:`attn_masked_decode`, as in the reference."""
+    mesh = ambient_mesh()
+    S = k.shape[1]
+    if (mesh is None or not is_dtensor(q)
+            or "model" not in mesh.mesh_dim_names
+            or S % axis_sizes(mesh)["model"] != 0):
+        return attn_masked_decode(q, k, v, valid_len)
+    sizes = axis_sizes(mesh)
+    B, T, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    S_loc = S // sizes["model"]
+    bnames = tuple(a for a in BATCH if a in sizes)
+    bspec = (bnames if bnames and B % math.prod(sizes[a] for a in bnames) == 0
+             else None)
+    qspec = to_placements((bspec, None, None, None), mesh)
+    kspec = to_placements((bspec, "model", None, None), mesh)
+    ql = redistribute(q, qspec).to_local()
+    kl, vl = (t.to_local().float() for t in _pair(k, v, kspec))
+    Bl = ql.shape[0]
+    base = rank_on(mesh, "model") * S_loc
+    qf = ql.float().reshape(Bl, T, Hkv, G, hd)
+    s = torch.einsum("bthgd,bshd->bthgs", qf, kl) * scale
+    cols = base + torch.arange(S_loc, device=ql.device)
+    s = torch.where(cols < valid_len, s, -1e30)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    acc = torch.einsum("bthgs,bshd->bthgd", p, vl)
+    # merge the partials across the sequence shards (l and acc summed in
+    # one collective)
+    M = sharding.all_reduce(m, "max", mesh, "model")
+    w = torch.exp(m - M)
+    la = sharding.all_reduce(torch.cat([(l * w)[..., None],
+                                        acc * w[..., None]], -1),
+                             "sum", mesh, "model")
+    out = la[..., 1:] / torch.clamp(la[..., 0], min=1e-30)[..., None]
+    return wrap(out.reshape(Bl, T, Hq, hd).to(q.dtype), q, qspec, q.shape)
 
 
 def attention(cfg, p, x, positions, cache=None, cur_len=0, decode=False):
@@ -243,7 +413,17 @@ def attention(cfg, p, x, positions, cache=None, cur_len=0, decode=False):
     that updates it in place (see :func:`attend`)."""
     B, T, _ = x.shape
     o = attend(cfg, *qkv(cfg, p, x, positions), cache, cur_len, decode)
-    return o.reshape(B, T, -1) @ p["wo"]
+    return _residual(o.reshape(B, T, -1) @ use_param(p["wo"]))
+
+
+def _residual(y):
+    """A block's branch output before it joins the residual stream: under
+    a mesh the row-parallel product is a partial sum over "model", summed
+    here (the Megatron all-reduce) so the stream stays replicated over the
+    axis; GSPMD places that all-reduce itself, DTensor would otherwise
+    carry a partial stream into the next norm and reduce it there twice.
+    The identity without a mesh."""
+    return maybe_constraint(y, BATCH, None, None)
 
 
 # -- MLP ---------------------------------------------------------------------------
@@ -259,10 +439,11 @@ def init_mlp(cfg, gen: torch.Generator) -> dict:
 
 def mlp(cfg, p, x):
     if cfg.activation == "swiglu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+        h = F.silu(x @ use_param(p["wg"])) * (x @ use_param(p["wu"]))
     else:
-        h = F.gelu(x @ p["wu"], approximate="tanh")  # jax.nn.gelu's default
-    return h @ p["wd"]
+        # jax.nn.gelu's default
+        h = F.gelu(x @ use_param(p["wu"]), approximate="tanh")
+    return _residual(h @ use_param(p["wd"]))
 
 
 # -- embeddings ---------------------------------------------------------------------
@@ -276,12 +457,19 @@ def init_embed(cfg, gen: torch.Generator) -> dict:
 
 
 def embed(p, tokens):
-    """Rows of the (compute-dtype) token table."""
+    """Rows of the (compute-dtype) token table.  Under a mesh the table is
+    sharded over its vocab rows: each rank looks up the rows it holds
+    (``F.embedding`` gives DTensor's masked partial) and the lookups are
+    summed over the axis."""
+    if is_dtensor(p["tok"]):
+        return maybe_constraint(F.embedding(tokens, p["tok"]), BATCH, None,
+                                None)
     return p["tok"][tokens]
 
 
 def unembed(cfg, p, x):
-    out = x @ (p["tok"].T if cfg.tie_embeddings else p["head"])
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    out = x @ use_param(w)
     return out.float() if cfg.logits_fp32 else out
 
 

@@ -42,12 +42,20 @@ frame's embedding [B, 1, d] in place of a token.
 Prefill is causal (ROADMAP C3): it computes the teacher-forced forward's
 last logits and the caches of :meth:`DecoderLM.decode_step` called once per
 prompt position.
+
+Over a device mesh (dense configs; ``distributed.sharding``): with the
+parameters placed by ``sharding.place_module``, the batch and the caches
+DTensors and the mesh ambient (``sharding.use_mesh``), the same code runs
+tensor-parallel over "model" and data-parallel over the batch axes, and a
+decode step attends as ``cfg.decode_attn`` says (``"gather"`` or the
+sequence-parallel ``"sp"``, ``layers.attend``).
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.device import resolve_device
+from ..distributed.sharding import BATCH, maybe_constraint
 from .layers import (ParamTree, attention, cast_params, dt_of, embed,
                      init_attn, init_embed, init_mlp, init_norm, mlp, norm,
                      remat, unembed)
@@ -169,6 +177,8 @@ class DecoderLM(ParamTree):
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         logits = unembed(self.cfg, w["embed"],
                          self._run(w, x, positions, policy=policy))
+        # the reference's ``_shard_logits`` (the identity without a mesh)
+        logits = maybe_constraint(logits, BATCH, None, "model")
         lp = torch.log_softmax(logits.float(), dim=-1)
         sel = torch.gather(lp[:, :-1], -1, labels[:, 1:, None])[..., 0]
         m = (mask[:, 1:] & mask[:, :-1]).float()

@@ -51,6 +51,7 @@ the reference's names.
 """
 from __future__ import annotations
 
+import sys
 import weakref
 
 import torch
@@ -58,6 +59,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 from torch.utils.weak import WeakIdKeyDictionary
 
+from ..distributed.sharding import is_dtensor
 from ..kernels import counting
 
 #: the card of the records, as ``nvidia-smi --query-gpu=name,power.limit
@@ -118,6 +120,16 @@ _C10D = (("reduce_scatter", "reduce-scatter"),
          ("alltoall", "all-to-all"), ("all_to_all", "all-to-all"),
          ("send", "collective-permute"), ("recv", "collective-permute"))
 
+
+def collective_kind(op_name: str):
+    """The reference's kind of a ``c10d`` / ``_c10d_functional`` op, or
+    None (``wait_tensor``, barriers)."""
+    for key, kind in _C10D:
+        if key in op_name:
+            return kind
+    return None
+
+
 #: metadata queries that FlopCounterMode also passes by.
 _METADATA = {torch.ops.aten.is_contiguous.default,
              torch.ops.aten.is_contiguous.memory_format,
@@ -128,12 +140,51 @@ _METADATA = {torch.ops.aten.is_contiguous.default,
              torch.ops.aten.numel.default, torch.ops.aten.sym_numel.default,
              torch.ops.aten.dim.default, torch.ops.prim.layout.default}
 
+
+def _on_dtensors(types) -> bool:
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and any(issubclass(t, mod.DTensor) for t in types)
+
+
+_PROPAGATION_HIDDEN = []
+
+
+def _hide_shape_propagation() -> None:
+    """DTensor derives an op's output shape by running the op once more on
+    fake inputs of the global shapes (``ShardingPropagator.
+    _propagate_tensor_meta_non_cached``, cached per op schema).  Those ops
+    are not the rank's work, and whether they run depends on the cache:
+    wrap the method (once per process) so that, while counters are
+    active, what it runs counts nothing and tallies no storage."""
+    if _PROPAGATION_HIDDEN or "torch.distributed.tensor" not in sys.modules:
+        return
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    orig = ShardingPropagator._propagate_tensor_meta_non_cached
+
+    def hidden(self, op_schema):
+        active = list(counting.ACTIVE)
+        for c in active:
+            c.hidden += 1
+            c.in_plain += 1
+        try:
+            return orig(self, op_schema)
+        finally:
+            for c in active:
+                c.hidden -= 1
+                c.in_plain -= 1
+    ShardingPropagator._propagate_tensor_meta_non_cached = hidden
+    _PROPAGATION_HIDDEN.append(orig)
+
+
 def _tensors(tree) -> list:
-    """The tensors in a nest of tuples, lists and dicts (any order)."""
+    """The tensors in a nest of tuples, lists and dicts (any order); a
+    DTensor as this rank's local block."""
     out, stack = [], [tree]
     while stack:
         x = stack.pop()
-        if isinstance(x, torch.Tensor):
+        if is_dtensor(x):
+            out.append(x.to_local())
+        elif isinstance(x, torch.Tensor):
             out.append(x)
         elif isinstance(x, (list, tuple)):
             stack.extend(x)
@@ -165,7 +216,11 @@ class FlopCounter(TorchDispatchMode):
     ``{kind: {"bytes", "count", "scaled_bytes"}}``.
 
     Enter it inside a ``FakeTensorMode`` to count a pass over fake
-    tensors; on real tensors it counts what runs."""
+    tensors; on real tensors it counts what runs.  On DTensors it counts
+    this rank's work: an op on DTensors is left to DTensor, whose local
+    ops and collectives come back through the counter, and the ops DTensor
+    runs on global-shape fakes to derive an output's shape
+    (:func:`_hide_shape_propagation`) count nothing."""
 
     def __init__(self):
         super().__init__()
@@ -186,6 +241,7 @@ class FlopCounter(TorchDispatchMode):
         return self.dot + self.rest
 
     def __enter__(self):
+        _hide_shape_propagation()
         counting.ACTIVE.append(self)
         return super().__enter__()
 
@@ -224,14 +280,13 @@ class FlopCounter(TorchDispatchMode):
         name = packet.__name__
         if func.namespace in ("c10d", "_c10d_functional",
                               "c10d_functional"):
-            for key, kind in _C10D:
-                if key in name:
-                    rec = self.collectives[kind]
-                    b = sum(_nbytes(t) for t in outs)
-                    rec["bytes"] += b
-                    rec["count"] += 1
-                    rec["scaled_bytes"] += float(b)
-                    break
+            kind = collective_kind(name)
+            if kind is not None:
+                rec = self.collectives[kind]
+                b = sum(_nbytes(t) for t in outs)
+                rec["bytes"] += b
+                rec["count"] += 1
+                rec["scaled_bytes"] += float(b)
             return
         # in-place variants (``add_``) count as their ops
         base = name[:-1] if name.endswith("_") and \
@@ -252,7 +307,7 @@ class FlopCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in _METADATA:
+        if func in _METADATA or _on_dtensors(types):
             return NotImplemented
         if func._overloadpacket not in flop_registry \
                 and func is not torch.ops.prim.device.default:

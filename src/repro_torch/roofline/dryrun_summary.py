@@ -4,7 +4,8 @@
   PYTHONPATH=src python -m repro_torch.roofline.dryrun_summary [--md out.md]
 
 "fits" holds a cell's arguments and peak temporaries against one card's
-memory, :data:`HBM_PER_CHIP`.
+memory, :data:`HBM_PER_CHIP` (on ``single`` and ``multi`` a record's bytes
+are one device's).
 """
 from __future__ import annotations
 
@@ -34,8 +35,8 @@ def build(artifact_dir: Path) -> str:
         variant = rec.get("overrides")
         if variant or path.stem.count("__") > 2:
             continue  # hillclimb variants reported in §Perf
-        if rec["status"] == "skipped":
-            rows.append((name, mesh, "skipped", "—", "—", "—", "—",
+        if rec["status"] in ("skipped", "refused"):
+            rows.append((name, mesh, rec["status"], "—", "—", "—", "—",
                          rec.get("skip_reason", "")[:60]))
             continue
         if rec["status"] != "ok":

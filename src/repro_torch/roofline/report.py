@@ -36,11 +36,15 @@ def _note(row: dict) -> str:
 
 def row_of(rec: dict) -> dict:
     """The roofline row of an ``ok`` dry-run record (its FLOPs and floor
-    are the dry run's)."""
+    are the dry run's).  On ``single`` and ``multi`` a record's FLOPs are
+    one device's (rank 0's), so the cell's are them times the devices,
+    replicated work included."""
     arch, shape = rec["arch"], rec["shape"]
     mf = analysis.model_flops_for(arch, shape)
-    row = analysis.roofline_row(rec,
-                                flops_global=rec["cost_analysis"]["flops"],
+    flops = rec["cost_analysis"]["flops"]
+    if rec["mesh"] != "local":
+        flops *= rec["n_devices"]
+    row = analysis.roofline_row(rec, flops_global=flops,
                                 chips=rec["n_devices"],
                                 model_flops=mf, kind=SHAPES[shape].kind)
     row.update({"arch": arch, "shape": shape, "status": "ok",

@@ -26,15 +26,68 @@ embedding to feed back (the reference feeds the token ids as activations
 and fails, ROADMAP C7).  Such a session decodes given frames instead
 (:meth:`ServeSession.decode_frames`).
 
-The multi-device cache shardings come with the multi-device slice.
+Over a device mesh (``distributed.sharding``) the caches are laid out by
+:func:`cache_shardings`, the reference's rule, and a step runs through
+:func:`make_prefill` and :func:`make_decode_step` with the mesh ambient.
+The session stays one device, as the reference's does: across ranks the
+steps run eagerly (a gloo collective cannot be captured in a CUDA graph).
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..core.device import resolve_device
 from ..core.graphs import capture, replay
+from ..distributed.sharding import axis_sizes, tree_map_with_path
 from ..models.layers import dt_of
+
+
+def cache_shardings(caches, mesh, batch_size: int):
+    """The spec of every cache leaf (the reference's rule): the
+    batch-sized dim over ``("pod", "data")`` where it divides; the largest
+    remaining dim divisible by the "model" axis over "model" — for a GQA
+    KV cache [B, S, Hkv, hd] that is the sequence (a context-parallel
+    cache) or the kv-head dim, for MLA the latent sequence, for SSM states
+    the feature dims."""
+    sizes = axis_sizes(mesh)
+    bnames = tuple(a for a in ("pod", "data") if a in sizes)
+    bsize = math.prod(sizes[n] for n in bnames) if bnames else 1
+    msize = sizes.get("model", 1)
+
+    def spec_for(path, leaf):
+        spec = [None] * leaf.ndim
+        bdim = None
+        for i, s in enumerate(leaf.shape):
+            if s == batch_size and bnames and s % bsize == 0:
+                spec[i] = bnames
+                bdim = i
+                break
+        if "model" in sizes and msize > 1:
+            cands = [(s, i) for i, s in enumerate(leaf.shape)
+                     if i != bdim and s % msize == 0 and s >= msize]
+            if cands:
+                _, mdim = max(cands)
+                spec[mdim] = "model"
+        return tuple(spec)
+
+    return tree_map_with_path(spec_for, caches)
+
+
+def make_decode_step(model):
+    """``decode_step(params, tokens, caches, cur_len)``: the reference's
+    factory, ``params`` the compute-dtype weights tree."""
+    def decode_step(params, tokens, caches, cur_len):
+        return model.decode_step(tokens, caches, cur_len, w=params)
+    return decode_step
+
+
+def make_prefill(model):
+    """``prefill(params, batch, caches)``: the reference's factory."""
+    def prefill(params, batch, caches):
+        return model.prefill(batch, caches, w=params)
+    return prefill
 
 
 def prompt_length(batch) -> int:

@@ -32,6 +32,10 @@ port).
   ranks, either layout: per-replication digests of the rank's rows
   (:func:`shard_digests`), the drain's launches, collectives, host syncs,
   graph replays and ms/epoch;
+* :func:`serve_mesh_rank` — a dense config served over a ``(data,
+  model)`` mesh of the spawn's ranks (``distributed.sharding``): prefill
+  and decode under ``"gather"`` and ``"sp"``, the full logits, each
+  leaf's local shape, launches, collectives and times;
 * :func:`tasks_rank` — several of these in one spawn (the ranks start
   once).
 """
@@ -39,6 +43,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..core.calendar import bucket_occupancy, make_calendar, make_fallback
 from ..core.dist import Comm
@@ -49,6 +54,7 @@ from ..core.pipeline.deliver import deliver
 from ..core.placement import equal_placement
 from ..core.graphs import clone_state
 from ..interop import engine_state_to_numpy, numpy_leaves
+from ..roofline.analysis import collective_kind
 from ..workloads.registry import (bench_path, conformance_spec,
                                   get_workload)
 from .conformance import (SWEEP, check_workload_replicated,  # noqa: F401
@@ -413,6 +419,204 @@ def main_path_replicated_rank(rank: int, group, device: str, seeds: list,
             "digests": shard_digests(st, rows),
             "totals": eng.totals_replicated(st),
             "epochs": eng.epochs_replicated(st), "timing": timing}
+
+
+def serve_mesh_rank(rank: int, group, cfg, mesh_shape, prompts, runs,
+                    tree=None, device: str = "cpu", keep_logits: bool = True,
+                    measure: bool = False) -> dict:
+    """Serve the dense config ``cfg`` over a ``("data", "model")`` mesh of
+    ``mesh_shape`` (the spawn's ranks, row-major): the model's parameters
+    (from ``tree``, a host copy of the JAX model's, through
+    ``interop.params_from_numpy``, else the port's seeded ones) placed by
+    ``params_shardings``, the caches by ``cache_shardings`` and the
+    prompts [B, T] by ``batch_shardings``, with the mesh ambient.  Each of
+    ``runs``, ``(dtype, feed, modes, ref)``, serves in compute ``dtype``: a
+    prefill of ``prompts`` into caches of ``T + n`` rows, then, from a copy
+    of them under each ``decode_attn`` of ``modes``, one decode step per
+    column of ``feed`` [B, n] (step i feeds ``feed[:, i]`` at position
+    ``T + i``).
+
+    Returns ``shapes`` (``(what, key, local shape, shard_shape)`` of every
+    parameter leaf and of the first run's cache leaves) and per run (``runs``, in order): the
+    prefill's kernel ``launches`` and ``prefill_s`` (host clock, the card
+    synchronized); ``sp_vs_gather``; and per mode: the logits [n + 1, B, V]
+    (the prefill's last position, then each step's; f32, numpy) if
+    ``keep_logits``, their greedy ``tokens``, their max |Δ| ``err``
+    against ``ref`` (numpy, same shape) where it is not None.  With
+    ``measure`` also: per mode the decode steps' seconds per token on the
+    host clock (steps 2..n, the gather of each step's vocab-sharded
+    logits included) and the collectives of step 1 (kind → bytes and
+    count) with their host µs (the ``c10d`` calls and the functional
+    collectives' waits); per run
+    ``allreduce_s``, one all-reduce of a [B, 1, d] activation over
+    "model"."""
+    import dataclasses
+
+    from ..core.device import resolve_device
+    from ..distributed import sharding
+    from ..launch.mesh import make_mesh
+    from ..models.registry import build_model
+    from ..serve.engine import cache_shardings
+    sharding.refuse_unported(cfg, "decode")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)        # the ranks share the host's cores
+    mesh = make_mesh(mesh_shape, ("data", "model"), dev.type)
+    model = build_model(cfg, device=dev)
+    if tree is not None:
+        from ..interop import params_from_numpy
+        model.load_state_dict(params_from_numpy(tree, cfg))
+    pspecs = sharding.place_module(model, mesh)
+    shapes = [("param", k, tuple(p.to_local().shape),
+               sharding.shard_shape(p.shape, pspecs[k], mesh))
+              for k, p in model.named_parameters()]
+    B, T = prompts.shape
+    caches = model.init_cache(B, T + runs[0][1].shape[1])
+    cspecs = cache_shardings(caches, mesh, B)
+    shapes += [("cache", f"{i}.{k}", tuple(c.to_local().shape),
+                sharding.shard_shape(caches[i][k].shape, cspecs[i][k], mesh))
+               for i, layer in enumerate(sharding.place(caches, cspecs, mesh))
+               for k, c in layer.items()]
+    del caches
+    out = {"shapes": shapes, "runs": []}
+    for dtype, feed, modes, ref in runs:
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        out["runs"].append(_serve_run(model, mesh, dev, prompts, feed, modes,
+                                      ref, keep_logits, measure))
+    return out
+
+
+def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
+               measure) -> dict:
+    """One run of :func:`serve_mesh_rank`: a prefill, then each mode's
+    decode steps."""
+    import dataclasses
+    import time
+
+    from ..distributed import sharding
+    from ..kernels.ops import KERNELS
+    from ..models.layers import dt_of
+    from ..serve.engine import (cache_shardings, make_decode_step,
+                                make_prefill)
+    cfg = model.cfg
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    B, T = prompts.shape
+    n = feed.shape[1]
+    prompts = torch.as_tensor(prompts, device=dev)
+    feed = torch.as_tensor(feed, device=dev)
+
+    def batched(t):
+        return sharding.place(t, sharding.batch_shardings(t, mesh), mesh)
+
+    prefill, step = make_prefill(model), make_decode_step(model)
+    full = model.init_cache(B, T + n)
+    filled = sharding.place(full, cache_shardings(full, mesh, B), mesh)
+    del full
+    for fn in KERNELS:
+        fn.launches = 0
+    with sharding.use_mesh(mesh):
+        w = model.weights()
+        sync()
+        t0 = time.perf_counter()
+        lg, filled = prefill(w, batched({"tokens": prompts}), filled)
+        first = sharding.full(lg)[:, -1].float()
+        sync()
+    out = {"modes": {}, "prefill_s": time.perf_counter() - t0,
+           "launches": {fn.__name__: fn.launches for fn in KERNELS}}
+    kept = {}
+    for mode in modes:
+        # the decode attention is the only difference between the modes:
+        # each decodes from its own copy of the prefilled caches.
+        model.cfg = dataclasses.replace(cfg, decode_attn=mode)
+        caches = [{k: c.clone() for k, c in layer.items()}
+                  for layer in filled]
+        rec = {}
+        steps = [first]
+        with sharding.use_mesh(mesh):
+            t0 = None
+            for i in range(n):
+                tok = batched({"t": feed[:, i:i + 1]})["t"]
+                cur = torch.tensor(T + i, device=dev)
+                if i == 0 and measure:
+                    with _Collectives() as c:
+                        lg, caches = step(w, tok, caches, cur)
+                        steps.append(sharding.full(lg)[:, -1].float())
+                    rec["collectives"] = c.kinds
+                    rec["collective_us"] = c.seconds * 1e6
+                    sync()
+                    t0 = time.perf_counter()
+                    continue
+                lg, caches = step(w, tok, caches, cur)
+                steps.append(sharding.full(lg)[:, -1].float())
+            sync()
+            if measure and n > 1:
+                rec["decode_s_per_token"] = (time.perf_counter() - t0) / (n - 1)
+        del caches
+        logits = torch.stack(steps).cpu().numpy()
+        kept[mode] = logits
+        rec["tokens"] = logits.argmax(-1)
+        if ref is not None:
+            rec["err"] = float(np.max(np.abs(logits - ref)))
+        if keep_logits:
+            rec["logits"] = logits
+        out["modes"][mode] = rec
+    model.cfg = cfg
+    if measure:
+        # the latency of one collective between the ranks: an all-reduce of
+        # a decode step's residual [B, 1, d] over "model".
+        x = torch.zeros((B, 1, cfg.d_model), dtype=dt_of(cfg), device=dev)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sharding.all_reduce(x, "sum", mesh, "model")
+        sync()
+        out["allreduce_s"] = (time.perf_counter() - t0) / 20
+    if "gather" in kept and "sp" in kept:
+        out["sp_vs_gather"] = float(np.max(np.abs(kept["sp"]
+                                                  - kept["gather"])))
+    return out
+
+
+class _Collectives(TorchDispatchMode):
+    """The collectives a rank issues (``c10d`` and functional ops, by the
+    roofline's kinds: ``{kind: {"bytes", "count"}}``, the bytes of their
+    results) and the host seconds spent in them, a functional
+    collective's wait included.  Everything else passes straight through
+    (``analysis.FlopCounter`` counts the same collectives, at a cost per
+    op that would swamp a decode step's time); an op on DTensors is left
+    to DTensor, whose local ops come back through the mode."""
+
+    def __init__(self):
+        super().__init__()
+        self.kinds: dict = {}
+        self.seconds = 0.0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        import time
+
+        from ..distributed.sharding import is_dtensor
+        if any(is_dtensor(a) for a in args):
+            return NotImplemented
+        if func.namespace not in ("c10d", "_c10d_functional"):
+            return func(*args, **(kwargs or {}))
+        t0 = time.perf_counter()
+        out = func(*args, **(kwargs or {}))
+        self.seconds += time.perf_counter() - t0
+        kind = collective_kind(func._overloadpacket.__name__)
+        if kind is not None:
+            rec = self.kinds.setdefault(kind, {"bytes": 0, "count": 0})
+            rec["count"] += 1
+            rec["bytes"] += sum(t.numel() * t.element_size()
+                                for t in _flat_tensors(out))
+        return out
+
+
+def _flat_tensors(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, (list, tuple)):
+        return [t for x in out for t in _flat_tensors(x)]
+    return []
 
 
 def tasks_rank(rank: int, group, tasks: list[tuple[str, tuple]]) -> list:

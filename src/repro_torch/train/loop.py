@@ -12,7 +12,7 @@ train step, checkpoint and resume.
 The parameters are the model's own (a module holds them; the state's
 ``params`` is ``dict(model.named_parameters())``), updated in place with
 the optimizer state.  One device: the reference's ``mesh=`` (sharded
-parameters and optimizer state) is not ported (ROADMAP A12).
+parameters and optimizer state) is not ported (ROADMAP A19).
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ class Trainer:
             raise NotImplementedError(
                 "Trainer(mesh=...): multi-device training (sharded "
                 "parameters, optimizer state and gradients) is not ported; "
-                "ROADMAP A12")
+                "ROADMAP A19")
         self.model, self.tcfg, self.mesh, self.log = model, tcfg, mesh, log
         self.loader = loader
         self.step_fn = SupervisedStep(make_train_step(model, tcfg))

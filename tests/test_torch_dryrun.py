@@ -9,7 +9,11 @@ against the reference's where the two compute the same thing.
   gives, the floor, zero collectives on one device, and a collective
   counted when one is issued;
 * the CLI's artifact names, the report's, the summary's and the variant's
-  tables from them; ``--mesh single`` and ``multi`` refused by name.
+  tables from them;
+* ``--mesh single`` over the fake 256-rank group on a reduced dense
+  prefill and decode cell: the argument bytes are the summed per-device
+  shapes of the reference's specs, collectives are issued; train cells and
+  the other families refused by name (A19, A20).
 """
 import json
 
@@ -132,14 +136,106 @@ def tiny(monkeypatch):
     return TINY.name
 
 
-def test_meshes_other_than_local_refuse_by_name():
+@pytest.fixture
+def fake_group():
+    """The fake process group the production meshes make, destroyed after
+    the test (so later tests in this process see none)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        pytest.skip("a process group is already initialized here")
+    yield
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_meshes_other_than_local_refuse_by_name(fake_group, tmp_path):
+    """On ``single`` and ``multi`` a train cell refuses naming A19 and a
+    non-dense family naming A20, before anything is built; the CLI
+    writes a ``"refused"`` record and exits 0."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match=f"{mesh}.*A12"):
-            dryrun.main(["--arch", "llama3.2-3b", "--mesh", mesh])
+        with pytest.raises(NotImplementedError, match="A19"):
+            dryrun.run_cell("llama3.2-3b", "train_4k", mesh, mesh=object())
+        for arch in ("deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-1.3b"):
+            with pytest.raises(NotImplementedError, match="A20"):
+                dryrun.run_cell(arch, "decode_32k", mesh, mesh=object())
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
+                     "--mesh", "single", "--out", str(tmp_path)])
+    assert e.value.code == 0
+    rec = json.loads((tmp_path / "kimi-k2-1t-a32b__train_4k__single.json")
+                     .read_text())
+    assert rec["status"] == "refused" and "A19" in rec["skip_reason"]
     m = make_local_mesh()
     assert m.shape == {"data": len(m.devices)} and m.size >= 1
+
+
+TINY_SERVE = (ShapeConfig("tiny_prefill", 64, 32, "prefill"),
+              ShapeConfig("tiny_decode", 64, 32, "decode"))
+
+
+def _ref_local_bytes(tree, specs, mesh, itemsize) -> int:
+    """Bytes of the per-device blocks of a reference tree of shapes under
+    its specs (``shard_shape`` of each leaf), at ``itemsize`` bytes an
+    element where given, else the leaf's own."""
+    from repro_torch.distributed.sharding import shard_shape
+    leaves = jax.tree.leaves(tree)
+    spec = jax.tree.leaves(specs, is_leaf=lambda x: hasattr(x, "spec"))
+    assert len(leaves) == len(spec)
+    return sum(int(np.prod(shard_shape(t.shape, tuple(sp.spec), mesh)))
+               * (itemsize or np.dtype(t.dtype).itemsize)
+               for t, sp in zip(leaves, spec))
+
+
+def test_run_cell_on_the_single_mesh(fake_group, monkeypatch):
+    """Reduced granite-3-2b's prefill and decode on the fake 16x16 mesh:
+    a per-device record whose argument bytes are the reference's specs'
+    per-device blocks (parameters f32; token ids int64 here; caches f32),
+    with all-gathers and all-reduces issued, the FLOPs one device's, and
+    the floor the global one."""
+    from repro.configs.registry import get_config as jget
+    from repro.data.synthetic import batch_spec as jbatch
+    from repro.distributed.sharding import (batch_shardings,
+                                            params_shardings)
+    from repro.models.registry import build_model as jbuild
+    from repro.serve.engine import cache_shardings
+    from jax.sharding import AbstractMesh
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.specs import input_specs
+    for shape in TINY_SERVE:
+        monkeypatch.setitem(SHAPES, shape.name, shape)
+    monkeypatch.setattr("repro_torch.launch.specs.get_config",
+                        lambda arch: get_config(arch, reduced=True))
+    amesh = AbstractMesh((16, 16), ("data", "model"))
+    mesh = {"data": 16, "model": 16}
+    jcfg = jget("granite-3-2b", reduced=True)
+    jm = jbuild(jcfg)
+    params = jax.eval_shape(jm.init, jax.random.key(0))
+    pbytes = _ref_local_bytes(params, params_shardings(params, amesh), mesh,
+                              None)
+    B, T = 32, 64
+    caches = jax.eval_shape(lambda: jm.init_cache(B, T, jax.numpy.float32))
+    cbytes = _ref_local_bytes(caches, cache_shardings(caches, amesh, B),
+                              mesh, None)
+    batch = jbatch(jcfg, B, T)
+    tokens = {"t": jax.ShapeDtypeStruct((B, 1), np.int32)}
+    for shape, inputs in zip(TINY_SERVE, (batch, tokens)):
+        rec = run_cell("granite-3-2b", shape.name, "single")
+        assert rec["status"] == "ok" and rec["n_devices"] == 256
+        want = pbytes + cbytes + _ref_local_bytes(
+            inputs, batch_shardings(inputs, amesh), mesh, 8)
+        if shape.kind == "decode":
+            want += 8                                       # cur_len
+        assert rec["argument_size_in_bytes"] == want, (shape.name, want)
+        coll = rec["collectives"]
+        assert coll["all-gather"]["count"] > 0 and \
+            coll["all-reduce"]["count"] > 0, coll
+        assert rec["analytic_memory_floor"] == A.memory_floor(
+            input_specs("granite-3-2b", shape.name))
+        local = run_cell("granite-3-2b", shape.name, "local")
+        assert 0 < rec["cost_analysis"]["dot flops"] < \
+            local["cost_analysis"]["dot flops"]
 
 
 def test_run_cell_record(tiny):

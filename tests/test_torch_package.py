@@ -244,3 +244,18 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
     out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+MESH_MODULES = ("distributed", "distributed.sharding", "launch.mesh",
+                "serve.engine", "models.layers", "testing.multidevice")
+
+
+def test_scans_cover_the_mesh_slice():
+    # the sharding rules are a package of their own; the first test
+    # imports every module, this one scans the sources.
+    for mod in MESH_MODULES:
+        path = PKG.joinpath(*mod.split("."))
+        path = path / "__init__.py" if path.is_dir() else \
+            path.with_suffix(".py")
+        assert path.is_file(), mod
+        assert not FORBIDDEN.findall(path.read_text()), mod

@@ -435,7 +435,7 @@ def test_loader_follows_the_reference_seed_rule():
 
 def test_trainer_refuses_a_mesh():
     m = build_model(_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(NotImplementedError, match="A19"):
         Trainer(m, TrainConfig(), mesh=object())
 
 
