@@ -286,6 +286,26 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 single`` on llama3.2-3b's decode_32k and prefill_32k (the
                 fake 256-rank group, the host's CPU), per-device bytes,
                 FLOPs and collectives;
+  train_mesh. — training over a device mesh (``Trainer(mesh=)``): the
+                one-device Trainer on the card first (llama3.2-3b at
+                full width and TMESH_LAYERS layers in f32, its first-step
+                gradients kept on the host; as the config stands, phase
+                train's steps), then two gloo ranks sharing cuda:0, phase
+                train's batch and TrainConfig: (a) megatron on a (1, 2)
+                ("data", "model") mesh, (b) fsdp on (2, 1) with the ZeRO-2
+                grad_shardings.  In f32 each mode's losses and grad norms
+                within TMESH_F32_TOL (relative) and every gathered
+                first-step gradient leaf within TMESH_GRAD_TOL of its max
+                |g| (none zero on the mesh alone; under (b) each placed
+                as its parameter); (a)'s checkpoint restored onto (b)'s
+                mesh and trained a step more (the elastic reshard), held
+                to the same; as the config stands (bf16, 28 layers)
+                TMESH_STEPS steps of (a) and one of (b), losses within
+                TMESH_LOSS_TOL and
+                grad norms within TMESH_GNORM_TOL; every local shape its
+                shard_shape, no kernel launched; per rank the step times,
+                one step's collectives (calls, bytes, host µs), the peak
+                memory and the two ranks' sum against the card's;
   9. a JSON line listing every ported kernel (flash_attention's with a
      ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
      plain version's and SDPA's ms, the bound, the prefill shape's ms and
@@ -295,8 +315,9 @@ Phases, each reported on its own lines; any failure exits nonzero:
 ``python3 chip_smoke.py --only-archs`` runs phases 1-2, flash_attention's
 checks at D = 160, phase archs and the D = 160 timings, and prints no
 result lines; ``--only-train`` runs phases 1-2 and phase train, and prints
-no result lines; so do ``--only-roofline`` with phase roofline and
-``--only-mesh`` with phase mesh.
+no result lines; so do ``--only-roofline`` with phase roofline,
+``--only-mesh`` with phase mesh and ``--only-train-mesh`` with phase
+train_mesh.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -304,6 +325,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -4059,7 +4081,7 @@ def train_full(dev, smi) -> dict:
     torch.cuda.empty_cache()
     return {"step_ms": med_ms, "fwd_bwd_ms": fb_ms, "update_ms": up_ms,
             "tok_s": tokens / (med_ms / 1e3), "peak_gib": peak_run / 2**30,
-            "busy": busy_ms / med_ms if busy_ms else None}
+            "busy": busy_ms / med_ms if busy_ms else None, "hist": hist}
 
 
 def train_phase(dev, smi):
@@ -4370,8 +4392,10 @@ def roofline_phase(dev, smi):
 
 # -- phase mesh: llama3.2-3b served over a (1, 2) mesh of two ranks ------------
 
-#: the served batch: B prompts of T tokens (seeded), N decode steps.
-MESH_B, MESH_T, MESH_N = 4, 1024, 32
+#: the served batch: B prompts of T tokens (seeded), N decode steps (8
+#: since phase train_mesh came after this phase: 32 before; each step
+#: over gloo takes 0.4-1.5 s a mode).
+MESH_B, MESH_T, MESH_N = 4, 1024, 8
 #: (a)'s gates, relative to max |logit| of the one-device session: f32
 #: over ranks against one device (the row-parallel partial sums add in
 #: another order), and sp against gather.
@@ -4578,6 +4602,249 @@ def mesh_phase(dev, smi):
                 f" s; {smi}")
 
 
+# -- phase train_mesh: llama3.2-3b trained over two ranks on the card -----------
+
+#: the exact check runs llama3.2-3b at full width with this many layers, in
+#: f32 compute: each mode's step losses and grad norms within TMESH_F32_TOL
+#: (relative) of the one-device Trainer's, every gathered gradient leaf of
+#: the first step within TMESH_GRAD_TOL of the one-device leaf's max |g|.
+TMESH_LAYERS, TMESH_F32_TOL, TMESH_GRAD_TOL = 4, 1e-5, 1e-4
+#: as the config stands (bf16 compute, 28 layers): step losses within
+#: TMESH_LOSS_TOL and grad norms within TMESH_GNORM_TOL (relative) of the
+#: one-device Trainer's (phase train's).
+TMESH_LOSS_TOL, TMESH_GNORM_TOL = 2e-3, 1e-2
+#: steps: the exact check's first step in each mode (the elastic run the
+#: step after); as the config stands megatron's TMESH_STEPS and fsdp's
+#: first (an fsdp step moves ~48 GB through gloo, ~40 s: PERF.md §6).
+TMESH_STEPS = 2
+#: the card's memory in MiB (H100 80GB HBM3).
+CARD_MIB = 81559
+
+
+def _tmesh_tcfg(ckpt=None, every=0):
+    """Phase train's TrainConfig, checkpointing every ``every`` steps into
+    ``ckpt``."""
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(learning_rate=1e-3, warmup_steps=1,
+                       total_steps=TRAIN_STEPS, microbatch=TRAIN_MICRO,
+                       checkpoint_every=every,
+                       checkpoint_dir=str(ckpt) if ckpt else "ckpt")
+
+
+def tmesh_one_device(dev, cfg, steps, data, grads_to=None):
+    """The one-device Trainer on the card from seed 0 on phase train's
+    batch (``data``: its rows and tokens): each step's metrics; with
+    ``grads_to``, the first step's gradients saved there first (host,
+    ``torch.save``)."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.loop import Trainer
+    from repro_torch.train.step import loss_and_grads
+    m = build_model(cfg, device=dev, seed=0)
+    batch = make_batch(cfg, *data, device=dev)
+    if grads_to:
+        _, grads = loss_and_grads(m, batch, TRAIN_MICRO)
+        torch.save({k: g.cpu() for k, g in grads.items()}, grads_to)
+        del grads
+    params = dict(m.named_parameters())
+    tr = Trainer(m, _tmesh_tcfg(), loader=_FixedBatch(batch),
+                 log=lambda s: None)
+    _, state, hist = tr.run(steps, start=(params, opt.init(params), 0))
+    del m, tr, params, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return hist
+
+
+def tmesh_reference(rank, group, device, *args):
+    """:func:`tmesh_one_device` in a process of its own (a spawn of one
+    rank), so that this process keeps none of its memory cached while the
+    two ranks train."""
+    from repro_torch.core.device import resolve_device
+    return tmesh_one_device(resolve_device(device), *args)
+
+
+def _tmesh_rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def tmesh_check(ranks, names, want, smi):
+    """The phase's checks and lines from the ranks' results: each run
+    (``names``: tag, what it holds to) against the one-device metrics
+    (``want``: tag → the one-device steps it meets, the loss and grad norm
+    tolerances)."""
+    for r, runs in enumerate(ranks):
+        for (tag, what), run in zip(names, runs):
+            steps, ltol, gtol = want[tag]
+            if any(run["launches"].values()):
+                raise AssertionError(f"[train_mesh] {tag} rank {r}: kernel "
+                                     f"launches {run['launches']}")
+            bad = [x for x in run["shapes"] if tuple(x[2]) != tuple(x[3])]
+            if bad:
+                raise AssertionError(f"[train_mesh] {tag} rank {r}: local "
+                                     f"shapes off shard_shape {bad[:3]}")
+            gaps = []
+            for h in run["hist"]:
+                w = steps[h["step"]]
+                lg, gg = (_tmesh_rel(h["loss"], w["loss"]),
+                          _tmesh_rel(h["grad_norm"], w["grad_norm"]))
+                if not (lg <= ltol and gg <= gtol):
+                    raise AssertionError(
+                        f"[train_mesh] {tag} rank {r} step {h['step']}: "
+                        f"loss {h['loss']} (one device {w['loss']}), grad "
+                        f"norm {h['grad_norm']} (one device "
+                        f"{w['grad_norm']})")
+                gaps.append(f"step {h['step']} loss {h['loss']:.6f} "
+                            f"({lg:.2g}) grad norm {h['grad_norm']:.6f} "
+                            f"({gg:.2g})")
+            line = (f"{tag} rank {r}: {what}; " + "; ".join(gaps)
+                    + f" (relative gaps to one device, within {ltol:g} and "
+                    f"{gtol:g}); every parameter's and moment's local shape "
+                    f"is its shard_shape ({len(run['shapes'])} leaves); "
+                    f"kernel launches {run['launches']}")
+            g = run.get("grads")
+            if g:
+                off = [x for x in g["layout"] if x[1] != x[2]
+                       or tuple(x[3]) != tuple(x[4])]
+                if g["err"] > TMESH_GRAD_TOL or g["zero"] or \
+                        ("fsdp" in tag and off):
+                    raise AssertionError(
+                        f"[train_mesh] {tag} rank {r}: first-step "
+                        f"gradients {g['err']} of max |g| off one device, "
+                        f"zero here only {g['zero'][:4]}, layout off "
+                        f"{off[:3]}")
+                sharded = sum("Shard" in x[1] for x in g["layout"])
+                line += (f"; first-step gradients gathered within "
+                         f"{g['err']:.3g} of each one-device leaf's max |g| "
+                         f"(tolerance {TMESH_GRAD_TOL:g}), none zero here "
+                         f"alone; {sharded} of {len(g['layout'])} sharded")
+                if "fsdp" in tag:
+                    line += (", every one placed as its parameter and of "
+                             "its shard_shape")
+            log("train_mesh", line)
+            t = run.get("timing")
+            if t:
+                coll = "; ".join(
+                    f"{k} {v['count']} x {v['bytes'] / 2**20:.1f} MiB"
+                    for k, v in t["steps"][0]["collectives"].items())
+                ms = [1e3 * x["s"] for x in t["steps"]]
+                log("train_mesh", f"{tag} rank {r}: step ms (host clock, "
+                                  f"synchronised) " + ", ".join(
+                                      f"{x:.1f}" for x in ms)
+                    + f" (step 0 counts its collectives and warms up); step "
+                      f"0's collectives: {coll}; "
+                      f"{1e6 * t['steps'][0]['collective_s']:.0f} µs of host "
+                      f"time in the c10d calls (gloo waits outside them); "
+                      f"a staged all-gather of 128 MiB a rank moves "
+                      f"{t['gather_gbs']:.3f} GB/s; peak device memory "
+                      f"{t['peak'] / 2**20:.0f} MiB; {smi}"
+                    if t["peak"] is not None else "not measured")
+    for tag, _ in names:
+        peaks = [run["timing"]["peak"] for runs in ranks
+                 for (t, _), run in zip(names, runs)
+                 if t == tag and run.get("timing")
+                 and run["timing"]["peak"] is not None]
+        if peaks:
+            log("train_mesh", f"{tag}: the two ranks' peaks sum to "
+                              f"{sum(peaks) / 2**20:.0f} MiB of the card's "
+                              f"{CARD_MIB} MiB "
+                              f"({sum(peaks) / 2**20 / CARD_MIB:.1%}); {smi}")
+
+
+def train_mesh_phase(dev, smi, train_hist=None):
+    """Phase train_mesh: llama3.2-3b trained at full width over two gloo
+    ranks sharing cuda:0 (``Trainer(mesh=)``, ``testing.multidevice.
+    train_mesh_rank``) on phase train's batch and TrainConfig: (a)
+    megatron on a (1, 2) ("data", "model") mesh, (b) fsdp on a (2, 1) mesh
+    with the ZeRO-2 ``grad_shardings``.  At TMESH_LAYERS layers in f32
+    compute each is held exactly to the one-device Trainer (losses, grad
+    norms, every first-step gradient leaf, gathered), (a)'s checkpoint
+    after its step is restored onto (b)'s mesh and trained one step more
+    (the elastic reshard); as the config stands (bf16, 28 layers) (a) runs
+    TMESH_STEPS steps and (b) one, against the one-device Trainer's (phase
+    train's, ``train_hist``, when it ran), with step times, one step's
+    collectives and the peak memory of each rank.  Gloo moves everything
+    through the host: a correctness path that says nothing of an NVLink
+    exchange."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.dist import spawn
+    from repro_torch.testing import multidevice as tmd
+    t_phase = time.perf_counter()
+    cfg = get_config("llama3.2-3b")
+    exact = {"n_layers": TMESH_LAYERS, "dtype": "float32"}
+    tmp = tempfile.mkdtemp(prefix="train_mesh_")
+    try:
+        grads, data = f"{tmp}/grads.pt", (TRAIN_BATCH, TRAIN_T)
+        f32, = spawn(tmesh_reference, 1, dev.type, dc.replace(cfg, **exact),
+                     2, data, grads, timeout=600, join_timeout=600)
+        bf16 = train_hist[:TMESH_STEPS] if train_hist else \
+            spawn(tmesh_reference, 1, dev.type, cfg, TMESH_STEPS, data,
+                  timeout=600, join_timeout=600)[0]
+        t_ref = time.perf_counter() - t_phase
+        ck = f"{tmp}/ckpt"
+        a, b = dict(mode="megatron", mesh=(1, 2)), \
+            dict(mode="fsdp", mesh=(2, 1), grad_shardings=True)
+        runs = [dict(a, changes=exact, tcfg=_tmesh_tcfg(ck, 1), steps=1,
+                     grads=grads),
+                dict(b, changes=exact, tcfg=_tmesh_tcfg(), steps=1,
+                     grads=grads),
+                dict(b, changes=exact, tcfg=_tmesh_tcfg(ck), steps=2,
+                     resume=True),
+                dict(a, tcfg=_tmesh_tcfg(), steps=TMESH_STEPS, measure=True),
+                dict(b, tcfg=_tmesh_tcfg(), steps=1, measure=True)]
+        names = [("(a) f32", f"{TMESH_LAYERS} layers, megatron on (1, 2), "
+                             f"checkpoint after step 0"),
+                 ("(b) f32", f"{TMESH_LAYERS} layers, fsdp on (2, 1) with "
+                             f"the ZeRO-2 grad_shardings"),
+                 ("elastic f32", "(a)'s checkpoint restored onto (b)'s "
+                                 "mesh, step 1 run there"),
+                 ("(a) bf16", f"{cfg.n_layers} layers as the config "
+                              f"stands, megatron on (1, 2)"),
+                 ("(b) bf16", f"{cfg.n_layers} layers as the config "
+                              f"stands, fsdp on (2, 1) with the ZeRO-2 "
+                              f"grad_shardings")]
+        f32_want = (f32, TMESH_F32_TOL, TMESH_F32_TOL)
+        want = {"(a) f32": f32_want, "(b) f32": f32_want,
+                "elastic f32": f32_want,
+                "(a) bf16": (bf16, TMESH_LOSS_TOL, TMESH_GNORM_TOL),
+                "(b) bf16": (bf16, TMESH_LOSS_TOL, TMESH_GNORM_TOL)}
+        if dev.type == "cuda":
+            log("train_mesh", f"before the ranks this process holds "
+                              f"{torch.cuda.memory_allocated() / 2**20:.0f}"
+                              f" MiB ({torch.cuda.memory_reserved() / 2**20:.0f}"
+                              f" MiB reserved) of the card")
+        t0 = time.perf_counter()
+        ranks = spawn(tmd.train_mesh_rank, 2, cfg, (1, 2), runs,
+                      (TRAIN_BATCH, TRAIN_T, True), None, dev.type, True,
+                      backend="gloo", timeout=600, join_timeout=1000)
+        t_ranks = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log("train_mesh", "two gloo ranks share cuda:0: every collective runs "
+                      "through the host (the all-gathers and reduce-"
+                      "scatters staged explicitly through pinned host "
+                      "buffers, the all-reduces by gloo's CUDA path), a "
+                      "correctness path that says nothing of an NVLink "
+                      "exchange")
+    tmesh_check(ranks, names, want, smi)
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("train_mesh", f"NCCL mesh not run: the machine shows {cards} "
+                          f"CUDA device (NCCL needs one card per rank); "
+                          f"training over NCCL is unverified")
+    log("train_mesh", f"phase time {time.perf_counter() - t_phase:.1f} s: "
+                      f"the one-device runs {t_ref:.1f} s"
+                      + (" (bf16: phase train's)" if train_hist else "")
+                      + f", the ranks {t_ranks:.1f} s; {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4595,6 +4862,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only-mesh", action="store_true",
                     help="run phases 1-2 and phase mesh, and print no "
                          "result lines")
+    ap.add_argument("--only-train-mesh", action="store_true",
+                    help="run phases 1-2 and phase train_mesh, and print "
+                         "no result lines")
     args = ap.parse_args(argv)
     # phase train's resume check runs under deterministic algorithms, whose
     # cuBLAS needs this before its first handle (32 MiB of workspace, the
@@ -4693,6 +4963,11 @@ def main(argv=None) -> int:
         mesh_phase(dev, smi)
         log("mesh", "--only-mesh: the other phases and the result lines "
                     "were not run")
+        return 0
+    if args.only_train_mesh:
+        train_mesh_phase(dev, smi)
+        log("train_mesh", "--only-train-mesh: the other phases and the "
+                          "result lines were not run")
         return 0
 
     # 3. kernels vs plain versions ----------------------------------------------
@@ -4928,7 +5203,7 @@ def main(argv=None) -> int:
     d160["launches_per_forward"] = d160_launches
 
     # train. training on the card: no kernel on its path -------------------------
-    train_phase(dev, smi)
+    train_hist = train_phase(dev, smi)["hist"]
     torch.cuda.empty_cache()
 
     # roofline. the dry run's estimates and counts against the card ------------
@@ -4937,6 +5212,10 @@ def main(argv=None) -> int:
 
     # mesh. llama3.2-3b served over two ranks, the production mesh's dry run --
     mesh_phase(dev, smi)
+    torch.cuda.empty_cache()
+
+    # train_mesh. llama3.2-3b trained over two ranks, the elastic reshard ----
+    train_mesh_phase(dev, smi, train_hist)
     torch.cuda.empty_cache()
 
     # 9. result lines --------------------------------------------------------------

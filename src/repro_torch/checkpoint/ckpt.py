@@ -16,6 +16,16 @@ numpy cannot hold torch's bfloat16, so a bf16 leaf is stored by its 16-bit
 pattern (``uint16``) under the dtype ``"bfloat16"`` and restored bit for
 bit.  Leaves are saved from any device and restored onto the device of the
 matching leaf of the target tree.
+
+Over a device mesh (DTensor leaves, ``distributed.sharding``) the layout
+stays the same, so a checkpoint is free of topology: :func:`save` gathers
+each DTensor leaf whole on every rank (``sharding.full``, a collective
+every rank of the mesh joins), the mesh's first rank writes, and every
+rank then waits at a barrier, so none reads ``LATEST`` before it is
+flipped.  :func:`restore` with ``shardings`` (the rules' specs, a tree
+shaped as the target) and ``mesh`` is the elastic reshard: every rank
+reads the whole arrays and keeps its own block of each
+(``sharding.place``), whatever mesh, or no mesh, saved them.
 """
 from __future__ import annotations
 
@@ -28,6 +38,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..distributed import sharding
 from ..train.optimizer import tree_items
 
 
@@ -46,27 +57,61 @@ def _from_numpy(a, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _mesh_of(items):
+    """The mesh of the first DTensor leaf, or None."""
+    for _, leaf in items:
+        if sharding.is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _barrier(mesh) -> None:
+    """Every rank of ``mesh`` waits for every other: a barrier over each
+    mesh dim's group in turn (a rank leaves the last one only after every
+    rank has entered the first)."""
+    import torch.distributed as dist
+    for i in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(i))
+
+
 def save(directory: str | os.PathLike, step: int, tree: Any,
          keep: int = 3) -> Path:
     """Write ``tree`` as ``<directory>/step_<step>``, point ``LATEST`` at it
-    and keep the ``keep`` latest steps."""
+    and keep the ``keep`` latest steps.  With DTensor leaves every rank of
+    their mesh must call it: each leaf is gathered whole, the mesh's
+    first rank writes, and all ranks return after it has."""
     d = Path(directory)
-    d.mkdir(parents=True, exist_ok=True)
-    tmp = d / f".tmp_step_{step}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
-
     items = tree_items(tree)
+    mesh = _mesh_of(items)
+    writer = mesh is None or mesh.get_rank() == int(mesh.mesh.flatten()[0])
+    if writer:
+        d.mkdir(parents=True, exist_ok=True)
+        tmp = d / f".tmp_step_{step}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
+
     manifest = {"step": step, "n_leaves": len(items), "leaves": []}
     for i, (path, leaf) in enumerate(items):
+        if sharding.is_dtensor(leaf):
+            leaf = sharding.full(leaf)
         arr, dtype = _to_numpy(leaf)
-        np.save(tmp / f"leaf_{i}.npy", arr)
+        if writer:
+            np.save(tmp / f"leaf_{i}.npy", arr)
         manifest["leaves"].append({"path": path, "shape": list(arr.shape),
                                    "dtype": dtype})
+    final = d / f"step_{step}"
+    if writer:
+        _write(d, tmp, final, step, manifest, keep)
+    if mesh is not None:
+        _barrier(mesh)
+    return final
+
+
+def _write(d: Path, tmp: Path, final: Path, step: int, manifest: dict,
+           keep: int) -> None:
     (tmp / "manifest.json").write_text(json.dumps(manifest))
 
-    final = d / f"step_{step}"
     if final.exists():
         shutil.rmtree(final)
     tmp.rename(final)
@@ -76,7 +121,6 @@ def save(directory: str | os.PathLike, step: int, tree: Any,
     latest_tmp.rename(d / "LATEST")     # atomic pointer flip
 
     _gc(d, keep)
-    return final
 
 
 def _gc(d: Path, keep: int):
@@ -107,12 +151,17 @@ def _rebuild(tree, leaves: dict, prefix: str = ""):
 
 
 def restore(directory: str | os.PathLike, tree_like: Any,
-            step: int | None = None) -> tuple[Any, int]:
+            step: int | None = None, shardings: Any = None,
+            mesh=None) -> tuple[Any, int]:
     """(a tree shaped as ``tree_like`` holding the checkpoint's leaves in
     their saved dtype, each on the device of ``tree_like``'s leaf at the
-    same path; the step).  Raises ``ValueError`` when the leaf count, a
-    path or a shape differs from ``tree_like``'s, ``FileNotFoundError``
-    when there is no checkpoint."""
+    same path; the step).  With ``shardings`` (a spec per leaf, a tree
+    shaped as ``tree_like``; ``None`` at a leaf keeps it whole) and
+    ``mesh``, each leaf becomes a DTensor on ``mesh`` of which this rank
+    holds its own block only: the elastic reshard.  Raises
+    ``ValueError`` when the leaf count, a path or a shape differs from
+    ``tree_like``'s, ``FileNotFoundError`` when there is no
+    checkpoint."""
     d = Path(directory)
     if step is None:
         step = latest_step(d)
@@ -126,6 +175,8 @@ def restore(directory: str | os.PathLike, tree_like: Any,
         raise ValueError(f"checkpoint has {manifest['n_leaves']} leaves, "
                          f"target structure has {len(items)}")
     saved = {e["path"]: (i, e) for i, e in enumerate(manifest["leaves"])}
+    specs = dict(tree_items(shardings, leaf=_is_spec)) \
+        if shardings is not None else {}
     out = {}
     for path, ref in items:
         if path not in saved:
@@ -135,5 +186,16 @@ def restore(directory: str | os.PathLike, tree_like: Any,
         if tuple(arr.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i} ({path}): checkpoint shape "
                              f"{arr.shape} != target {tuple(ref.shape)}")
-        out[path] = _from_numpy(arr, entry["dtype"]).to(ref.device)
+        t = _from_numpy(arr, entry["dtype"])
+        spec = specs.get(path)
+        out[path] = t.to(ref.device) if spec is None else \
+            sharding.place(t, spec, mesh, device=ref.device)
     return _rebuild(tree_like, out), step
+
+
+def _is_spec(x) -> bool:
+    """A spec (a tuple of axis names, tuples of them and None) or None,
+    the leaves of a tree of shardings."""
+    return x is None or (isinstance(x, tuple) and not hasattr(x, "_fields")
+                         and all(e is None or isinstance(e, (str, tuple))
+                                 for e in x))

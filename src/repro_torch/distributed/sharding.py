@@ -35,6 +35,16 @@ positions, masks and rotary tables need no placing.  The model code calls
 :func:`maybe_constraint` and :func:`use_param` where the reference does;
 with no ambient mesh (or on a plain tensor) both return their input, so
 one-device paths keep their bits.
+
+Every redistribution here (:func:`redistribute`, and through it
+:func:`maybe_constraint`, :func:`use_param`, :func:`full`) is
+differentiable, so training runs through the same calls: fsdp's
+``use_param`` gathers a weight in the forward and reduce-scatters its
+gradient in the backward, and :func:`constrain` is the reference's
+``with_sharding_constraint`` on a gradient (ZeRO-2).  On a gloo mesh (the
+CPU tests, and two ranks sharing one card) each one goes through
+:class:`_Staged`, whose all-gathers and reduce-scatters run on host
+copies, forward and backward alike, so the CPU runs the card's path.
 """
 from __future__ import annotations
 
@@ -177,6 +187,44 @@ def use_param(w):
     return redistribute(w, [Replicate()] * mesh.ndim)
 
 
+def use_params(tree):
+    """:func:`use_param` of every leaf of a nest of dicts and lists (a
+    block's parameters).  On a gloo mesh the DTensor leaves are gathered
+    together (:class:`_GatherMany`: one staged all-gather per dtype and
+    mesh dim, and one reduce-scatter in the backward), the block's
+    per-layer gather, where one per weight would cost a host round trip
+    each; elsewhere leaf by leaf."""
+    if _MODE["value"] != "fsdp" or ambient_mesh() is None:
+        return tree
+    leaves = _leaves(tree)
+    dts = [i for i, t in enumerate(leaves) if is_dtensor(t)]
+    if not dts or not _gloo(leaves[dts[0]].device_mesh):
+        return _unflatten(tree, [use_param(t) for t in leaves])
+    for i, t in zip(dts, _GatherMany.apply(*(leaves[i] for i in dts))):
+        leaves[i] = t
+    return _unflatten(tree, leaves)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _unflatten(tree, leaves: list):
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(build(v) for v in node)
+        return next(it)
+    return build(tree)
+
+
 # -- parameter sharding rules ---------------------------------------------------
 
 _RULES = [
@@ -236,12 +284,17 @@ def param_spec(path: str, ndim: int) -> tuple:
 
 
 def tree_map_with_path(fn, tree, path: tuple = ()):
-    """``fn(path, leaf)`` over a nest of dicts, lists and tuples; a leaf's
-    path joins its keys with ``/``, a dict key split at its dots (so a
-    state-dict key ``blocks.0.attn.wq`` is ``blocks/0/attn/wq``)."""
+    """``fn(path, leaf)`` over a nest of dicts, lists, tuples and
+    NamedTuples; a leaf's path joins its keys with ``/`` (a NamedTuple's
+    are its field names), a dict key split at its dots (so a state-dict
+    key ``blocks.0.attn.wq`` is ``blocks/0/attn/wq``, and the AdamW
+    state's ``mu/blocks/0/attn/wq``)."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, path + tuple(str(k).split(".")))
                 for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, v, path + (k,))
+                            for k, v in zip(tree._fields, tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map_with_path(fn, v, path + (str(i),))
                           for i, v in enumerate(tree))
@@ -251,6 +304,8 @@ def tree_map_with_path(fn, tree, path: tuple = ()):
 def _zip_map(fn, tree, specs):
     if isinstance(tree, dict):
         return {k: _zip_map(fn, v, specs[k]) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_zip_map(fn, v, s) for v, s in zip(tree, specs)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(_zip_map(fn, v, s) for v, s in zip(tree, specs))
     return fn(tree, specs)
@@ -258,7 +313,10 @@ def _zip_map(fn, tree, specs):
 
 def params_shardings(params, mesh, mode: str | None = None):
     """The spec of every leaf of a parameter tree (a state dict, or the
-    nested tree of ``weights()``; fake tensors do), megatron or fsdp."""
+    nested tree of ``weights()``; fake tensors do), megatron or fsdp.  Any
+    tree of tensors takes the rules: the AdamW state's moments
+    (``mu/blocks/0/attn/wq``) get their parameter's spec, its 0-d count
+    ``()``."""
     mode = mode or _MODE["value"]
     sizes = axis_sizes(mesh)
 
@@ -374,15 +432,19 @@ def _local_chunk(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     return local.clone(memory_format=torch.contiguous_format)
 
 
-def place(tree, shardings, mesh):
+def place(tree, shardings, mesh, device=None):
     """The leaves of ``tree`` as DTensors on ``mesh`` by their specs
     (``shardings``, a tree of the same structure): each rank keeps a copy
     of its own block only (no collective; every rank holds the whole
-    leaf)."""
+    leaf), on ``device`` (default: the leaf's own), so a checkpoint read
+    on the host moves only its block to the card."""
     from torch.distributed.tensor import DTensor
 
     def one(t, spec):
-        return DTensor.from_local(_local_chunk(t, spec, mesh), mesh,
+        local = _local_chunk(t, spec, mesh)
+        if device is not None:
+            local = local.to(device)
+        return DTensor.from_local(local, mesh,
                                   to_placements(spec, mesh), run_check=False,
                                   shape=t.shape,
                                   stride=_contiguous_stride(t.shape))
@@ -413,11 +475,13 @@ def _contiguous_stride(shape) -> tuple:
 
 
 def redistribute(t, placements):
-    """``t.redistribute`` to ``placements``.  A shard that moves from one
-    tensor dim to another goes through replicate (an all-gather, then a
-    local chunk) rather than DTensor's all-to-all.  Every shard → replicate
-    step of a CUDA tensor on a gloo mesh is staged through the host
-    (:func:`_gather_staged`)."""
+    """``t.redistribute`` to ``placements``, differentiable.  A shard that
+    moves from one tensor dim to another goes through replicate (an
+    all-gather, then a local chunk) rather than DTensor's all-to-all.  On a
+    gloo mesh every step goes through :class:`_Staged` (the collectives
+    that gather or scatter staged through the host), on the card and on
+    the CPU alike; elsewhere (NCCL, the dry run's fake group) DTensor moves
+    it."""
     from torch.distributed.tensor import Replicate
     cur = list(t.placements)
     mid = [Replicate() if (c.is_shard() and p.is_shard() and c != p) else c
@@ -430,12 +494,46 @@ def redistribute(t, placements):
 
 
 def _redistribute(t, placements):
-    if not (t.is_cuda and _gloo(t.device_mesh)):
+    if not _gloo(t.device_mesh):
         return t.redistribute(t.device_mesh, placements)
-    t = _gather_staged(t, placements)
-    if list(t.placements) != list(placements):
-        t = t.redistribute(t.device_mesh, placements)
-    return t
+    return _Staged.apply(t, tuple(placements))
+
+
+def constrain(t, spec: tuple):
+    """The reference's ``with_sharding_constraint(g, sh)`` on a gradient:
+    the DTensor ``t`` brought to ``spec`` on its mesh, so a partial sum
+    that the spec shards is reduce-scattered (ZeRO-2), one it replicates
+    all-reduced; the identity on a plain tensor."""
+    if not is_dtensor(t):
+        return t
+    return redistribute(t, to_placements(spec, t.device_mesh))
+
+
+def keep_grad_layout(t):
+    """``t`` unchanged; in the backward its gradient is brought to ``t``'s
+    own placements (a partial one counted as replicated) before it flows
+    on.  DTensor may hand a gradient a layout that the ops behind it cannot
+    take (a sum over "model" scattered along the sequence, which a
+    flattening reshape turns into a strided shard that a product's
+    backward refuses); the identity on a plain tensor."""
+    if not is_dtensor(t):
+        return t
+    return _KeepGradLayout.apply(t)
+
+
+class _KeepGradLayout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t):
+        ctx.src = tuple(t.placements)
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        want = [Replicate() if p.is_partial() else p for p in ctx.src]
+        if list(g.placements) == want:
+            return g
+        return redistribute(g, want)
 
 
 def _gloo(mesh) -> bool:
@@ -444,40 +542,193 @@ def _gloo(mesh) -> bool:
                for i in range(mesh.ndim))
 
 
-def _gather_staged(t, placements):
-    """The shard → replicate steps of ``t`` toward ``placements``, each an
-    all-gather of the host copy of the local block over its mesh dim (the
-    innermost first, so a dim sharded over several mesh dims comes back in
-    order), copied back to the card.  Gloo's own all-gather of a CUDA
-    tensor, which DTensor would issue, ends its process (SIGSEGV) on the
-    records' card, while its all-reduce works; so the port stages this one
-    collective explicitly, as ``core.dist.Comm`` stages all of its own."""
-    import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Replicate
-    # (``all_gather_into_tensor`` is named ``all_gather_single`` in newer
-    # torch)
-    gather = getattr(dist, "all_gather_single", None) or \
-        dist.all_gather_into_tensor
+class _Staged(torch.autograd.Function):
+    """A redistribution over a gloo mesh (:func:`_move`) as an autograd
+    function: its backward moves the gradient back to the input's
+    placements by the same means (a partial input placement counted as
+    replicated, as DTensor's own redistribution does), so the backward of
+    a staged all-gather is the matching staged reduce-scatter and nothing
+    after the gather is cut off from the parameter."""
+
+    @staticmethod
+    def forward(ctx, t, placements):
+        ctx.src = tuple(t.placements)
+        return _move(t, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Replicate
+        want = [Replicate() if p.is_partial() else p for p in ctx.src]
+        return _move(g, want), None
+
+
+def _move(t, placements):
+    """``t`` (a DTensor on a gloo mesh) in ``placements``, with no autograd:
+    the collectives that gather or scatter (shard → replicate, partial →
+    shard) each staged through a host copy of the local block, partial →
+    replicate an all-reduce, replicate → shard a local chunk.  Gloo's
+    all-gather of a CUDA tensor, which DTensor would issue, ends its
+    process (SIGSEGV) on the records' card while its all-reduce works; so
+    the port stages these, as ``core.dist.Comm`` stages all of its own.
+
+    The shards of a tensor dim that gains a new shard are gathered first
+    (innermost mesh dim first), so the new blocks are cut in mesh-dim
+    order (outermost first), which is DTensor's layout of a dim sharded
+    over several mesh dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = t.device_mesh
-    local, cur = t.to_local(), list(t.placements)
+    cur, want = list(t.placements), list(placements)
+    for p in cur + want:
+        if p.is_partial() and not (type(p) is Partial
+                                   and p.reduce_op == "sum"):
+            raise NotImplementedError(f"a staged redistribution takes sums "
+                                      f"only, not {p}")
+    local = t.to_local()
+    regain = {w.dim for c, w in zip(cur, want) if w.is_shard() and c != w}
     for i in reversed(range(mesh.ndim)):
         c = cur[i]
-        if c.is_shard() and isinstance(placements[i], Replicate):
-            # the gathered dim leads on the card, so the host copies are
-            # one block each way, through pinned buffers.
-            block = local.movedim(c.dim, 0).contiguous()
-            host = torch.empty(block.shape, dtype=block.dtype,
-                               pin_memory=t.is_cuda)
-            host.copy_(block)
-            got = torch.empty((mesh.size(i) * block.shape[0],)
-                              + block.shape[1:], dtype=block.dtype,
-                              pin_memory=t.is_cuda)
-            gather(got, host, group=mesh.get_group(i))
-            local = got.to(t.device, non_blocking=t.is_cuda)
-            local = local.movedim(0, c.dim).contiguous()
+        if c.is_shard() and (c != want[i] or c.dim in regain):
+            local = _staged_collective("gather", local, c.dim, mesh, i)
             cur[i] = Replicate()
-    return DTensor.from_local(local, mesh, cur, run_check=False,
-                              shape=t.shape, stride=t.stride())
+    for i in range(mesh.ndim):
+        c, w = cur[i], want[i]
+        if c.is_partial() and w.is_replicate():
+            local = all_reduce_dim(local.contiguous(), "sum", mesh, i)
+            cur[i] = w
+        elif c.is_partial() and w.is_shard():
+            local = _staged_collective("reduce_scatter", local, w.dim, mesh,
+                                       i)
+            cur[i] = w
+        elif c.is_replicate() and w.is_shard():
+            n = mesh.size(i)
+            local = local.chunk(n, dim=w.dim)[mesh.get_coordinate()[i]]
+            cur[i] = w
+        elif c != w:
+            raise NotImplementedError(f"a staged redistribution from {c} to "
+                                      f"{w}")
+    return DTensor.from_local(local.contiguous(), mesh, cur, run_check=False,
+                              shape=t.shape,
+                              stride=_contiguous_stride(t.shape))
+
+
+class _GatherMany(torch.autograd.Function):
+    """DTensors on a gloo mesh (each sharded or replicated on every mesh
+    dim) replicated together: per mesh dim, innermost first, the local
+    blocks that dim shards are moved so the sharded dim leads, flattened
+    and joined per dtype into one buffer, gathered in one staged
+    collective and cut apart (:func:`_staged_many`).  Backward: per mesh
+    dim, outermost first, the gradients' partial sums are reduce-scattered
+    the same way, joined, and a replicated gradient cut locally to its
+    block; whatever else a gradient's layout needs goes through
+    :func:`_move`, leaf by leaf."""
+
+    @staticmethod
+    def forward(ctx, *ts):
+        from torch.distributed.tensor import Replicate
+        mesh = ts[0].device_mesh
+        ctx.src = [tuple(t.placements) for t in ts]
+        ctx.shapes = [t.shape for t in ts]
+        local = [t.to_local() for t in ts]
+        cur = [list(t.placements) for t in ts]
+        for i in reversed(range(mesh.ndim)):
+            js = [j for j in range(len(ts)) if cur[j][i].is_shard()]
+            for j, got in zip(js, _staged_many(
+                    "gather", [local[j] for j in js],
+                    [cur[j][i].dim for j in js], mesh, i)):
+                local[j], cur[j][i] = got, Replicate()
+        return tuple(_dtensor(x, mesh, [Replicate()] * mesh.ndim, t.shape)
+                     for x, t in zip(local, ts))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        from torch.distributed.tensor import Partial, Replicate
+        live = [j for j, g in enumerate(gs) if g is not None]
+        if not live:
+            return gs
+        mesh = gs[live[0]].device_mesh
+        local = {j: gs[j].to_local() for j in live}
+        cur = {j: list(gs[j].placements) for j in live}
+        for i in range(mesh.ndim):
+            js = [j for j in live if ctx.src[j][i].is_shard()
+                  and type(cur[j][i]) is Partial
+                  and cur[j][i].reduce_op == "sum"]
+            for j, got in zip(js, _staged_many(
+                    "reduce_scatter", [local[j] for j in js],
+                    [ctx.src[j][i].dim for j in js], mesh, i)):
+                local[j], cur[j][i] = got, ctx.src[j][i]
+            for j in live:
+                if ctx.src[j][i].is_shard() and cur[j][i].is_replicate():
+                    d = ctx.src[j][i].dim
+                    local[j] = local[j].chunk(mesh.size(i), dim=d)[
+                        mesh.get_coordinate()[i]].contiguous()
+                    cur[j][i] = ctx.src[j][i]
+        out = list(gs)
+        for j in live:
+            g = _dtensor(local[j], mesh, cur[j], ctx.shapes[j])
+            want = [Replicate() if p.is_partial() else p
+                    for p in ctx.src[j]]
+            out[j] = g if cur[j] == want else _move(g, want)
+        return tuple(out)
+
+
+def _dtensor(local, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=shape, stride=_contiguous_stride(shape))
+
+
+def _staged_many(kind: str, locals_: list, dims: list, mesh, i: int) -> list:
+    """:func:`_staged_collective` of several tensors at once, along their
+    own ``dims``, over mesh dim ``i``: one collective per dtype, on the
+    tensors' blocks flattened and joined (rank-major for a
+    reduce-scatter, so each rank's share of every tensor comes out
+    together)."""
+    n = mesh.size(i)
+    out = [None] * len(locals_)
+    for dtype in dict.fromkeys(t.dtype for t in locals_):
+        js = [j for j, t in enumerate(locals_) if t.dtype == dtype]
+        blocks = [locals_[j].movedim(dims[j], 0) for j in js]
+        if kind == "gather":
+            flat = torch.cat([b.reshape(-1) for b in blocks])
+        else:
+            flat = torch.cat([b.reshape(n, -1) for b in blocks], 1)
+        got = _staged_collective(kind, flat.reshape(-1), 0, mesh, i)
+        rows = got.reshape(n, -1) if kind == "gather" else got.reshape(1, -1)
+        off = 0
+        for j, b in zip(js, blocks):
+            lead = b.shape[0] if kind == "gather" else b.shape[0] // n
+            size = lead * math.prod(b.shape[1:])
+            part = rows[:, off:off + size].reshape(
+                (rows.shape[0] * lead,) + tuple(b.shape[1:]))
+            out[j] = part.movedim(0, dims[j]).contiguous()
+            off += size
+    return out
+
+
+def _staged_collective(kind: str, local, dim: int, mesh, i: int):
+    """An all-gather (``"gather"``) or a reduce-scatter (sums,
+    ``"reduce_scatter"``) of ``local`` along ``dim`` over mesh dim ``i``,
+    run on host copies: the dim leads on the host, so each copy is one
+    block each way, through pinned buffers from a card."""
+    import torch.distributed as dist
+    # (``all_gather_into_tensor`` and ``reduce_scatter_tensor`` are named
+    # ``all_gather_single`` and ``reduce_scatter_single`` in newer torch)
+    if kind == "gather":
+        op = getattr(dist, "all_gather_single", None) or \
+            dist.all_gather_into_tensor
+    else:
+        op = getattr(dist, "reduce_scatter_single", None) or \
+            dist.reduce_scatter_tensor
+    cuda = local.is_cuda
+    block = local.movedim(dim, 0).contiguous()
+    host = torch.empty(block.shape, dtype=block.dtype, pin_memory=cuda)
+    host.copy_(block)
+    n = mesh.size(i)
+    lead = block.shape[0] * n if kind == "gather" else block.shape[0] // n
+    got = torch.empty((lead,) + block.shape[1:], dtype=block.dtype,
+                      pin_memory=cuda)
+    op(got, host, group=mesh.get_group(i))
+    return got.to(local.device, non_blocking=cuda).movedim(0, dim)
 
 
 def full(t) -> torch.Tensor:
@@ -524,21 +775,54 @@ def all_reduce(t: torch.Tensor, op: str, mesh, axis: str) -> torch.Tensor:
     """A functional all-reduce (``"sum"`` or ``"max"``) of a local tensor
     over ``axis``'s mesh dim (what the counter and the tracer see as a
     ``_c10d_functional`` collective)."""
+    return all_reduce_dim(t, op, mesh, mesh.mesh_dim_names.index(axis))
+
+
+def all_reduce_dim(t: torch.Tensor, op: str, mesh, i: int) -> torch.Tensor:
+    """:func:`all_reduce` over mesh dim ``i``."""
     import torch.distributed._functional_collectives as funcol
-    out = funcol.all_reduce(t, op, (mesh, mesh.mesh_dim_names.index(axis)))
-    return funcol.wait_tensor(out)
+    return funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
+
+
+def shard_dims(t, dim: int) -> list:
+    """The mesh dims that shard dim ``dim`` of the DTensor ``t``, in mesh
+    order."""
+    dim %= t.ndim
+    return [i for i, p in enumerate(t.placements)
+            if p.is_shard() and p.dim == dim]
+
+
+def block_start(t, dim: int) -> int:
+    """The global index along ``dim`` of the first element of this rank's
+    block of the DTensor ``t`` (0 where no mesh dim shards it)."""
+    mesh, coord = t.device_mesh, t.device_mesh.get_coordinate()
+    idx = 0
+    for i in shard_dims(t, dim):
+        idx = idx * mesh.size(i) + coord[i]
+    return idx * t.to_local().shape[dim]
+
+
+def local_rows(t, i: int, k: int):
+    """The ``i``-th of ``k`` equal parts of every rank's block of ``t``
+    along dim 0, as a DTensor of ``1/k`` of ``t``'s rows in ``t``'s
+    placements (no collective); a plain tensor's ``i``-th part.  A
+    microbatch of a batch sharded over its rows: each rank's own rows, cut
+    in order."""
+    if not is_dtensor(t):
+        n = t.shape[0] // k
+        return t[i * n:(i + 1) * n]
+    local = t.to_local()
+    n = local.shape[0] // k
+    return wrap(local[i * n:(i + 1) * n], t, t.placements,
+                (t.shape[0] // k,) + tuple(t.shape[1:]))
 
 
 def refuse_unported(cfg, kind: str) -> None:
-    """Refuse by name what does not run over a mesh yet: training (ROADMAP
-    A19) and every family but the dense decoders (A20)."""
-    if kind == "train":
-        raise NotImplementedError(
-            f"{cfg.name}: training over a mesh (Trainer(mesh=), the ZeRO-2 "
-            f"gradient constraint, the train cells on the production "
-            f"meshes) is not ported yet (ROADMAP A19)")
+    """Refuse by name what does not run over a mesh yet: every family but
+    the dense decoders (ROADMAP A20), to serve (``kind`` ``"prefill"`` or
+    ``"decode"``) or to train (``"train"``)."""
     if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family over a mesh (MoE experts, "
-            f"MLA's latent cache, zamba2's and xLSTM's rules) is not ported "
-            f"yet (ROADMAP A20)")
+            f"{cfg.name}: the {cfg.family} family over a mesh ({kind}; MoE "
+            f"experts, MLA's latent cache, zamba2's and xLSTM's rules) is "
+            f"not ported yet (ROADMAP A20)")

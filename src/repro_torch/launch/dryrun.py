@@ -37,9 +37,14 @@ the record is rank 0's, per device: ``argument_size_in_bytes`` its
 shards, ``temp_size_in_bytes`` its peak, ``cost_analysis`` its ops,
 ``collectives`` its collectives and their bytes, ``n_devices`` 256 or 512
 (the floor stays the global one, as in the reference).  Those meshes run
-the prefill and decode cells of the dense decoders; a train cell refuses
-naming ROADMAP A19, the other families naming A20 (a ``"refused"``
-record).
+every cell of the dense decoders; the other families refuse naming
+ROADMAP A20 (a ``"refused"`` record).  A train cell's inputs are the
+parameters, the AdamW state (placed by the same rules) and the batch, and
+its step is ``make_train_step``'s, forward, backward and update: under
+fsdp its ``collectives`` count the per-layer all-gathers of ``use_param``
+and their reduce-scatters in the backward.  ``--override _grad_shard=true``
+gives the step the parameters' specs as ``grad_shardings`` (the ZeRO-2
+constraint), as the reference's dry run does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch llama3.2-3b --shape train_4k
@@ -81,11 +86,21 @@ def mesh_for(kind: str):
 def place_spec(spec: dict, mesh, batch_size: int) -> None:
     """Place a cell's inputs on ``mesh``, in place in ``spec`` (under its
     fake mode): the model's parameters (``sharding.place_module``; the
-    config's ``sharding_mode`` must be set), the batch or the tokens
-    (``batch_shardings``) and the caches (``cache_shardings``)."""
+    config's ``sharding_mode`` must be set; their specs kept as
+    ``spec["grad_shardings"]``), the batch or the tokens
+    (``batch_shardings``), and the caches (``cache_shardings``) or the
+    AdamW state (``params_shardings`` of the state)."""
     with spec["mode"]:
-        sharding.place_module(spec["model"], mesh)
+        spec["grad_shardings"] = sharding.place_module(spec["model"], mesh)
         spec["params"] = dict(spec["model"].named_parameters())
+        if spec["kind"] == "train":
+            spec["opt_state"] = sharding.place(
+                spec["opt_state"],
+                sharding.params_shardings(spec["opt_state"], mesh), mesh)
+            spec["batch"] = sharding.place(
+                spec["batch"], sharding.batch_shardings(spec["batch"], mesh),
+                mesh)
+            return
         spec["caches"] = sharding.place(
             spec["caches"], cache_shardings(spec["caches"], mesh, batch_size),
             mesh)

@@ -33,6 +33,17 @@ rank's plain block of heads (``local_heads``), so the kernel never sees a
 DTensor.  A decode step's ``cfg.decode_attn`` is ``"gather"`` (the cache
 all-gathered) or ``"sp"`` (:func:`attn_decode_sp`, the reference's
 flash-decoding).  With no mesh every one of these is the identity.
+
+Training over a mesh differentiates the same code.  Two steps are the
+port's own autograd functions, each gathering nothing: the embedding
+lookup in a vocab-sharded table (:class:`_VocabLookup`) and the target
+log-probabilities of vocab-sharded logits (:class:`_TargetLogprobs`,
+Megatron's vocab-parallel loss: three all-reduces of [B, T]-sized
+statistics).  Under fsdp every weight, the norms' scales included, is
+gathered before use (a block's together, ``sharding.use_params``; the
+rest by ``use_param``) and its gradient reduce-scattered in the
+backward; ``remat`` recomputes a block's collectives in the backward, in
+the same order on every rank.
 """
 from __future__ import annotations
 
@@ -87,14 +98,17 @@ def init_norm(d: int, kind: str, device) -> dict:
 
 
 def norm(p, x, kind: str, eps: float):
+    """RMS or layer norm over the last dim in f32.  Under fsdp its scale
+    and bias are sharded weights like any other, gathered at use
+    (``use_param``)."""
     xf = x.float()
     if kind == "rms":
         y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
-        return (y * p["scale"]).to(x.dtype)
+        return (y * use_param(p["scale"])).to(x.dtype)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * p["scale"] + p["bias"]).to(x.dtype)
+    return (y * use_param(p["scale"]) + use_param(p["bias"])).to(x.dtype)
 
 
 def rope(x, positions, theta: float):
@@ -458,13 +472,88 @@ def init_embed(cfg, gen: torch.Generator) -> dict:
 
 def embed(p, tokens):
     """Rows of the (compute-dtype) token table.  Under a mesh the table is
-    sharded over its vocab rows: each rank looks up the rows it holds
-    (``F.embedding`` gives DTensor's masked partial) and the lookups are
-    summed over the axis."""
-    if is_dtensor(p["tok"]):
-        return maybe_constraint(F.embedding(tokens, p["tok"]), BATCH, None,
-                                None)
-    return p["tok"][tokens]
+    sharded over its vocab rows (megatron) or gathered first (fsdp's
+    ``use_param``): each rank looks up the rows it holds for its own token
+    ids and the lookups are summed over the mesh dims that shard the
+    table (:class:`_VocabLookup`)."""
+    tok = p["tok"]
+    if is_dtensor(tok):
+        return _VocabLookup.apply(use_param(tok),
+                                  _as_dtensor(tokens, tok.device_mesh))
+    return tok[tokens]
+
+
+def _as_dtensor(t, mesh):
+    """``t``, or a plain tensor as a DTensor replicated on ``mesh``."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _batch_placements(t):
+    """The placements of a tensor laid out as the DTensor ``t``'s leading
+    dim (the batch): ``Shard(0)`` where ``t`` shards that dim, replicated
+    elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
+            for p in t.placements]
+
+
+class _VocabLookup(torch.autograd.Function):
+    """``tok[ids]`` of a DTensor table [V, d] sharded over its rows (or
+    not) by DTensor ids [B, T] sharded over the batch (or not), with no
+    collective but one all-reduce: each rank looks up the ids that fall
+    in its block of rows (zeros for the others), and the lookups are
+    summed over the mesh dims that shard the table.  The output [B, T, d]
+    takes the ids' layout.  Backward: each rank's block of the table gets
+    the gradient of its own rows, a partial sum over the mesh dims that
+    shard the ids (DTensor's own embedding gives a masked partial whose
+    backward it cannot take from a partial gradient)."""
+
+    @staticmethod
+    def forward(ctx, tok, ids):
+        from torch.distributed.tensor import DTensor
+        mesh = tok.device_mesh
+        vocab = sharding.shard_dims(tok, 0)
+        if any(ids.placements[i].is_shard() for i in vocab):
+            raise ValueError("the token ids and the table are sharded over "
+                             "the same mesh dim")
+        tl, il = tok.to_local(), ids.to_local()
+        idx = il - sharding.block_start(tok, 0)
+        inr = (idx >= 0) & (idx < tl.shape[0])
+        idx = torch.where(inr, idx, 0)
+        rows = tl[idx]
+        if vocab:
+            rows = torch.where(inr[..., None], rows, 0)
+        for i in vocab:
+            rows = sharding.all_reduce_dim(rows, "sum", mesh, i)
+        ctx.save_for_backward(idx, inr)
+        ctx.tok = (tok.placements, tok.shape, tl.shape)
+        ctx.out = _batch_placements(ids)
+        return DTensor.from_local(rows, mesh, ctx.out, run_check=False,
+                                  shape=tuple(ids.shape) + (tl.shape[1],),
+                                  stride=sharding._contiguous_stride(
+                                      tuple(ids.shape) + (tl.shape[1],)))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        idx, inr = ctx.saved_tensors
+        placements, shape, lshape = ctx.tok
+        gl = redistribute(g, ctx.out).to_local()
+        grad = torch.zeros(lshape, dtype=gl.dtype, device=gl.device)
+        # the ids outside the block add zeros to its row 0 (no boolean
+        # index: its shape would depend on the data)
+        grad.index_put_((idx,), torch.where(inr[..., None], gl, 0),
+                        accumulate=True)
+        out = [p if p.is_shard() else Partial() if o.is_shard() else
+               Replicate() for p, o in zip(placements, ctx.out)]
+        return DTensor.from_local(grad, g.device_mesh, out, run_check=False,
+                                  shape=shape,
+                                  stride=sharding._contiguous_stride(
+                                      shape)), None
 
 
 def unembed(cfg, p, x):
@@ -474,9 +563,77 @@ def unembed(cfg, p, x):
 
 
 def target_logprobs(logits, tokens):
-    """log p(tokens[:, t+1] | ..t) [B, T-1] from logits [B,T,V] (f32)."""
+    """log p(tokens[:, t+1] | ..t) [B, T-1] from logits [B,T,V] (f32).
+    DTensor logits (under a mesh, their vocab dim sharded over "model" by
+    megatron's rules) go through :class:`_TargetLogprobs`, which gathers
+    nothing of them."""
+    if is_dtensor(logits):
+        return _TargetLogprobs.apply(
+            logits, _as_dtensor(tokens, logits.device_mesh))
     lp = torch.log_softmax(logits, dim=-1)
     return torch.gather(lp[:, :-1], -1, tokens[:, 1:, None])[..., 0]
+
+
+class _TargetLogprobs(torch.autograd.Function):
+    """:func:`target_logprobs` of DTensor logits [B,T,V] laid out by batch
+    (``Shard(0)``) and vocab (``Shard(2)``, Megatron's vocab-parallel
+    loss): each rank works on its own block and the vocab's mesh dims meet
+    in three all-reduces of [B, T-1]-sized statistics (the max, the sum of
+    exponentials, the target's logit), never the logits.  The output [B,
+    T-1] is laid out by batch.  Backward: ``onehot - softmax`` on each
+    rank's block, in the logits' placements; the softmax is recomputed
+    from the saved logits and statistics."""
+
+    @staticmethod
+    def forward(ctx, logits, tokens):
+        from torch.distributed.tensor import DTensor
+        mesh = logits.device_mesh
+        for p in logits.placements:
+            if p.is_partial() or (p.is_shard() and p.dim not in (0, 2)):
+                raise ValueError(f"the loss takes logits sharded over the "
+                                 f"batch and the vocab, not "
+                                 f"{logits.placements}")
+        vocab = sharding.shard_dims(logits, 2)
+        ctx.out = _batch_placements(logits)
+        lab = redistribute(tokens, ctx.out).to_local()[:, 1:]
+        ll = logits.to_local()
+        x = ll[:, :-1]
+        m = x.amax(dim=-1)
+        for i in vocab:
+            m = sharding.all_reduce_dim(m, "max", mesh, i)
+        s = torch.exp(x - m[..., None]).sum(dim=-1)
+        idx = lab - sharding.block_start(logits, 2)
+        inr = (idx >= 0) & (idx < x.shape[-1])
+        idx = torch.where(inr, idx, 0)
+        t = torch.gather(x, -1, idx[..., None])[..., 0]
+        if vocab:
+            t = torch.where(inr, t, 0)
+        for i in vocab:
+            s = sharding.all_reduce_dim(s, "sum", mesh, i)
+            t = sharding.all_reduce_dim(t, "sum", mesh, i)
+        sel = t - m - torch.log(s)
+        ctx.save_for_backward(ll, m, s, idx, inr)
+        ctx.logits = (logits.placements, logits.shape)
+        B, T = logits.shape[:2]
+        return DTensor.from_local(sel, mesh, ctx.out, run_check=False,
+                                  shape=(B, T - 1), stride=(T - 1, 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import DTensor
+        ll, m, s, idx, inr = ctx.saved_tensors
+        placements, shape = ctx.logits
+        gl = redistribute(g, ctx.out).to_local()
+        x = ll[:, :-1]
+        dx = torch.exp(x - m[..., None]) / s[..., None] * -gl[..., None]
+        dx.scatter_add_(-1, idx[..., None],
+                        torch.where(inr, gl, 0)[..., None].to(dx.dtype))
+        grad = torch.zeros_like(ll)
+        grad[:, :-1] = dx
+        return DTensor.from_local(grad, g.device_mesh, placements,
+                                  run_check=False, shape=shape,
+                                  stride=sharding._contiguous_stride(
+                                      shape)), None
 
 
 # -- parameters ---------------------------------------------------------------------

@@ -55,10 +55,11 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
-from ..distributed.sharding import BATCH, maybe_constraint
+from ..distributed.sharding import (BATCH, get_mode, keep_grad_layout,
+                                    maybe_constraint, use_param, use_params)
 from .layers import (ParamTree, attention, cast_params, dt_of, embed,
                      init_attn, init_embed, init_mlp, init_norm, mlp, norm,
-                     remat, unembed)
+                     remat, target_logprobs, unembed)
 from .moe import init_mla, init_moe, mla_attention, moe_ffn
 
 
@@ -77,7 +78,9 @@ def init_block(cfg, gen: torch.Generator, layer: int) -> dict:
 def block_apply(cfg, bp, x, positions, cache=None, cur_len=0,
                 decode=False):
     """One block; with a cache, a prefill or decode step that updates it
-    in place (``layers.attend``, ``moe.mla_attention``)."""
+    in place (``layers.attend``, ``moe.mla_attention``).  Under fsdp over a
+    mesh its weights are gathered first, together (``use_params``)."""
+    bp = use_params(bp)
     attn = mla_attention if cfg.use_mla else attention
     x = x + attn(cfg, bp["attn"], norm(bp["ln1"], x, cfg.norm, cfg.norm_eps),
                  positions, cache, cur_len, decode)
@@ -142,7 +145,11 @@ class DecoderLM(ParamTree):
         if self.cfg.frontend != "vision":
             return x, tokens, torch.ones(tokens.shape, dtype=torch.bool,
                                          device=x.device)
-        pe = batch["patch_embeds"].to(cdt) @ w["patch_proj"]
+        # (over a mesh the patches' gradient is kept in their batch layout:
+        # DTensor would scatter it along the patches, which the product's
+        # backward cannot take once flattened)
+        pe = keep_grad_layout(
+            batch["patch_embeds"].to(cdt) @ use_param(w["patch_proj"]))
         B, P = pe.shape[:2]
         x = torch.cat([pe, x], dim=1)
         labels = torch.cat([tokens.new_zeros((B, P)), tokens], dim=1)
@@ -173,16 +180,23 @@ class DecoderLM(ParamTree):
         return unembed(self.cfg, w["embed"], self._run(w, x, positions))
 
     def _loss(self, w, batch, policy="none"):
+        # under fsdp over a mesh the tied table is gathered once for the
+        # lookup and the unembedding both
+        w = dict(w, embed=use_params(w["embed"]))
         x, labels, mask = self.embed_inputs(w, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         logits = unembed(self.cfg, w["embed"],
                          self._run(w, x, positions, policy=policy))
-        # the reference's ``_shard_logits`` (the identity without a mesh)
-        logits = maybe_constraint(logits, BATCH, None, "model")
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        sel = torch.gather(lp[:, :-1], -1, labels[:, 1:, None])[..., 0]
+        # the reference's ``_shard_logits`` (the identity without a mesh).
+        # Under fsdp its spec names "model" twice (the batch is over every
+        # axis) and the reference's constraint fails and is dropped: the
+        # logits keep the batch's layout, the vocab whole.
+        vocab = None if get_mode() == "fsdp" else "model"
+        logits = maybe_constraint(logits, BATCH, None, vocab)
+        sel = target_logprobs(logits.float(), labels)
         m = (mask[:, 1:] & mask[:, :-1]).float()
-        return -(sel * m).sum() / m.sum().clamp(min=1.0)
+        # under a mesh a partial sum over the batch's ranks, replicated
+        return maybe_constraint(-(sel * m).sum() / m.sum().clamp(min=1.0))
 
     @torch.no_grad()
     def loss(self, batch, w=None):

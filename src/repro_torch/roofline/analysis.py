@@ -332,15 +332,19 @@ def step_call(spec: dict, overrides: dict | None = None):
     """A function of no arguments that runs the cell's step on its inputs
     (:func:`repro_torch.launch.specs.input_specs`): train: one
     ``make_train_step`` step (AdamW included) under the ``train.*``
-    overrides; prefill: ``model.prefill(batch, caches)``; decode:
-    ``model.decode_step(tokens, caches, cur_len)``."""
+    overrides, with ``_grad_shard`` the placed parameters' specs
+    (``spec["grad_shardings"]``, ``launch.dryrun.place_spec``) as its
+    ``grad_shardings``; prefill: ``model.prefill(batch, caches)``;
+    decode: ``model.decode_step(tokens, caches, cur_len)``."""
     from ..configs.base import TrainConfig
     from ..train.step import make_train_step
     model = spec["model"]
     if spec["kind"] == "train":
         tkw = {k[6:]: v for k, v in (overrides or {}).items()
                if k.startswith("train.")}
-        fn = make_train_step(model, TrainConfig(**tkw))
+        gsh = spec.get("grad_shardings") \
+            if (overrides or {}).get("_grad_shard") else None
+        fn = make_train_step(model, TrainConfig(**tkw), grad_shardings=gsh)
         return lambda: fn(spec["opt_state"], spec["batch"])
     if spec["kind"] == "prefill":
         return lambda: model.prefill(spec["batch"], spec["caches"])

@@ -5,7 +5,9 @@
 
 "fits" holds a cell's arguments and peak temporaries against one card's
 memory, :data:`HBM_PER_CHIP` (on ``single`` and ``multi`` a record's bytes
-are one device's).
+are one device's).  ``--collectives`` prints instead one row per record
+of a mesh (variants included): per device arguments + peak temporaries,
+the GB of each collective kind a step, and whether it fits a card.
 """
 from __future__ import annotations
 
@@ -60,12 +62,40 @@ def build(artifact_dir: Path) -> str:
     return "\n".join(out) + "\n"
 
 
+KINDS = ("all-gather", "all-reduce", "reduce-scatter")
+
+
+def collectives_table(artifact_dir: Path) -> str:
+    """One row per ``ok`` record on ``single`` or ``multi``: arch, shape,
+    mesh, variant, arguments + peak temporaries (GB), all-gather /
+    all-reduce / reduce-scatter GB, fits one card."""
+    out = ["| arch | shape | mesh | variant | args + temp GB | "
+           "all-gather / all-reduce / reduce-scatter GB | fits |",
+           "|---|---|---|---|---|---|---|"]
+    for path in sorted(artifact_dir.glob("*.json")):
+        rec = json.loads(path.read_text())
+        if rec.get("status") != "ok" or rec.get("mesh") == "local":
+            continue
+        variant = path.stem.split("__")[3] if path.stem.count("__") > 2 \
+            else "—"
+        args, temp = rec["argument_size_in_bytes"], rec["temp_size_in_bytes"]
+        coll = " / ".join(f"{rec['collectives'][k]['bytes'] / 1e9:.3g}"
+                          for k in KINDS)
+        fits = "yes" if args + temp <= HBM_PER_CHIP else "no"
+        out.append(f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} | "
+                   f"{variant} | {gb(args)} + {gb(temp)} | {coll} | {fits} |")
+    return "\n".join(out) + "\n"
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--artifacts", default="artifacts/dryrun")
     ap.add_argument("--md", default=None)
+    ap.add_argument("--collectives", action="store_true",
+                    help="the mesh records' bytes and collectives by kind")
     args = ap.parse_args(argv)
-    md = build(Path(args.artifacts))
+    md = (collectives_table if args.collectives else build)(
+        Path(args.artifacts))
     print(md)
     if args.md:
         Path(args.md).write_text(md)

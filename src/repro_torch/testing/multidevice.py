@@ -36,10 +36,24 @@ port).
   model)`` mesh of the spawn's ranks (``distributed.sharding``): prefill
   and decode under ``"gather"`` and ``"sp"``, the full logits, each
   leaf's local shape, launches, collectives and times;
+* :func:`train_mesh_rank` — a dense config trained by ``Trainer(mesh=)``
+  over a ``(data, model)`` mesh of the spawn's ranks, under megatron or
+  fsdp, with or without the ZeRO-2 ``grad_shardings``: each step's loss,
+  grad norm and lr, the parameters at the end (gathered), each leaf's
+  local shape, the first step's gradients' layout and their gap to a
+  one-device set, a checkpoint saved and one resumed (the elastic
+  reshard), a failure injected on one rank, and on the card the step
+  times, collectives and peak memory;
+* :func:`elastic_rank` — a checkpoint saved anywhere restored onto this
+  spawn's mesh and trained on;
 * :func:`tasks_rank` — several of these in one spawn (the ranks start
   once).
 """
 from __future__ import annotations
+
+import contextlib
+import gc
+import time
 
 import numpy as np
 import torch
@@ -580,8 +594,9 @@ def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
 class _Collectives(TorchDispatchMode):
     """The collectives a rank issues (``c10d`` and functional ops, by the
     roofline's kinds: ``{kind: {"bytes", "count"}}``, the bytes of their
-    results) and the host seconds spent in them, a functional
-    collective's wait included.  Everything else passes straight through
+    results; ``functional``: the count by kind of those issued as
+    ``_c10d_functional`` ops, DTensor's own) and the host seconds spent in
+    them, a functional collective's wait included.  Everything else passes straight through
     (``analysis.FlopCounter`` counts the same collectives, at a cost per
     op that would swamp a decode step's time); an op on DTensors is left
     to DTensor, whose local ops come back through the mode."""
@@ -589,6 +604,7 @@ class _Collectives(TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.kinds: dict = {}
+        self.functional: dict = {}
         self.seconds = 0.0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -603,6 +619,8 @@ class _Collectives(TorchDispatchMode):
         out = func(*args, **(kwargs or {}))
         self.seconds += time.perf_counter() - t0
         kind = collective_kind(func._overloadpacket.__name__)
+        if kind is not None and func.namespace == "_c10d_functional":
+            self.functional[kind] = self.functional.get(kind, 0) + 1
         if kind is not None:
             rec = self.kinds.setdefault(kind, {"bytes": 0, "count": 0})
             rec["count"] += 1
@@ -617,6 +635,285 @@ def _flat_tensors(out) -> list:
     if isinstance(out, (list, tuple)):
         return [t for x in out for t in _flat_tensors(x)]
     return []
+
+
+class FixedLoader:
+    """The loader of a mesh run: ``SyntheticLoader(cfg, B, T)``'s batch of
+    each step (or, ``fixed``, of step 0 at every step), the global batch
+    that every rank reads whole."""
+
+    def __init__(self, cfg, B: int, T: int, fixed: bool, device):
+        from ..data.synthetic import SyntheticLoader
+        self.inner = SyntheticLoader(cfg, B, T, device=device)
+        self.fixed = fixed
+
+    def batch_at(self, step: int):
+        return self.inner.batch_at(0 if self.fixed else step)
+
+
+def train_mesh_rank(rank: int, group, cfg, mesh_shape, runs: list,
+                    data: tuple, tree=None, device: str = "cpu",
+                    progress: bool = False) -> list:
+    """Train the dense config ``cfg`` with ``Trainer(mesh=)`` over a
+    ``("data", "model")`` mesh of ``mesh_shape`` (the spawn's ranks,
+    row-major), once per entry of ``runs``, each from a fresh model: its
+    parameters from ``tree`` (a host copy of the JAX model's, through
+    ``interop.params_from_numpy``), else the port's seeded ones.  ``data``
+    is ``(B, T, fixed)``: the global batch of each step is
+    :class:`FixedLoader`'s.
+
+    A run is a dict: ``mode`` (megatron or fsdp), ``tcfg`` (a
+    ``TrainConfig``; its ``checkpoint_dir`` is read when the run resumes
+    or saves), ``steps`` (the Trainer's ``run(steps)``), and optionally:
+    ``mesh`` (another mesh shape for this run); ``changes`` (fields of
+    ``cfg`` changed for this run: ``dtype``, ``remat``, ``n_layers``);
+    ``grad_shardings`` (True: the step takes the parameters' specs as the
+    ZeRO-2 constraint, put in place of the Trainer's own step, which
+    passes none); ``resume`` (start from the checkpoint in
+    ``checkpoint_dir`` instead of step 0); ``grads`` (the first step's
+    gradients as its update receives them: their placements and local
+    shapes and, with a path, their gap to the one-device gradients saved
+    there by ``torch.save``); ``fail`` (``(rank, step)``: that rank's
+    first attempt at that step raises after the step's last collective,
+    before its update writes anything); ``keep`` (return the final
+    parameters, gathered, as numpy); ``digest`` (return a digest of
+    them); ``measure`` (step seconds, the collectives of a step, peak
+    memory, and the staged all-gather's GB/s between the ranks).
+
+    Returns per run: ``hist`` (the Trainer's metrics of each step run),
+    ``step0``, ``seconds`` (the run's, build to gather), ``launches``
+    (each kernel's, in the Trainer's steps), ``shapes`` (``(what, key,
+    local shape, shard_shape)`` of every parameter and moment after the
+    run), ``failures`` and what the run's options ask for.  With
+    ``progress`` each rank prints a line as each run ends (its steps'
+    losses, its peak device memory)."""
+    import dataclasses
+
+    from ..core.device import resolve_device
+    from ..distributed import sharding
+    from ..kernels.ops import KERNELS
+    from ..launch.mesh import make_mesh
+    from ..models.registry import build_model
+    from ..train.loop import Trainer
+    from ..train.step import make_train_step
+    sharding.refuse_unported(cfg, "train")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)        # the ranks share the host's cores
+    meshes = {}
+    loader = FixedLoader(cfg, *data, device=dev)
+    out = []
+    for run in runs:
+        t_run = time.perf_counter()
+        shape = tuple(run.get("mesh", mesh_shape))
+        if shape not in meshes:
+            meshes[shape] = make_mesh(shape, ("data", "model"), dev.type)
+        mesh = meshes[shape]
+        sharding.set_mode(run["mode"])
+        rcfg = dataclasses.replace(cfg, **run.get("changes", {}))
+        if dev.type == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+        model = build_model(rcfg, device=dev)
+        if tree is not None:
+            from ..interop import params_from_numpy
+            model.load_state_dict(params_from_numpy(tree, rcfg))
+        tcfg = run["tcfg"]
+        tr = Trainer(model, tcfg, mesh=mesh, loader=loader,
+                     log=lambda s: None)
+        rec = {}
+        if run.get("grad_shardings"):
+            tr.step_fn.fn = make_train_step(model, tcfg,
+                                            grad_shardings=tr._psh)
+        if run.get("resume"):
+            start = None
+        else:
+            params = tr.params()
+            from ..train import optimizer as opt
+            start = (params, opt.init(params), 0)
+        timing = _Timing(dev) if run.get("measure") else None
+        if timing:
+            tr.step_fn.fn = timing.wrap(tr.step_fn.fn)
+        for fn in KERNELS:
+            fn.launches = 0
+        with _failing(rank, run.get("fail")), \
+                _first_grads(rec, run.get("grads"), tr._psh, mesh):
+            params, state, hist = tr.run(run["steps"], start=start)
+        del start
+        rec["launches"] = {fn.__name__: fn.launches for fn in KERNELS}
+        rec.update(hist=[{k: h[k] for k in ("step", "loss", "grad_norm",
+                                             "lr", "step_s")}
+                         for h in hist],
+                   step0=hist[0]["step"] if hist else run["steps"],
+                   failures=tr.step_fn.failures)
+        rec["shapes"] = [
+            (what, k, tuple(t.to_local().shape),
+             sharding.shard_shape(t.shape, tr._psh[k], mesh))
+            for what, tr_ in (("param", params), ("mu", state.mu),
+                              ("nu", state.nu)) for k, t in tr_.items()]
+        if run.get("keep") or run.get("digest"):
+            # leaf by leaf: a full-width model's gathered parameters would
+            # not fit beside the ranks' shards on one card.
+            whole = {k: sharding.full(p.detach()).cpu().numpy()
+                     for k, p in params.items()}
+            rec["digest"] = tree_digest(whole)
+            if run.get("keep"):
+                rec["params"] = whole
+            del whole
+        if timing:
+            rec["timing"] = dict(timing.result(),
+                                 gather_gbs=_staged_rate(mesh, dev))
+        rec["seconds"] = time.perf_counter() - t_run
+        if progress:
+            peak = (torch.cuda.max_memory_allocated(dev) / 2**30
+                    if dev.type == "cuda" else float("nan"))
+            print(f"[train_mesh] rank {rank} run {len(out)} ({run['mode']}"
+                  f" on {shape}) done in {rec['seconds']:.1f} s: losses "
+                  f"{[round(h['loss'], 6) for h in rec['hist']]}, peak "
+                  f"{peak:.2f} GiB", flush=True)
+        out.append(rec)
+        del tr, model, params, state
+    return out
+
+
+@contextlib.contextmanager
+def _first_grads(rec: dict, want, specs: dict, mesh):
+    """With ``want`` (True, or the path of the one-device gradients saved
+    by ``torch.save``): the gradients of the run's first step, as the
+    update receives them, into ``rec["grads"]``: each leaf's placements
+    against its parameter's and local shape against its ``shard_shape``;
+    with a path, each gathered leaf's max gap to the one-device leaf over
+    that leaf's max |g|, and the leaves zero here but not there.  The
+    identity with ``want`` falsy."""
+    from ..train import optimizer as opt
+    update = opt.update
+
+    def seen(grads, state, params, tcfg, agree=None):
+        if "grads" not in rec:
+            rec["grads"] = _grads_report(grads, params, want, specs, mesh)
+        return update(grads, state, params, tcfg, agree)
+    if want:
+        opt.update = seen
+    try:
+        yield
+    finally:
+        opt.update = update
+
+
+def _grads_report(grads, params, want, specs, mesh) -> dict:
+    from ..distributed import sharding
+    out = {"layout": [(k, str(list(g.placements)),
+                       str(list(params[k].placements)),
+                       tuple(g.to_local().shape),
+                       sharding.shard_shape(g.shape, specs[k], mesh))
+                      for k, g in grads.items()]}
+    if isinstance(want, str):
+        ref = torch.load(want, map_location="cpu")
+        err, zero = 0.0, []
+        for k, g in grads.items():
+            got = sharding.full(g).float().cpu()
+            scale = float(ref[k].abs().max())
+            err = max(err, float((got - ref[k].float()).abs().max())
+                      / max(scale, 1e-30))
+            if float(got.abs().max()) == 0 and scale > 0:
+                zero.append(k)
+        out["err"], out["zero"] = err, zero
+    return out
+
+
+@contextlib.contextmanager
+def _failing(rank: int, fail):
+    """With ``fail`` = ``(fail_rank, fail_step)``: that rank's first
+    attempt at step ``fail_step`` (counted from the run's first) raises
+    where a real fault would leave the ranks' collectives aligned: after
+    the step's last collective (the gradient norm's), before the update's
+    agreement and first write (``optimizer.update`` asks the schedule for
+    the learning rate in between).  The identity with ``fail`` None."""
+    from ..train import optimizer as opt
+    schedule, calls = opt.schedule, [0]
+
+    def failing(step, tcfg):
+        calls[0] += 1
+        if rank == fail[0] and calls[0] == fail[1] + 1:
+            raise RuntimeError(f"injected failure on rank {rank} at step "
+                               f"{fail[1]}")
+        return schedule(step, tcfg)
+    if fail is not None:
+        opt.schedule = failing
+    try:
+        yield
+    finally:
+        opt.schedule = schedule
+
+
+class _Timing:
+    """A run's steps on the host clock (the device synchronised), the
+    collectives of its first step (:class:`_Collectives`: kind → bytes
+    and count, and their host seconds; counted on the first step only, as
+    the counting mode costs host time at every op) and the peak device
+    memory of the run."""
+
+    def __init__(self, dev):
+        self.dev, self.steps = dev, []
+
+    def wrap(self, fn):
+        sync = (torch.cuda.synchronize if self.dev.type == "cuda"
+                else (lambda: None))
+
+        def timed(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            if self.steps:
+                out = fn(*args, **kwargs)
+                sync()
+                self.steps.append({"s": time.perf_counter() - t0})
+                return out
+            with _Collectives() as c:
+                out = fn(*args, **kwargs)
+                sync()
+            self.steps.append({"s": time.perf_counter() - t0,
+                               "collectives": c.kinds,
+                               "functional": c.functional,
+                               "collective_s": c.seconds})
+            return out
+        return timed
+
+    def result(self) -> dict:
+        peak = (torch.cuda.max_memory_allocated(self.dev)
+                if self.dev.type == "cuda" else None)
+        return {"steps": self.steps, "peak": peak}
+
+
+def _staged_rate(mesh, dev, mib: int = 128, reps: int = 3) -> float:
+    """GB/s of the staged all-gather (``sharding._staged_collective``) of
+    a ``mib`` MiB bf16 block a rank over the mesh's first dim of more than
+    one rank: the gathered bytes over the host clock, the device
+    synchronised, after one warm-up."""
+    from ..distributed import sharding
+    i = next(j for j in range(mesh.ndim) if mesh.size(j) > 1)
+    block = torch.zeros(mib * 2**19, dtype=torch.bfloat16, device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sharding._staged_collective("gather", block, 0, mesh, i)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        sharding._staged_collective("gather", block, 0, mesh, i)
+    sync()
+    moved = reps * mesh.size(i) * block.numel() * block.element_size()
+    return moved / (time.perf_counter() - t0) / 1e9
+
+
+def elastic_rank(rank: int, group, cfg, mesh_shape, mode: str, tcfg,
+                 n_steps: int, data: tuple, device: str = "cpu") -> dict:
+    """Restore the checkpoint in ``tcfg.checkpoint_dir`` (saved on one
+    device or another mesh) onto a ``("data", "model")`` mesh of
+    ``mesh_shape`` under ``mode`` and train on to ``n_steps``
+    (:func:`train_mesh_rank` with ``resume``)."""
+    run = {"mode": mode, "tcfg": tcfg, "steps": n_steps, "resume": True,
+           "keep": True}
+    return train_mesh_rank(rank, group, cfg, mesh_shape, [run], data,
+                           device=device)[0]
 
 
 def tasks_rank(rank: int, group, tasks: list[tuple[str, tuple]]) -> list:

@@ -11,17 +11,32 @@ train step, checkpoint and resume.
 
 The parameters are the model's own (a module holds them; the state's
 ``params`` is ``dict(model.named_parameters())``), updated in place with
-the optimizer state.  One device: the reference's ``mesh=`` (sharded
-parameters and optimizer state) is not ported (ROADMAP A19).
+the optimizer state.
+
+``Trainer(mesh=)`` (a ``DeviceMesh`` with named dims; every rank of it
+runs the same Trainer) trains over the mesh as the reference's does,
+under the sharding mode in force (``distributed.sharding.set_mode``):
+the model's parameters are placed by the rules
+(``sharding.place_module``, each rank keeping its own block), the
+optimizer state by the same rules (the moments take their parameter's
+placements), each step's batch by ``batch_shardings`` (every rank reads
+the step's global batch from the loader and keeps its own rows), and the
+step runs with the mesh ambient; a retry is agreed by all ranks
+(``SupervisedStep(mesh=)``), a checkpoint is written whole by one rank,
+and a resume re-places it onto this mesh whatever mesh saved it.  As in
+the reference, the Trainer passes no ``grad_shardings``.  Only the dense
+decoders train over a mesh; the other families refuse naming ROADMAP A20.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Any, Callable, Optional
 
 import torch
 
 from ..checkpoint import ckpt
+from ..distributed import sharding
 from ..ft.supervisor import SupervisedStep
 from . import optimizer as opt
 from .step import make_train_step
@@ -30,14 +45,17 @@ from .step import make_train_step
 class Trainer:
     def __init__(self, model, tcfg, mesh=None, loader: Optional[Any] = None,
                  log: Callable[[str], None] = print):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): multi-device training (sharded "
-                "parameters, optimizer state and gradients) is not ported; "
-                "ROADMAP A19")
         self.model, self.tcfg, self.mesh, self.log = model, tcfg, mesh, log
         self.loader = loader
-        self.step_fn = SupervisedStep(make_train_step(model, tcfg))
+        self._psh = self._osh = None
+        if mesh is not None:
+            sharding.refuse_unported(model.cfg, "train")
+            self._psh = sharding.place_module(model, mesh)
+            shapes = {k: torch.empty(p.shape, device="meta")
+                      for k, p in model.named_parameters()}
+            self._osh = sharding.params_shardings(opt.init(shapes), mesh)
+        self.step_fn = SupervisedStep(make_train_step(model, tcfg),
+                                      mesh=mesh)
 
     def params(self) -> dict:
         """The model's parameters by name (the masters themselves)."""
@@ -52,8 +70,18 @@ class Trainer:
                              f"({sorted(set(own) ^ set(params))[:4]} differ)")
         with torch.no_grad():
             for name, p in own.items():
-                if params[name] is not p:
-                    p.copy_(params[name])
+                src = params[name]
+                if src is p:
+                    continue
+                if sharding.is_dtensor(p):
+                    if not sharding.is_dtensor(src):
+                        src = sharding.place(src, self._psh[name], self.mesh)
+                    if list(src.placements) != list(p.placements):
+                        raise ValueError(f"{name} is placed as "
+                                         f"{src.placements}, the model's as "
+                                         f"{p.placements}")
+                    p, src = p.to_local(), src.to_local()
+                p.copy_(src)
 
     def init_state(self, seed: int = 0):
         """The model's parameters made anew from ``seed`` (as its
@@ -72,8 +100,14 @@ class Trainer:
             params, opt_state = self.init_state(seed)
             return params, opt_state, 0
         params = self.params()
-        tree, step = ckpt.restore(d, {"params": params,
-                                      "opt": opt.init(params)})
+        # the moments are shaped, placed and found as the parameters; the
+        # target tree is only read for its paths, shapes and devices.
+        like = opt.AdamWState(params, params, torch.zeros(
+            (), dtype=torch.int32, device=self.model.device))
+        shard = None if self.mesh is None else {"params": self._psh,
+                                                "opt": self._osh}
+        tree, step = ckpt.restore(d, {"params": params, "opt": like},
+                                  shardings=shard, mesh=self.mesh)
         self._load(tree["params"])
         self.log(f"[train] resumed from step {step}")
         return self.params(), tree["opt"], step
@@ -90,9 +124,10 @@ class Trainer:
             self._load(params)
         metrics_hist = []
         for step in range(step0, n_steps):
-            batch = self.loader.batch_at(step)
+            batch = self._placed(self.loader.batch_at(step))
             t0 = time.perf_counter()
-            opt_state, metrics = self.step_fn(opt_state, batch)
+            with self._ambient():
+                opt_state, metrics = self.step_fn(opt_state, batch)
             dt = time.perf_counter() - t0
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = step
@@ -107,3 +142,16 @@ class Trainer:
                           {"params": self.params(), "opt": opt_state},
                           keep=self.tcfg.keep_checkpoints)
         return self.params(), opt_state, metrics_hist
+
+    def _placed(self, batch):
+        """The step's global batch, over a mesh as DTensors holding this
+        rank's rows (``batch_shardings``)."""
+        if self.mesh is None:
+            return batch
+        return sharding.place(batch, sharding.batch_shardings(batch,
+                                                              self.mesh),
+                              self.mesh)
+
+    def _ambient(self):
+        return contextlib.nullcontext() if self.mesh is None else \
+            sharding.use_mesh(self.mesh)

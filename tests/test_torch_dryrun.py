@@ -12,10 +12,14 @@ against the reference's where the two compute the same thing.
   tables from them;
 * ``--mesh single`` over the fake 256-rank group on a reduced dense
   prefill and decode cell: the argument bytes are the summed per-device
-  shapes of the reference's specs, collectives are issued; train cells and
-  the other families refused by name (A19, A20).
+  shapes of the reference's specs, collectives are issued; the other
+  families refused by name (A20), their train cells too;
+* a reduced dense train cell over a fake ``(2, 2)`` mesh under fsdp with
+  ``_grad_shard``: the AdamW state placed as the parameters, the
+  backward's reduce-scatters counted.
 """
 import json
+import math
 
 import numpy as np
 import pytest
@@ -149,24 +153,23 @@ def fake_group():
 
 
 def test_meshes_other_than_local_refuse_by_name(fake_group, tmp_path):
-    """On ``single`` and ``multi`` a train cell refuses naming A19 and a
-    non-dense family naming A20, before anything is built; the CLI
-    writes a ``"refused"`` record and exits 0."""
+    """On ``single`` and ``multi`` a non-dense family refuses naming A20,
+    to serve and to train, before anything is built; the CLI writes a
+    ``"refused"`` record and exits 0."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="A19"):
-            dryrun.run_cell("llama3.2-3b", "train_4k", mesh, mesh=object())
         for arch in ("deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-1.3b"):
-            with pytest.raises(NotImplementedError, match="A20"):
-                dryrun.run_cell(arch, "decode_32k", mesh, mesh=object())
+            for shape in ("decode_32k", "train_4k"):
+                with pytest.raises(NotImplementedError, match="A20"):
+                    dryrun.run_cell(arch, shape, mesh, mesh=object())
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
                      "--mesh", "single", "--out", str(tmp_path)])
     assert e.value.code == 0
     rec = json.loads((tmp_path / "kimi-k2-1t-a32b__train_4k__single.json")
                      .read_text())
-    assert rec["status"] == "refused" and "A19" in rec["skip_reason"]
+    assert rec["status"] == "refused" and "A20" in rec["skip_reason"]
     m = make_local_mesh()
     assert m.shape == {"data": len(m.devices)} and m.size >= 1
 
@@ -236,6 +239,40 @@ def test_run_cell_on_the_single_mesh(fake_group, monkeypatch):
         local = run_cell("granite-3-2b", shape.name, "local")
         assert 0 < rec["cost_analysis"]["dot flops"] < \
             local["cost_analysis"]["dot flops"]
+
+
+def test_train_cell_over_a_fake_mesh_under_fsdp(fake_group, monkeypatch):
+    """Reduced granite-3-2b's train step over a fake (2, 2) mesh under
+    fsdp with ``_grad_shard``: rank 0's arguments are its blocks of the
+    parameters, of both moments (placed as the parameters) and of the
+    batch; the step's all-gathers (``use_param``) and the backward's
+    reduce-scatters are counted, one of each per parameter and mesh dim
+    at least."""
+    from repro_torch.distributed.sharding import (params_shardings,
+                                                  shard_shape)
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import fake_mesh
+    from repro_torch.launch.specs import input_specs
+    shape = ShapeConfig("tiny_train", 64, 8, "train")
+    monkeypatch.setitem(SHAPES, shape.name, shape)
+    monkeypatch.setattr("repro_torch.launch.specs.get_config",
+                        lambda arch: get_config(arch, reduced=True))
+    over = {"sharding_mode": "fsdp", "_grad_shard": True}
+    rec = run_cell("granite-3-2b", shape.name, "single",
+                   mesh=fake_mesh((2, 2), ("data", "model")),
+                   overrides=over)
+    assert rec["status"] == "ok" and rec["n_devices"] == 4
+    spec = input_specs("granite-3-2b", shape.name)
+    sizes = {"data": 2, "model": 2}
+    specs = params_shardings(spec["params"], sizes, "fsdp")
+    pbytes = sum(math.prod(shard_shape(p.shape, specs[k], sizes)) * 4
+                 for k, p in spec["params"].items())
+    want = 3 * pbytes + 4 + 8 * 8 * 64 // 4     # + count, int64 rows
+    assert rec["argument_size_in_bytes"] == want
+    coll = rec["collectives"]
+    n = 2 * len(spec["params"])
+    assert coll["all-gather"]["count"] >= n, coll
+    assert coll["reduce-scatter"]["count"] >= n, coll
 
 
 def test_run_cell_record(tiny):

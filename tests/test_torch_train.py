@@ -434,8 +434,12 @@ def test_loader_follows_the_reference_seed_rule():
 
 
 def test_trainer_refuses_a_mesh():
-    m = build_model(_cfg(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A19"):
+    """``Trainer(mesh=)`` trains the dense decoders
+    (``tests/test_torch_train_mesh.py``); an MoE config refuses naming
+    ROADMAP A20 before anything is placed."""
+    m = build_model(treg.get_config("deepseek-v2-lite-16b", reduced=True),
+                    device="cpu")
+    with pytest.raises(NotImplementedError, match="A20"):
         Trainer(m, TrainConfig(), mesh=object())
 
 
