@@ -267,7 +267,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
   mesh.       — serving over a device mesh (``distributed.sharding``):
                 flash_attention against its plain version at one rank's
                 prefill shape (12 q and 4 kv heads); llama3.2-3b at full
-                width, weights from seed 0, MESH_B prompts of MESH_T
+                width and MESH_LAYERS layers, weights from seed 0, MESH_B
+                prompts of MESH_T
                 tokens, served by the one-device session on the card (f32
                 and bf16), then over a (1, 2) ("data", "model") mesh of two
                 gloo ranks sharing cuda:0 (every collective through the
@@ -300,12 +301,37 @@ Phases, each reported on its own lines; any failure exits nonzero:
                 as its parameter); (a)'s checkpoint restored onto (b)'s
                 mesh and trained a step more (the elastic reshard), held
                 to the same; as the config stands (bf16, 28 layers)
-                TMESH_STEPS steps of (a) and one of (b), losses within
-                TMESH_LOSS_TOL and
+                TMESH_STEPS steps of (a), and one of (b) at
+                TMESH_FSDP_LAYERS layers against its one-device Trainer,
+                losses within TMESH_LOSS_TOL and
                 grad norms within TMESH_GNORM_TOL; every local shape its
                 shard_shape, no kernel launched; per rank the step times,
                 one step's collectives (calls, bytes, host µs), the peak
                 memory and the two ranks' sum against the card's;
+  mesh_archs. — the other families served over a device mesh: ssd_scan
+                and flash_attention against their plain versions at the
+                ranks' local shapes (MA_SSD_LOCAL, MA_FLASH_LOCAL), the
+                one-device session of each config on the card, then two
+                gloo ranks sharing cuda:0 (``serve_mesh_many``, MA_B
+                prompts of MA_T tokens (xLSTM MA_XLSTM_T), MA_N or
+                MA_N_DEEP decode steps fed the session's tokens):
+                deepseek-v2-lite-16b at full width (MoE, MLA) in f32 at
+                MA_F32_LAYERS layers on (1, 2) under "gather" and "sp" and
+                on (2, 1), its first MoE layer's routing the session's up
+                to near-ties (MA_ROUTE_AGREE, MA_TIE), its logits within
+                MESH_TOL of one device given the same routing, its
+                prefill's capacity drops exactly that one device's, and as
+                the config stands (27 layers, bf16 masters as phase archs)
+                on (1, 2); zamba2-1.2b at full width under "pallas" (f32
+                within MESH_TOL, and bf16), MA_LAUNCHES ssd_scan and
+                flash_attention launches per rank per prefill; xlstm-1.3b
+                at full width in f32 (MA_XLSTM_LAYERS layers within
+                MESH_TOL; its 48 beside how far a batch split moves the
+                one-device model); kimi-k2-1t-a32b reduced under
+                "pallas" on both meshes (2 TB of weights do not fit the
+                card); per rank the prefill ms, decode ms/token, one
+                step's collectives (calls, bytes, host µs) and peak
+                memory, summed over the ranks;
   9. a JSON line listing every ported kernel (flash_attention's with a
      ``d160`` entry: at stablelm-12b's forward shape the kernel's, the
      plain version's and SDPA's ms, the bound, the prefill shape's ms and
@@ -316,8 +342,8 @@ Phases, each reported on its own lines; any failure exits nonzero:
 checks at D = 160, phase archs and the D = 160 timings, and prints no
 result lines; ``--only-train`` runs phases 1-2 and phase train, and prints
 no result lines; so do ``--only-roofline`` with phase roofline,
-``--only-mesh`` with phase mesh and ``--only-train-mesh`` with phase
-train_mesh.
+``--only-mesh`` with phase mesh, ``--only-train-mesh`` with phase
+train_mesh and ``--only-mesh-archs`` with phase mesh_archs.
 
 The script imports nothing of JAX or of the JAX package.
 """
@@ -2580,7 +2606,7 @@ def _ssd_view(wide, H, P):
     return wide[..., :H * P].view(b, T, H, P)
 
 
-def check_ssd_scan(device) -> float:
+def check_ssd_scan(device, shapes=SSD_SHAPES) -> float:
     """ssd_scan kernels vs ssd_ref on the card, both on the inputs padded by
     ``ops.ssd``'s chunk rule, x contiguous and as the model's view; the
     final state against ``ssd_final_state``.  Returns the largest
@@ -2590,7 +2616,7 @@ def check_ssd_scan(device) -> float:
     from repro_torch.kernels.ssd_scan import ssd_cuda, ssd_ref
     from repro_torch.models.mamba2 import ssd_final_state
     worst = 0.0
-    for i, (b, T, H, P, N, chunk) in enumerate(SSD_SHAPES):
+    for i, (b, T, H, P, N, chunk) in enumerate(shapes):
         errs = []
         for name, view in itertools.product(("float32", "bfloat16"),
                                             (False, True)):
@@ -4392,10 +4418,13 @@ def roofline_phase(dev, smi):
 
 # -- phase mesh: llama3.2-3b served over a (1, 2) mesh of two ranks ------------
 
-#: the served batch: B prompts of T tokens (seeded), N decode steps (8
-#: since phase train_mesh came after this phase: 32 before; each step
-#: over gloo takes 0.4-1.5 s a mode).
-MESH_B, MESH_T, MESH_N = 4, 1024, 8
+#: the served batch: B prompts of T tokens (seeded), N decode steps (2
+#: since phase mesh_archs came after this phase, 8 since phase
+#: train_mesh, 32 before; each step over gloo takes 0.4-1.5 s a mode).
+MESH_B, MESH_T, MESH_N = 4, 1024, 2
+#: the served model's layers (the config's 28 until phase mesh_archs joined
+#: the script): f32 and bf16 from one model, placed in turns.
+MESH_LAYERS = 8
 #: (a)'s gates, relative to max |logit| of the one-device session: f32
 #: over ranks against one device (the row-parallel partial sums add in
 #: another order), and sp against gather.
@@ -4404,34 +4433,16 @@ MESH_TOL, MESH_SP_TOL = 1e-4, 1e-4
 #: heads of llama3.2-3b (B, Hq, Hkv, Tq, Tk, D, causal).
 LLAMA_MESH_PRE = (4, 12, 4, 1024, 1024, 128, True)
 #: flash_attention launches per rank per prefill: one per layer.
-MESH_FLASH_PER_PREFILL = 28
+MESH_FLASH_PER_PREFILL = MESH_LAYERS
 MESH_DRYRUN = ("decode_32k", "prefill_32k")
 
 
 def _mesh_cfg(dtype):
     """llama3.2-3b at full width as phase 7b serves it (``"pallas"``), in
-    ``dtype``."""
+    ``dtype``, at MESH_LAYERS layers."""
     from repro_torch.configs.registry import get_config
     return dataclasses.replace(get_config("llama3.2-3b"), attn_impl="pallas",
-                               dtype=dtype)
-
-
-def mesh_reference(dev, cfg, prompts):
-    """The one-device session on the card (weights from seed 0): its
-    logits [N + 1, B, V] (the prefill's, then each decode step's; f32 on
-    the host) and the tokens its decode steps were fed [B, N]."""
-    import torch
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve.engine import ServeSession
-    m = build_model(cfg, device=dev, seed=0)
-    sess = ServeSession(m, MESH_B, MESH_T + MESH_N, device=dev)
-    first = sess.prefill({"tokens": torch.as_tensor(prompts, device=dev)})
-    out = sess.decode(first, MESH_N)
-    logits = torch.stack(sess.logits).float().cpu().numpy()
-    feed = torch.cat([first[:, None], out[:, :-1]], 1).cpu().numpy()
-    del sess, m
-    torch.cuda.empty_cache()
-    return logits, feed
+                               dtype=dtype, n_layers=MESH_LAYERS)
 
 
 def mesh_check(ranks, backend, refs, smi):
@@ -4558,7 +4569,8 @@ def mesh_phase(dev, smi):
                                (MESH_B, MESH_T), dtype=np.int64)
         refs = {}
         for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
-            refs[tag] = mesh_reference(dev, _mesh_cfg(dtype), prompts)
+            refs[tag] = ma_reference(dev, _mesh_cfg(dtype), prompts,
+                                     MESH_N)[:2]
         t_ref = time.perf_counter() - t_phase
         # (a) under both decode attentions; (b) as the config stands, its
         # decode_attn "gather".  One model (f32 masters, seed 0) serves both.
@@ -4604,19 +4616,21 @@ def mesh_phase(dev, smi):
 
 # -- phase train_mesh: llama3.2-3b trained over two ranks on the card -----------
 
-#: the exact check runs llama3.2-3b at full width with this many layers, in
-#: f32 compute: each mode's step losses and grad norms within TMESH_F32_TOL
+#: the exact check runs llama3.2-3b at full width with this many layers (4
+#: until phase mesh_archs joined the script), in f32 compute: each mode's step losses and grad norms within TMESH_F32_TOL
 #: (relative) of the one-device Trainer's, every gathered gradient leaf of
 #: the first step within TMESH_GRAD_TOL of the one-device leaf's max |g|.
-TMESH_LAYERS, TMESH_F32_TOL, TMESH_GRAD_TOL = 4, 1e-5, 1e-4
+TMESH_LAYERS, TMESH_F32_TOL, TMESH_GRAD_TOL = 2, 1e-5, 1e-4
 #: as the config stands (bf16 compute, 28 layers): step losses within
 #: TMESH_LOSS_TOL and grad norms within TMESH_GNORM_TOL (relative) of the
 #: one-device Trainer's (phase train's).
 TMESH_LOSS_TOL, TMESH_GNORM_TOL = 2e-3, 1e-2
 #: steps: the exact check's first step in each mode (the elastic run the
-#: step after); as the config stands megatron's TMESH_STEPS and fsdp's
-#: first (an fsdp step moves ~48 GB through gloo, ~40 s: PERF.md §6).
-TMESH_STEPS = 2
+#: step after); as the config stands megatron's TMESH_STEPS (2 until phase
+#: mesh_archs joined the script) and fsdp's first, at TMESH_FSDP_LAYERS
+#: layers (28 until then: a 28-layer fsdp step moves ~48 GB through gloo,
+#: 40-64 s; PERF.md §6).
+TMESH_STEPS, TMESH_FSDP_LAYERS = 1, 4
 #: the card's memory in MiB (H100 80GB HBM3).
 CARD_MIB = 81559
 
@@ -4658,12 +4672,14 @@ def tmesh_one_device(dev, cfg, steps, data, grads_to=None):
     return hist
 
 
-def tmesh_reference(rank, group, device, *args):
-    """:func:`tmesh_one_device` in a process of its own (a spawn of one
-    rank), so that this process keeps none of its memory cached while the
-    two ranks train."""
+def tmesh_reference(rank, group, device, jobs):
+    """:func:`tmesh_one_device` of each of ``jobs`` (its arguments after
+    the device) in a process of its own (a spawn of one rank), so that
+    this process keeps none of its memory cached while the two ranks
+    train; their metrics in order."""
     from repro_torch.core.device import resolve_device
-    return tmesh_one_device(resolve_device(device), *args)
+    dev = resolve_device(device)
+    return [tmesh_one_device(dev, *job) for job in jobs]
 
 
 def _tmesh_rel(a, b) -> float:
@@ -4763,8 +4779,9 @@ def train_mesh_phase(dev, smi, train_hist=None):
     norms, every first-step gradient leaf, gathered), (a)'s checkpoint
     after its step is restored onto (b)'s mesh and trained one step more
     (the elastic reshard); as the config stands (bf16, 28 layers) (a) runs
-    TMESH_STEPS steps and (b) one, against the one-device Trainer's (phase
-    train's, ``train_hist``, when it ran), with step times, one step's
+    TMESH_STEPS steps against the one-device Trainer's (phase train's,
+    ``train_hist``, when it ran), and (b) one at TMESH_FSDP_LAYERS layers
+    against the one-device Trainer of that depth, with step times, one step's
     collectives and the peak memory of each rank.  Gloo moves everything
     through the host: a correctness path that says nothing of an NVLink
     exchange."""
@@ -4782,11 +4799,14 @@ def train_mesh_phase(dev, smi, train_hist=None):
     tmp = tempfile.mkdtemp(prefix="train_mesh_")
     try:
         grads, data = f"{tmp}/grads.pt", (TRAIN_BATCH, TRAIN_T)
-        f32, = spawn(tmesh_reference, 1, dev.type, dc.replace(cfg, **exact),
-                     2, data, grads, timeout=600, join_timeout=600)
-        bf16 = train_hist[:TMESH_STEPS] if train_hist else \
-            spawn(tmesh_reference, 1, dev.type, cfg, TMESH_STEPS, data,
-                  timeout=600, join_timeout=600)[0]
+        fsdp16 = {"n_layers": TMESH_FSDP_LAYERS}
+        jobs = [(dc.replace(cfg, **exact), 2, data, grads),
+                (dc.replace(cfg, **fsdp16), 1, data)]
+        if not train_hist:
+            jobs.append((cfg, TMESH_STEPS, data))
+        (f32, bf16_b, *bf16), = spawn(tmesh_reference, 1, dev.type, jobs,
+                                      timeout=600, join_timeout=600)
+        bf16 = train_hist[:TMESH_STEPS] if train_hist else bf16[0]
         t_ref = time.perf_counter() - t_phase
         ck = f"{tmp}/ckpt"
         a, b = dict(mode="megatron", mesh=(1, 2)), \
@@ -4798,7 +4818,8 @@ def train_mesh_phase(dev, smi, train_hist=None):
                 dict(b, changes=exact, tcfg=_tmesh_tcfg(ck), steps=2,
                      resume=True),
                 dict(a, tcfg=_tmesh_tcfg(), steps=TMESH_STEPS, measure=True),
-                dict(b, tcfg=_tmesh_tcfg(), steps=1, measure=True)]
+                dict(b, changes=fsdp16, tcfg=_tmesh_tcfg(), steps=1,
+                     measure=True)]
         names = [("(a) f32", f"{TMESH_LAYERS} layers, megatron on (1, 2), "
                              f"checkpoint after step 0"),
                  ("(b) f32", f"{TMESH_LAYERS} layers, fsdp on (2, 1) with "
@@ -4807,14 +4828,15 @@ def train_mesh_phase(dev, smi, train_hist=None):
                                  "mesh, step 1 run there"),
                  ("(a) bf16", f"{cfg.n_layers} layers as the config "
                               f"stands, megatron on (1, 2)"),
-                 ("(b) bf16", f"{cfg.n_layers} layers as the config "
+                 ("(b) bf16", f"{TMESH_FSDP_LAYERS} of its "
+                              f"{cfg.n_layers} layers, bf16 as the config "
                               f"stands, fsdp on (2, 1) with the ZeRO-2 "
                               f"grad_shardings")]
         f32_want = (f32, TMESH_F32_TOL, TMESH_F32_TOL)
         want = {"(a) f32": f32_want, "(b) f32": f32_want,
                 "elastic f32": f32_want,
                 "(a) bf16": (bf16, TMESH_LOSS_TOL, TMESH_GNORM_TOL),
-                "(b) bf16": (bf16, TMESH_LOSS_TOL, TMESH_GNORM_TOL)}
+                "(b) bf16": (bf16_b, TMESH_LOSS_TOL, TMESH_GNORM_TOL)}
         if dev.type == "cuda":
             log("train_mesh", f"before the ranks this process holds "
                               f"{torch.cuda.memory_allocated() / 2**20:.0f}"
@@ -4845,6 +4867,446 @@ def train_mesh_phase(dev, smi, train_hist=None):
                       + f", the ranks {t_ranks:.1f} s; {smi}")
 
 
+# -- phase mesh_archs: the other families served over two ranks on the card ---
+
+#: phase mesh_archs: MA_B prompts of MA_T tokens; MA_N decode steps in the
+#: short exact stacks and kimi-k2 reduced, MA_N_DEEP in the runs at full
+#: depth (zamba2, xLSTM's 48 blocks, deepseek-v2-lite-16b's 27), whose
+#: steps over gloo take 0.5-1.8 s each.  The exact (f32) runs keep
+#: MA_F32_LAYERS layers of deepseek-v2-lite-16b and MA_XLSTM_LAYERS of
+#: xlstm-1.3b (seven mLSTM blocks and one sLSTM): its whole 48-block f32
+#: stack moves its logits over the mesh about as far as a batch split
+#: moves them on one device, which the phase measures beside it (PERF.md
+#: §6).  xLSTM's prompt is MA_XLSTM_T: its prefill over the ranks gathers
+#: and writes back every mLSTM state (128 MB a layer at full width), ~11 s
+#: at 1,024 positions.
+MA_B, MA_T, MA_N, MA_N_DEEP = 4, 1024, 8, 3
+MA_F32_LAYERS, MA_XLSTM_LAYERS, MA_XLSTM_T = 4, 8, 256
+#: an exact MoE run's routing against the one-device session's in its
+#: first MoE layer, where the inputs differ by rounding alone: at least
+#: MA_ROUTE_AGREE of the tokens given the same experts, and each token
+#: given others at a near-tie, its router margin (k-th less (k+1)-th
+#: logit) within MA_TIE of the call's largest |router logit|.
+MA_ROUTE_AGREE, MA_TIE = 0.999, 1e-5
+#: the ranks' local kernel shapes on (1, 2): zamba2's ssd_scan (b, T, H, P,
+#: N, chunk: half of its 64 heads), its shared attention's and kimi-k2
+#: reduced's flash_attention (B, Hq, Hkv, Tq, Tk, D, causal).
+MA_SSD_LOCAL = [(4, 1024, 32, 64, 64, 128)]
+MA_FLASH_LOCAL = [(4, 16, 16, 1024, 1024, 128, True),
+                  (4, 2, 1, 1024, 1024, 16, True)]
+#: kernel launches per rank per prefill: zamba2's ssd_scan (one per Mamba-2
+#: layer) and flash_attention (one per shared-attention call), kimi-k2
+#: reduced's flash_attention (one per layer).
+MA_LAUNCHES = {"zamba2-1.2b": {"ssd_cuda": 38, "flash_cuda": 7},
+               "kimi-k2-1t-a32b": {"flash_cuda": 2}}
+
+
+def _ma_cfg(arch, dtype, **changes):
+    """The phase's config of ``arch`` in ``dtype``: at full width (kimi-k2
+    reduced: 2 TB of bf16 weights do not fit the card), GQA attention and
+    zamba2 under ``"pallas"``; deepseek-v2-lite-16b in bf16 with bf16
+    masters, as phase archs serves it (f32 masters and their bf16 copy
+    exceed the card)."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch, reduced=arch == "kimi-k2-1t-a32b")
+    over = {"dtype": dtype}
+    if cfg.family == "hybrid" or (cfg.family == "moe" and not cfg.use_mla):
+        over["attn_impl"] = "pallas"
+    if arch in ARCHS_BIG and dtype == "bfloat16":
+        over["param_dtype"] = "bfloat16"
+    over.update(changes)
+    return dataclasses.replace(cfg, **over)
+
+
+def ma_reference(dev, cfg, prompts, n=None, routes=False):
+    """The one-device session on the card (weights from seed 0) of
+    prompts [B, T] and ``n`` (MA_N) decode steps: its logits [n + 1, B,
+    V] (f32 on the host), the tokens its decode steps were fed [B, n] and,
+    with
+    ``routes``, each MoE layer's dispatch in the prefill
+    (``testing.multidevice._recording_routes``)."""
+    import contextlib
+
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve.engine import ServeSession
+    from repro_torch.testing.multidevice import _recording_routes
+    n = MA_N if n is None else n
+    m = build_model(cfg, device=dev, seed=0)
+    sess = ServeSession(m, prompts.shape[0], prompts.shape[1] + n,
+                        device=dev)
+    seen = []
+    with (_recording_routes(seen) if routes else contextlib.nullcontext()):
+        first = sess.prefill({"tokens": torch.as_tensor(prompts,
+                                                        device=dev)})
+    out = sess.decode(first, n)
+    logits = torch.stack(sess.logits).float().cpu().numpy()
+    feed = torch.cat([first[:, None], out[:, :-1]], 1).cpu().numpy()
+    del sess, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return logits, feed, seen
+
+
+def ma_joined(records, mesh_shape) -> list:
+    """The dispatches the ranks recorded, joined over the batch: per call
+    ``(idx, keep)`` of the whole batch from the ranks of model index 0 in
+    data order (each holds its rows of the batch)."""
+    import numpy as np
+    dd, mm = mesh_shape
+    blocks = [records[i * mm] for i in range(dd)]
+    return [tuple(np.concatenate([b[c][f] for b in blocks]) for f in (0, 1))
+            for c in range(len(blocks[0]))]
+
+
+def ma_forced(dev, cfg, prompts, feed, prefill, decodes):
+    """The one-device model given the mesh's routing (``testing.
+    multidevice._forcing_routes``: ``moe.route`` takes the experts the mesh
+    chose at each call, the prefill's ``prefill`` then a mode's decode
+    steps' ``decodes[mode]``), run eagerly, weights from seed 0: per mode
+    its logits [N + 1, B, V] (f32 on the host); and its prefill's dispatch
+    (``_recording_routes``)."""
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.testing.multidevice import (_forcing_routes,
+                                                 _recording_routes)
+    m = build_model(cfg, device=dev, seed=0)
+    w = m.weights()
+    T, n = prompts.shape[1], feed.shape[1]
+    tokens = torch.as_tensor(prompts, device=dev)
+    fed = torch.as_tensor(feed, device=dev)
+    out, seen = {}, []
+    for mode, steps in decodes.items():
+        caches = m.init_cache(MA_B, T + n)
+        with _forcing_routes([r[0] for r in prefill + steps]):
+            with _recording_routes(seen if not out else []):
+                lg, caches = m.prefill({"tokens": tokens}, caches, w)
+            got = [lg[:, -1]]
+            for i in range(n):
+                lg, caches = m.decode_step(fed[:, i:i + 1], caches, T + i, w)
+                got.append(lg[:, -1])
+        out[mode] = torch.stack(got).float().cpu().numpy()
+    del m, w, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, seen
+
+
+def ma_drops(tag, cfg, ranks, mesh_shape, one, forced=None):
+    """The mesh prefill's capacity drops: with ``forced`` (the one-device
+    model's prefill given the mesh's routing) exactly its drops, else
+    exactly the one-device dispatch of the same routing (``moe.
+    group_ranks`` with ``capacity`` of the global batch); beside them how
+    far the routing is from the one-device session's (``one``): the
+    tokens given the same experts, and the router margins of layer 0's
+    tokens given others, gated with ``forced`` (MA_ROUTE_AGREE,
+    MA_TIE)."""
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    cap = moe.capacity(cfg, MA_B * MA_T)
+    joined = ma_joined([r["routes"] for r in ranks], mesh_shape)
+    dropped = pairs = same = tokens = 0
+    per_layer, flip_margins = [], []
+    for layer, ((idx, keep), (widx, _, wmargin)) in enumerate(zip(joined,
+                                                                  one)):
+        if forced is not None:
+            want = forced[layer][1].reshape(-1)
+        else:
+            order, _, rank = moe.group_ranks(torch.as_tensor(idx.reshape(-1)))
+            want = np.empty(idx.size, dtype=bool)
+            want[order.numpy()] = (rank < cap).numpy()
+        if not np.array_equal(keep.reshape(-1), want):
+            raise AssertionError(f"[mesh_archs] {tag} layer {layer}: the "
+                                 f"mesh dropped other pairs than one device "
+                                 f"given the same routing")
+        # a token's experts as a set (an order swapped within its top k
+        # changes only the order of its slots' sum)
+        agree = (np.sort(idx, -1) == np.sort(widx, -1)).all(-1)
+        same += int(agree.sum())
+        per_layer.append(float(agree.mean()))
+        if layer == 0:
+            # where the inputs differ by rounding alone: later layers
+            # inherit the tokens changed there
+            flip_margins = wmargin[~agree].tolist()
+        dropped += int((~keep).sum())
+        pairs += keep.size
+        tokens += agree.size
+    if forced is not None and (per_layer[0] < MA_ROUTE_AGREE or any(
+            m > MA_TIE for m in flip_margins)):
+        raise AssertionError(
+            f"[mesh_archs] {tag}: in the first MoE layer the mesh routed "
+            f"{1 - per_layer[0]:.3%} of the tokens otherwise than the "
+            f"one-device session (at most {1 - MA_ROUTE_AGREE:.3%}), at "
+            f"router margins {sorted(flip_margins)[-8:]} of the largest "
+            f"|router logit| (near-ties within {MA_TIE})")
+    margins = np.concatenate([m for _, _, m in one])
+    flips = (f"; the {len(flip_margins)} tokens routed otherwise in layer "
+             f"0 had router margins (k-th less (k+1)-th logit) up to "
+             f"{max(flip_margins):.3g} of the call's largest |router "
+             f"logit|, the median token's {float(np.median(margins)):.3g}"
+             if flip_margins else "")
+    log("mesh_archs", f"{tag}: the prefill dropped {dropped} of {pairs} "
+                      f"(token, expert) pairs (cap {cap} of the global "
+                      f"{MA_B}x{MA_T} batch), exactly "
+                      + ("one device's given the mesh's routing"
+                         if forced is not None else
+                         "the one-device dispatch of the ranks' routing")
+                      + f"; the same experts as the one-device session "
+                      f"for {same} of {tokens} (token, layer)s (layer 0 "
+                      f"{per_layer[0]:.2%}, the last {per_layer[-1]:.2%})"
+                      f"{flips}")
+
+
+def ma_check(tag, arch, cfg, out, mesh_shape, ref, exact, smi, yard=None,
+             forced=None, sp_gate=True):
+    """One job's results on the ranks: logits against the one-device
+    session (gated where ``exact``; an MoE's against ``forced``, per mode
+    the one-device model given the mesh's routing, where that is given),
+    sp against gather, kernel launches per prefill, local shapes; per rank
+    the prefill ms, decode ms/token, one step's collectives and peak
+    memory.  ``yard``, the one-device f32 session of the same weights,
+    measures how far the compute dtype alone moves the logits on one
+    device, beside the mesh's distance; ``sp_gate`` False leaves sp
+    against gather ungated (their decode steps routed otherwise)."""
+    import numpy as np
+    logits = ref[0]
+    n = logits.shape[0] - 1
+    scale = float(np.abs(logits).max())
+    want_tokens = logits.argmax(-1)
+    if yard is not None:
+        gap = float(np.abs(logits - yard[0]).max())
+        same = float((want_tokens == yard[0].argmax(-1)).mean())
+        log("mesh_archs", f"{tag}: the one-device session against the "
+                          f"one-device f32 session of the same weights: max "
+                          f"|Δlogit| {gap:.6g} ({gap / scale:.3g} of max "
+                          f"|logit|), greedy tokens equal {same:.1%} (each "
+                          f"session fed its own tokens)")
+    bad = [sh for sh in out[0]["shapes"] if tuple(sh[2]) != tuple(sh[3])]
+    if bad:
+        raise AssertionError(f"[mesh_archs] {tag}: local shapes off "
+                             f"shard_shape: {bad[:4]}")
+    peaks = []
+    for r, res in enumerate(out):
+        run, = res["runs"]
+        launches = {k: v for k, v in run["launches"].items() if v}
+        want = MA_LAUNCHES.get(arch, {})
+        if launches != want:
+            raise AssertionError(f"[mesh_archs] {tag} rank {r}: kernel "
+                                 f"launches in a prefill {launches}, not "
+                                 f"{want}")
+        peaks.append(run["peak_bytes"])
+        for mode, rec in run["modes"].items():
+            err, what = rec["err"], "the one-device session"
+            if forced is not None:
+                err = float(np.abs(rec["logits"] - forced[mode]).max())
+                what = "the one-device model given the mesh's routing"
+            rel = err / scale
+            agree = float((rec["tokens"] == want_tokens).mean())
+            if exact and not rel <= MESH_TOL:
+                raise AssertionError(
+                    f"[mesh_archs] {tag} rank {r} {mode}: max |logit - "
+                    f"{what}| {err} = {rel:.3g} of max |logit| {scale:.4g} "
+                    f"> {MESH_TOL} (against the session, the prefill's "
+                    f"then each step's: {rec['errs']})")
+            coll = ", ".join(f"{k} {v['count']} x, {v['bytes']} B"
+                             for k, v in rec["collectives"].items())
+            vs = (f"; max |logit - {what}| {err:.6g} ({rel:.3g})"
+                  if forced is not None else "")
+            log("mesh_archs", f"{tag} over gloo ranks {mesh_shape}, rank {r},"
+                              f" decode_attn={mode!r}: max |logit - "
+                              f"one-device session| {rec['err']:.6g} "
+                              f"({rec['err'] / scale:.3g} of max |logit| "
+                              f"{scale:.4g}) over the prefill and {n} "
+                              f"steps{vs}; greedy tokens equal to the "
+                              f"session's {agree:.1%}; prefill "
+                              f"{run['prefill_s'] * 1e3:.1f} ms, decode "
+                              f"{rec['decode_s_per_token'] * 1e3:.2f} "
+                              f"ms/token (host clock); one decode step's "
+                              f"collectives: {coll}, "
+                              f"{rec['collective_us']:.0f} µs of host time "
+                              f"in them; kernel launches in the prefill "
+                              f"{launches or 'none'}; {smi}")
+        if "sp_vs_gather" in run:
+            sp = run["sp_vs_gather"] / scale
+            if exact and sp_gate and not sp <= MESH_SP_TOL:
+                raise AssertionError(f"[mesh_archs] {tag} rank {r}: sp "
+                                     f"against gather {sp:.3g} of max "
+                                     f"|logit|")
+            log("mesh_archs", f"{tag} rank {r}: sp against gather max "
+                              f"|diff| {run['sp_vs_gather']:.6g} ({sp:.3g} "
+                              f"of max |logit|)")
+    log("mesh_archs", f"{tag}: {out[0]['seconds']:.1f} s on the ranks, "
+                      f"{out[0]['build_s']:.1f} s of it making and placing "
+                      f"the model (in turns)")
+    log("mesh_archs", f"{tag}: peak device memory per rank "
+                      f"{[round(p / 2**30, 2) for p in peaks]} GiB, summed "
+                      f"{sum(peaks) / 2**30:.2f} GiB of the card's "
+                      f"{CARD_MIB / 1024:.1f} GiB; every parameter and cache "
+                      f"leaf's local shape equals its shard_shape "
+                      f"({len(out[0]['shapes'])} leaves)")
+
+
+def ma_batch_split(dev, cfg, prompts, feed):
+    """The one-device model (weights from seed 0) run eagerly on the whole
+    batch of ``prompts`` and on each half of it, both fed ``feed`` [B, n]
+    after the prefill: how far other GEMM shapes alone move its logits.
+    Returns the whole batch's logits [n + 1, B, V] and the halves' (f32 on
+    the host)."""
+    import torch
+    from repro_torch.models.registry import build_model
+    m = build_model(cfg, device=dev, seed=0)
+    w = m.weights()
+    B, T = prompts.shape
+    tokens = torch.as_tensor(prompts, device=dev)
+    fed = torch.as_tensor(feed, device=dev)
+
+    def run(rows):
+        caches = m.init_cache(rows.stop - rows.start, T + fed.shape[1])
+        lg, caches = m.prefill({"tokens": tokens[rows]}, caches, w)
+        got = [lg[:, -1]]
+        for i in range(fed.shape[1]):
+            lg, caches = m.decode_step(fed[rows, i:i + 1], caches, T + i, w)
+            got.append(lg[:, -1])
+        return torch.stack(got).float().cpu().numpy()
+
+    import numpy as np
+    whole = run(slice(0, B))
+    halves = np.concatenate([run(slice(0, B // 2)), run(slice(B // 2, B))],
+                            1)
+    del m, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    return whole, halves
+
+
+def mesh_archs_phase(dev, smi):
+    """Phase mesh_archs: the other families served over two gloo ranks
+    sharing cuda:0 (``testing.multidevice.serve_mesh_many``), each against
+    the one-device session on the card: deepseek-v2-lite-16b at full width
+    (MoE with MLA) in f32 at MA_F32_LAYERS layers on (1, 2) under "gather"
+    and "sp" and on (2, 1) (the batch split, so a pair's rank in its
+    expert's group takes the ranks before it), its routing the session's
+    up to near-ties (MA_ROUTE_AGREE, MA_TIE), its capacity drops one
+    device's given the same routing, and as the config stands (27 layers,
+    bf16) on (1, 2); zamba2-1.2b at full width under "pallas" in f32 and
+    bf16, ssd_scan and flash_attention launched on every rank and held
+    against their plain versions at the ranks' local shapes; xlstm-1.3b at
+    full width in f32 at MA_XLSTM_LAYERS layers and at its 48, beside how
+    far a batch split moves the one-device 48-layer model
+    (:func:`ma_batch_split`); kimi-k2-1t-a32b reduced, under "pallas", on
+    both meshes.  Gloo moves everything through the host: a correctness
+    path that says nothing of an NVLink exchange."""
+    import numpy as np
+    from repro_torch.core.dist import spawn
+    from repro_torch.testing import multidevice as tmd
+    t_phase = time.perf_counter()
+    ssd_err = check_ssd_scan(dev, MA_SSD_LOCAL)
+    flash_err = check_flash(dev, MA_FLASH_LOCAL)
+    log("mesh_archs", f"at the ranks' local shapes: ssd_scan {MA_SSD_LOCAL} "
+                      f"max |kernel - plain| {ssd_err}, flash_attention "
+                      f"{MA_FLASH_LOCAL} {flash_err}")
+    rng = np.random.default_rng(0)
+    deep32 = _ma_cfg("deepseek-v2-lite-16b", "float32",
+                     n_layers=MA_F32_LAYERS)
+    zamba, xlstm = "zamba2-1.2b", "xlstm-1.3b"
+    x48 = f"{xlstm} f32 (48 layers)"
+    # (tag, arch, config, modes, exact, meshes, decode steps)
+    jobs = [(f"deepseek-v2-lite-16b f32 x{MA_F32_LAYERS} layers",
+             "deepseek-v2-lite-16b",
+             deep32, ("gather", "sp"), True, ((1, 2), (2, 1)), MA_N),
+            ("deepseek-v2-lite-16b bf16 (27 layers)", "deepseek-v2-lite-16b",
+             _ma_cfg("deepseek-v2-lite-16b", "bfloat16"), ("gather",),
+             False, ((1, 2),), MA_N_DEEP),
+            ("kimi-k2-1t-a32b reduced f32", "kimi-k2-1t-a32b",
+             _ma_cfg("kimi-k2-1t-a32b", "float32"), ("gather", "sp"), True,
+             ((1, 2), (2, 1)), MA_N),
+            (f"{zamba} f32", zamba, _ma_cfg(zamba, "float32"),
+             ("gather", "sp"), True, ((1, 2),), MA_N_DEEP),
+            (f"{zamba} bf16", zamba, _ma_cfg(zamba, "bfloat16"),
+             ("gather",), False, ((1, 2),), MA_N_DEEP),
+            (f"{xlstm} f32 x{MA_XLSTM_LAYERS} layers", xlstm,
+             _ma_cfg(xlstm, "float32", n_layers=MA_XLSTM_LAYERS),
+             ("gather",), True, ((1, 2),), MA_N),
+            (x48, xlstm, _ma_cfg(xlstm, "float32"), ("gather",), False,
+             ((1, 2),), MA_N_DEEP)]
+    # the bf16 run's yardstick: the one-device f32 session, same weights
+    yards = {f"{zamba} bf16": f"{zamba} f32"}
+    refs, t_ref = {}, time.perf_counter()
+    prompts = {}
+    for tag, arch, cfg, _, _, _, n in jobs:
+        if arch not in prompts:
+            T = MA_XLSTM_T if cfg.family == "xlstm" else MA_T
+            prompts[arch] = rng.integers(0, cfg.vocab_size, (MA_B, T),
+                                         dtype=np.int64)
+        refs[tag] = ma_reference(dev, cfg, prompts[arch], n,
+                                 routes=cfg.family == "moe")
+    split = ma_batch_split(dev, _ma_cfg(xlstm, "float32"), prompts[xlstm],
+                           refs[x48][1])
+    t_ref = time.perf_counter() - t_ref
+    # one spawn: both meshes over the same two ranks; "sp" only where the
+    # model axis splits the cache (on (2, 1) it is "gather" again)
+    plan = []
+    for mesh_shape in ((1, 2), (2, 1)):
+        mine = [j[:3] + (j[3] if mesh_shape[1] > 1 else j[3][:1],) + j[4:]
+                for j in jobs if mesh_shape in j[5]]
+        plan.append((mesh_shape, mine, [dict(
+            cfg=cfg, prompts=prompts[arch],
+            runs=[(cfg.dtype, refs[tag][1], modes, refs[tag][0])],
+            keep_logits=exact and cfg.family == "moe", measure=True,
+            routes=cfg.family == "moe")
+            for tag, arch, cfg, modes, exact, _, _ in mine]))
+    t0 = time.perf_counter()
+    ranks = spawn(tmd.serve_mesh_many, 2, [(m, sp) for m, _, sp in plan],
+                  "cuda", backend="gloo", timeout=600, join_timeout=900)
+    t_ranks = time.perf_counter() - t0
+    for p_i, (mesh_shape, mine, _) in enumerate(plan):
+        for j, (tag, arch, cfg, modes, exact, _, _) in enumerate(mine):
+            out = [r[p_i][j] for r in ranks]
+            forced, sp_gate = None, True
+            if cfg.family == "moe":
+                runs = [o["runs"][0] for o in out]
+                if exact:
+                    # an MoE's routing can flip at a near-tie of its router
+                    # logits (float noise of other GEMM shapes): past the
+                    # routing gate of ma_drops the logits are held to one
+                    # device given the same routing
+                    steps = {m: ma_joined([r["modes"][m]["routes"]
+                                           for r in runs], mesh_shape)
+                             for m in modes}
+                    forced, fprefill = ma_forced(
+                        dev, cfg, prompts[arch], refs[tag][1],
+                        ma_joined([r["routes"] for r in runs], mesh_shape),
+                        steps)
+                    sp_gate = len(steps) == 1 or all(
+                        np.array_equal(a[0], b[0])
+                        for a, b in zip(*steps.values()))
+                ma_drops(f"{tag} on {mesh_shape}", cfg, runs, mesh_shape,
+                         refs[tag][2], fprefill if exact else None)
+            ma_check(tag, arch, cfg, out, mesh_shape, refs[tag], exact, smi,
+                     refs.get(yards.get(tag)), forced, sp_gate)
+            if tag == x48:
+                whole, halves = split
+                scale = float(np.abs(refs[x48][0]).max())
+                mesh_err = max(o["runs"][0]["modes"]["gather"]["err"]
+                               for o in out)
+                gap = float(np.abs(whole - halves).max())
+                eager = float(np.abs(whole - refs[x48][0]).max())
+                log("mesh_archs", f"{x48}: over the mesh max |logit - "
+                                  f"one-device session| {mesh_err:.6g} "
+                                  f"({mesh_err / scale:.3g} of max |logit| "
+                                  f"{scale:.4g}); one device on the batch "
+                                  f"of {MA_B} against its two halves, fed "
+                                  f"the same tokens: {gap:.6g} "
+                                  f"({gap / scale:.3g}); the eager whole "
+                                  f"batch against the session "
+                                  f"{eager:.6g} ({eager / scale:.3g}); "
+                                  f"{smi}")
+    log("mesh_archs", f"phase time {time.perf_counter() - t_phase:.1f} s: "
+                      f"the one-device sessions {t_ref:.1f} s, the ranks "
+                      f"{t_ranks:.1f} s; {smi}")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4864,6 +5326,9 @@ def main(argv=None) -> int:
                          "result lines")
     ap.add_argument("--only-train-mesh", action="store_true",
                     help="run phases 1-2 and phase train_mesh, and print "
+                         "no result lines")
+    ap.add_argument("--only-mesh-archs", action="store_true",
+                    help="run phases 1-2 and phase mesh_archs, and print "
                          "no result lines")
     args = ap.parse_args(argv)
     # phase train's resume check runs under deterministic algorithms, whose
@@ -4967,6 +5432,11 @@ def main(argv=None) -> int:
     if args.only_train_mesh:
         train_mesh_phase(dev, smi)
         log("train_mesh", "--only-train-mesh: the other phases and the "
+                          "result lines were not run")
+        return 0
+    if args.only_mesh_archs:
+        mesh_archs_phase(dev, smi)
+        log("mesh_archs", "--only-mesh-archs: the other phases and the "
                           "result lines were not run")
         return 0
 
@@ -5216,6 +5686,10 @@ def main(argv=None) -> int:
 
     # train_mesh. llama3.2-3b trained over two ranks, the elastic reshard ----
     train_mesh_phase(dev, smi, train_hist)
+    torch.cuda.empty_cache()
+
+    # mesh_archs. MoE, MLA, zamba2 and xLSTM served over two ranks --------
+    mesh_archs_phase(dev, smi)
     torch.cuda.empty_cache()
 
     # 9. result lines --------------------------------------------------------------

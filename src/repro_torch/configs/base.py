@@ -6,8 +6,9 @@
 ``sharding_mode`` (megatron or fsdp, ``distributed.sharding.set_mode``)
 and ``decode_attn`` (a decode step's ``"gather"`` or sequence-parallel
 ``"sp"`` attention, ``layers.attend``) are read over a device mesh.
-``scan_layers`` and ``moe_buf_layout`` are kept for the copy's sake and
-read by nothing in the port yet (MoE over a mesh is ROADMAP A20).  ``TrainConfig`` is
+``moe_buf_layout`` (``"md"``, ``"m"`` or ``"none"``) places the MoE expert
+buffer over a mesh (``models.moe``); ``scan_layers`` is kept for the
+copy's sake and read by nothing in the port.  ``TrainConfig`` is
 the reference's, field for field; so are ``ShapeConfig`` and ``SHAPES``,
 the dry run's cells (``launch/dryrun.py``).
 """

@@ -784,6 +784,179 @@ def all_reduce_dim(t: torch.Tensor, op: str, mesh, i: int) -> torch.Tensor:
     return funcol.wait_tensor(funcol.all_reduce(t, op, (mesh, i)))
 
 
+def all_gather_dim(t: torch.Tensor, dim: int, mesh, i: int) -> torch.Tensor:
+    """The local tensors ``t`` of mesh dim ``i``'s ranks joined along
+    ``dim`` in rank order; through the host on a gloo mesh
+    (:func:`_staged_collective`), a functional all-gather elsewhere."""
+    if mesh.size(i) == 1:
+        return t
+    dim %= t.ndim
+    if _gloo(mesh):
+        return _staged_collective("gather", t, dim, mesh, i)
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.all_gather_tensor(t.contiguous(), dim,
+                                                       (mesh, i)))
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, mesh,
+                       i: int) -> torch.Tensor:
+    """The sum of mesh dim ``i``'s local tensors ``t``, this rank's block
+    of it along ``dim``; staged like :func:`all_gather_dim`."""
+    if mesh.size(i) == 1:
+        return t
+    dim %= t.ndim
+    if _gloo(mesh):
+        return _staged_collective("reduce_scatter", t, dim, mesh, i)
+    import torch.distributed._functional_collectives as funcol
+    return funcol.wait_tensor(funcol.reduce_scatter_tensor(
+        t.contiguous(), "sum", dim, (mesh, i)))
+
+
+def sum_over(t: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """``t`` all-reduced (summed) over each mesh dim of ``dims`` wider than
+    one rank."""
+    for i in dims:
+        if mesh.size(i) > 1:
+            t = all_reduce_dim(t.contiguous(), "sum", mesh, i)
+    return t
+
+
+def gather_over(t: torch.Tensor, dim: int, mesh, dims) -> torch.Tensor:
+    """``t`` all-gathered along ``dim`` over the mesh dims ``dims`` (in
+    mesh order, the layout of a dim they shard together), innermost
+    first."""
+    for i in sorted(dims, reverse=True):
+        t = all_gather_dim(t, dim, mesh, i)
+    return t
+
+
+def gather_many(ts, dim: int, mesh, dims) -> list:
+    """Tensors that share their leading dim and their dim ``dim`` (this
+    rank's block of a dim the mesh dims ``dims`` split, a block of heads)
+    all-gathered along ``dim`` in one collective, in f32."""
+    if not any(mesh.size(i) > 1 for i in dims):
+        return [t.float() for t in ts]
+    flat = [t.movedim(dim, 1).float() for t in ts]
+    lead, n = flat[0].shape[:2]
+    got = gather_over(torch.cat([f.reshape(lead, n, -1) for f in flat], -1),
+                      1, mesh, dims)
+    out, off = [], 0
+    for f in flat:
+        width = math.prod(f.shape[2:])
+        out.append(got[..., off:off + width].reshape(
+            (lead, got.shape[1]) + tuple(f.shape[2:])).movedim(1, dim))
+        off += width
+    return out
+
+
+def batch_placements(t) -> list:
+    """The placements of a tensor laid out as the DTensor ``t``'s leading
+    dim (the batch): ``Shard(0)`` where ``t`` shards that dim, replicated
+    elsewhere, so every other dim is whole on each rank."""
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and p.dim == 0 else Replicate()
+            for p in t.placements]
+
+
+def batch_local(t) -> torch.Tensor:
+    """This rank's rows of the DTensor ``t`` with every other dim whole
+    (gathered or reduced where ``t`` shards or sums it), a plain
+    tensor."""
+    want = batch_placements(t)
+    if list(t.placements) != want:
+        t = redistribute(t, want)
+    return t.to_local()
+
+
+def as_batch(local: torch.Tensor, like):
+    """``local`` (this rank's rows, every other dim whole) as a DTensor in
+    the batch layout of ``like`` (:func:`batch_placements`), its leading
+    dim ``like``'s."""
+    return wrap(local, like, batch_placements(like),
+                (like.shape[0],) + tuple(local.shape[1:]))
+
+
+def own_block(full: torch.Tensor, like) -> torch.Tensor:
+    """This rank's block of ``full``, a tensor laid out as the DTensor
+    ``like`` but holding this rank's rows only and every other dim whole:
+    ``full`` cut along each non-leading dim that ``like`` shards."""
+    local = like.to_local()
+    for d in range(1, like.ndim):
+        if shard_dims(like, d):
+            full = full.narrow(d, block_start(like, d), local.shape[d])
+    return full
+
+
+def write_block(state, full: torch.Tensor) -> None:
+    """Write this rank's block of ``full`` (:func:`own_block`) into the
+    DTensor ``state`` in place."""
+    state.to_local().copy_(own_block(full, state))
+
+
+def local_weight(w) -> tuple:
+    """(this rank's block of the DTensor weight ``w`` [n_in, n_out], its
+    first row and first column in the whole).  A plain tensor is its own
+    block at (0, 0)."""
+    if not is_dtensor(w):
+        return w, 0, 0
+    return w.to_local(), block_start(w, 0), block_start(w, 1)
+
+
+def whole(w) -> torch.Tensor:
+    """The whole of ``w`` (a DTensor, gathered where it is sharded, or a
+    plain tensor) as a plain tensor."""
+    return full(w) if is_dtensor(w) else w
+
+
+def column_product(x: torch.Tensor, w) -> torch.Tensor:
+    """``x [..., n_in] @ w`` with every column of the weight ``w`` [n_in,
+    n_out] (a DTensor, its columns sharded or not) on every rank: where
+    the product's rows are fewer than ``n_in`` each rank multiplies by its
+    own columns and the products are all-gathered, else the weight is
+    gathered first; either way the smaller of the two moves."""
+    if not is_dtensor(w):
+        return x @ w
+    dims = shard_dims(w, 1)
+    rows = x.numel() // x.shape[-1]
+    if dims and rows < w.shape[0] and not shard_dims(w, 0):
+        return gather_over(x @ w.to_local(), -1, w.device_mesh, dims)
+    return x @ whole(w)
+
+
+def row_product(y: torch.Tensor, y0: int, w,
+                reduce: bool = True) -> torch.Tensor:
+    """The product of a row-parallel weight ``w`` [n_in, n_out] (a
+    DTensor, its rows sharded or not) with ``y`` [..., n], which holds the
+    input indices ``y0 .. y0 + n`` (its rank's heads, or all of them):
+    each rank multiplies the rows it holds and the partial products are
+    summed over the mesh dims that shard the rows (the Megatron
+    all-reduce; ``reduce`` False leaves the partial sum to the caller).
+    ``w``'s block must lie inside ``y``'s range."""
+    wl, r0, _ = local_weight(w)
+    if r0 < y0 or r0 + wl.shape[0] > y0 + y.shape[-1]:
+        raise ValueError(f"rows {r0}..{r0 + wl.shape[0]} of the weight are "
+                         f"not in the input's {y0}..{y0 + y.shape[-1]}")
+    out = y[..., r0 - y0:r0 - y0 + wl.shape[0]] @ wl
+    if not is_dtensor(w) or not reduce:
+        return out
+    return sum_over(out, w.device_mesh, shard_dims(w, 0))
+
+
+def head_split(w, dim: int, n_heads: int) -> tuple:
+    """(first head, heads) of this rank's block of the DTensor ``w`` along
+    ``dim``, where the mesh dims that shard it cut it into whole heads of
+    ``n_heads`` equal groups; ``(0, n_heads)`` where nothing shards it or
+    its blocks cut a head (every rank then computes every head)."""
+    if not is_dtensor(w) or not shard_dims(w, dim):
+        return 0, n_heads
+    mesh = w.device_mesh
+    n = math.prod(mesh.size(i) for i in shard_dims(w, dim))
+    if n_heads % n:
+        return 0, n_heads
+    hl = n_heads // n
+    return block_start(w, dim) // (w.shape[dim] // n_heads), hl
+
+
 def shard_dims(t, dim: int) -> list:
     """The mesh dims that shard dim ``dim`` of the DTensor ``t``, in mesh
     order."""
@@ -817,12 +990,29 @@ def local_rows(t, i: int, k: int):
                 (t.shape[0] // k,) + tuple(t.shape[1:]))
 
 
+def prefix_counts(counts: torch.Tensor, mesh, dims) -> torch.Tensor:
+    """The sum of ``counts`` (a local [E] tensor) over the ranks before
+    this one along the mesh dims ``dims`` together (mesh order, the first
+    outermost): the offset of this rank's block in an order that is
+    rank-major over them (the batch over ``("pod", "data")``).  One
+    all-gather of ``counts`` per mesh dim."""
+    dims = sorted(i for i in dims if mesh.size(i) > 1)
+    if not dims:
+        return torch.zeros_like(counts)
+    every = gather_over(counts[None], 0, mesh, dims)         # [n, E]
+    coord, idx = mesh.get_coordinate(), 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    return every[:idx].sum(0)
+
+
 def refuse_unported(cfg, kind: str) -> None:
-    """Refuse by name what does not run over a mesh yet: every family but
-    the dense decoders (ROADMAP A20), to serve (``kind`` ``"prefill"`` or
-    ``"decode"``) or to train (``"train"``)."""
-    if cfg.family != "dense" or cfg.use_mla or cfg.n_experts:
+    """Refuse by name what does not run over a mesh yet: training
+    (``kind`` ``"train"``) of every family but the dense decoders (ROADMAP
+    A21).  Every family serves (``"prefill"``, ``"decode"``)."""
+    if kind == "train" and (cfg.family != "dense" or cfg.use_mla
+                            or cfg.n_experts):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family over a mesh ({kind}; MoE "
-            f"experts, MLA's latent cache, zamba2's and xLSTM's rules) is "
-            f"not ported yet (ROADMAP A20)")
+            f"{cfg.name}: training the {cfg.family} family over a mesh "
+            f"(MoE's expert-parallel backward, MLA, zamba2's and xLSTM's "
+            f"train steps) is not ported yet (ROADMAP A21)")

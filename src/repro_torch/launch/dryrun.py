@@ -37,8 +37,10 @@ the record is rank 0's, per device: ``argument_size_in_bytes`` its
 shards, ``temp_size_in_bytes`` its peak, ``cost_analysis`` its ops,
 ``collectives`` its collectives and their bytes, ``n_devices`` 256 or 512
 (the floor stays the global one, as in the reference).  Those meshes run
-every cell of the dense decoders; the other families refuse naming
-ROADMAP A20 (a ``"refused"`` record).  A train cell's inputs are the
+every serving cell of every family (MoE's expert-parallel dispatch, MLA's
+latent cache, zamba2's and xLSTM's heads) and the dense decoders' train
+cells; the other families' train cells refuse naming ROADMAP A21 (a
+``"refused"`` record).  A train cell's inputs are the
 parameters, the AdamW state (placed by the same rules) and the batch, and
 its step is ``make_train_step``'s, forward, backward and update: under
 fsdp its ``collectives`` count the per-layer all-gathers of ``use_param``

@@ -111,6 +111,22 @@ def norm(p, x, kind: str, eps: float):
     return (y * use_param(p["scale"]) + use_param(p["bias"])).to(x.dtype)
 
 
+def norm_heads(scale, y, width: int, eps: float, mesh=None, dims=(),
+               c0: int = 0):
+    """RMS norm in f32 over ``width`` channels of which ``y`` [..., n]
+    holds ``c0 .. c0 + n``: a rank's block of heads, the others on the
+    ranks of the mesh dims ``dims``, the sum of squares all-reduced over
+    them.  Without ``dims`` (``y`` holds every channel) this is
+    :func:`norm`."""
+    scale = sharding.whole(scale)
+    if not dims:
+        return norm({"scale": scale}, y, "rms", eps)
+    yf = y.float()
+    ss = sharding.sum_over((yf * yf).sum(dim=-1, keepdim=True), mesh, dims)
+    return (yf * torch.rsqrt(ss / width + eps)
+            * scale[c0:c0 + y.shape[-1]]).to(y.dtype)
+
+
 def rope(x, positions, theta: float):
     """Half-split rotary embedding.  x: [..., T, H, hd]; positions:
     [..., T] (broadcastable)."""
@@ -408,17 +424,24 @@ def attn_decode_sp(q, k, v, valid_len):
     s = torch.where(cols < valid_len, s, -1e30)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
-    l = p.sum(dim=-1)
-    acc = torch.einsum("bthgs,bshd->bthgd", p, vl)
-    # merge the partials across the sequence shards (l and acc summed in
-    # one collective)
-    M = sharding.all_reduce(m, "max", mesh, "model")
+    out = merge_partials(m, p.sum(dim=-1),
+                         torch.einsum("bthgs,bshd->bthgd", p, vl), mesh,
+                         "model")
+    return wrap(out.reshape(Bl, T, Hq, hd).to(q.dtype), q, qspec, q.shape)
+
+
+def merge_partials(m, l, acc, mesh, axis: str):
+    """The attention output from each rank's partial softmax over its
+    slice of the sequence (flash-decoding's merge): the row maxima ``m``
+    [...], the sums ``l`` [...] and the unnormalized outputs ``acc``
+    [..., D] rescaled to the maximum over ``axis`` (an all-reduce max)
+    and summed over it (one all-reduce of l and acc together)."""
+    M = sharding.all_reduce(m, "max", mesh, axis)
     w = torch.exp(m - M)
     la = sharding.all_reduce(torch.cat([(l * w)[..., None],
                                         acc * w[..., None]], -1),
-                             "sum", mesh, "model")
-    out = la[..., 1:] / torch.clamp(la[..., 0], min=1e-30)[..., None]
-    return wrap(out.reshape(Bl, T, Hq, hd).to(q.dtype), q, qspec, q.shape)
+                             "sum", mesh, axis)
+    return la[..., 1:] / torch.clamp(la[..., 0], min=1e-30)[..., None]
 
 
 def attention(cfg, p, x, positions, cache=None, cur_len=0, decode=False):
@@ -492,15 +515,6 @@ def _as_dtensor(t, mesh):
                               run_check=False)
 
 
-def _batch_placements(t):
-    """The placements of a tensor laid out as the DTensor ``t``'s leading
-    dim (the batch): ``Shard(0)`` where ``t`` shards that dim, replicated
-    elsewhere."""
-    from torch.distributed.tensor import Replicate, Shard
-    return [Shard(0) if p.is_shard() and p.dim == 0 else Replicate()
-            for p in t.placements]
-
-
 class _VocabLookup(torch.autograd.Function):
     """``tok[ids]`` of a DTensor table [V, d] sharded over its rows (or
     not) by DTensor ids [B, T] sharded over the batch (or not), with no
@@ -531,7 +545,7 @@ class _VocabLookup(torch.autograd.Function):
             rows = sharding.all_reduce_dim(rows, "sum", mesh, i)
         ctx.save_for_backward(idx, inr)
         ctx.tok = (tok.placements, tok.shape, tl.shape)
-        ctx.out = _batch_placements(ids)
+        ctx.out = sharding.batch_placements(ids)
         return DTensor.from_local(rows, mesh, ctx.out, run_check=False,
                                   shape=tuple(ids.shape) + (tl.shape[1],),
                                   stride=sharding._contiguous_stride(
@@ -594,7 +608,7 @@ class _TargetLogprobs(torch.autograd.Function):
                                  f"batch and the vocab, not "
                                  f"{logits.placements}")
         vocab = sharding.shard_dims(logits, 2)
-        ctx.out = _batch_placements(logits)
+        ctx.out = sharding.batch_placements(logits)
         lab = redistribute(tokens, ctx.out).to_local()[:, 1:]
         ll = logits.to_local()
         x = ll[:, :-1]

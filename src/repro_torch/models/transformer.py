@@ -43,12 +43,14 @@ Prefill is causal (ROADMAP C3): it computes the teacher-forced forward's
 last logits and the caches of :meth:`DecoderLM.decode_step` called once per
 prompt position.
 
-Over a device mesh (dense configs; ``distributed.sharding``): with the
-parameters placed by ``sharding.place_module``, the batch and the caches
-DTensors and the mesh ambient (``sharding.use_mesh``), the same code runs
+Over a device mesh (``distributed.sharding``): with the parameters
+placed by ``sharding.place_module``, the batch and the caches DTensors
+and the mesh ambient (``sharding.use_mesh``), the same code runs
 tensor-parallel over "model" and data-parallel over the batch axes, and a
 decode step attends as ``cfg.decode_attn`` says (``"gather"`` or the
-sequence-parallel ``"sp"``, ``layers.attend``).
+sequence-parallel ``"sp"``, ``layers.attend``); an MoE block's experts
+and MLA run their mesh paths (``models/moe.py``).  Training over a mesh
+takes the dense configs only (ROADMAP A21).
 """
 from __future__ import annotations
 

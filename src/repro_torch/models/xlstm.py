@@ -16,7 +16,9 @@ serving session can capture a decode step into a CUDA graph; ``cur_len`` is
 taken and ignored.  No Pallas kernel is on this path in the reference.
 Serving and evaluation run under ``no_grad``; :meth:`XLSTM.train_loss`,
 which training differentiates, runs ``_run`` without states, so the
-in-place updates stay out of its graph.
+in-place updates stay out of its graph.  Over a device mesh (DTensor
+inputs) each rank runs its own heads (:func:`mlstm_apply`,
+:func:`_slstm_mesh`).
 """
 from __future__ import annotations
 
@@ -26,8 +28,11 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..distributed import sharding
+from ..distributed.sharding import is_dtensor
 from .layers import (ParamTree, cast_params, dense_init, dt_of, embed,
-                     init_embed, init_norm, norm, target_logprobs, unembed)
+                     init_embed, init_norm, norm, norm_heads,
+                     target_logprobs, unembed)
 
 
 # -- chunkwise gated linear attention (the mLSTM core) ---------------------------
@@ -113,28 +118,89 @@ def init_mlstm_block(cfg, gen: torch.Generator) -> dict:
 
 def mlstm_apply(cfg, p, x, state=None, decode=False):
     """One mLSTM block, x [B,T,d] → (x + its output, the new matrix memory
-    [B,H,dk,dv] f32)."""
-    B, T, d = x.shape
-    di = 2 * d
-    H = cfg.n_heads
+    [B,H,dk,dv] f32).
+
+    Over a device mesh (x a DTensor [B,T,d] in the stream's layout) the
+    state [B,H,dk,dv] keeps ``cache_shardings``' layout (the batch and its
+    largest dim): it is gathered whole for the rank's rows and each rank
+    writes its own block of the new one (the new state returned is then
+    None), except in a decode step over a state laid out by dv (the
+    rule's choice), which each rank advances in place on its own block of
+    dv for every head (:func:`_mlstm_own_step`).  ``wup``'s columns over
+    "model" lie in one half of ``[x_in | z]`` each, so its product is
+    gathered whole (``sharding.column_product``); ``wq``, ``wk`` and
+    ``wv`` hold head columns, so each rank runs its own heads (every head
+    where the blocks cut one, their products made whole), the replicated
+    ``wif`` giving their gates; ``out_norm``'s RMS comes from one
+    all-reduce of partial sums of squares (``layers.norm_heads``) and
+    ``wdown``'s partial product is summed over "model"."""
+    mesh = x.device_mesh if is_dtensor(x) else None
+    xl = x if mesh is None else sharding.batch_local(x)
+    B, T, d = xl.shape
+    di, H = 2 * d, cfg.n_heads
     dh = di // H
-    h = norm(p["ln"], x, cfg.norm, cfg.norm_eps)
-    up = h @ p["wup"]
-    xin, z = up[..., :di], up[..., di:]
-    q = (xin @ p["wq"]).reshape(B, T, H, dh)
-    k = (xin @ p["wk"]).reshape(B, T, H, dh)
-    v = (xin @ p["wv"]).reshape(B, T, H, dh)
-    gates = (xin @ p["wif"]).float()
-    ig = torch.sigmoid(gates[..., :H])
-    logf = F.logsigmoid(gates[..., H:])
-    if decode:
-        y, S = gated_step(q, k, v, logf, ig, state, 1.0 / math.sqrt(dh))
+    h0, hl = sharding.head_split(p["wq"], 1, H)
+    for k in ("wk", "wv"):
+        if sharding.head_split(p[k], 1, H) != (h0, hl):
+            h0, hl = 0, H
+    heads = sharding.shard_dims(p["wq"], 1) if hl != H else []
+    c0, c1 = h0 * dh, (h0 + hl) * dh
+    h = norm({k: sharding.whole(v) for k, v in p["ln"].items()}, xl,
+             cfg.norm, cfg.norm_eps)
+    up = sharding.column_product(h, p["wup"])
+    xin, z = up[..., :di], up[..., di + c0:di + c1]
+    q, k, v = ((xin @ p[w].to_local() if heads
+                else sharding.column_product(xin, p[w])).reshape(B, T, hl, dh)
+               for w in ("wq", "wk", "wv"))
+    gates = (xin @ sharding.whole(p["wif"])).float()
+    ig = torch.sigmoid(gates[..., h0:h0 + hl])
+    logf = F.logsigmoid(gates[..., H + h0:H + h0 + hl])
+    if mesh is not None and decode and not any(
+            sharding.shard_dims(state, d) for d in (1, 2)):
+        y = _mlstm_own_step(state, q, k, v, gates, h0, hl, heads)
+        S = None
     else:
-        y, S = gated_chunk(q, k, v, logf, ig, chunk=cfg.mlstm_chunk,
-                           state=state, compute_bf16=cfg.mlstm_bf16)
-    y = norm(p["out_norm"], y.reshape(B, T, di), "rms", cfg.norm_eps)
+        S = state
+        if mesh is not None and state is not None:
+            S = sharding.batch_local(state)[:, h0:h0 + hl]
+        if decode:
+            y, S = gated_step(q, k, v, logf, ig, S, 1.0 / math.sqrt(dh))
+        else:
+            y, S = gated_chunk(q, k, v, logf, ig, chunk=cfg.mlstm_chunk,
+                               state=S, compute_bf16=cfg.mlstm_bf16)
+        if mesh is not None and state is not None:
+            sharding.write_block(state,
+                                 sharding.gather_over(S, 1, mesh, heads))
+            S = None
+    y = norm_heads(p["out_norm"]["scale"], y.reshape(B, T, hl * dh), di,
+                   cfg.norm_eps, mesh, heads, c0)
     y = y * F.silu(z)
-    return x + y @ p["wdown"], S
+    y = xl + sharding.row_product(y, c0, p["wdown"])
+    return (y, S) if mesh is None else (sharding.as_batch(y, x), S)
+
+
+def _mlstm_own_step(state, q, k, v, gates, h0, hl, heads):
+    """A decode step of :func:`mlstm_apply` over a mesh whose state (a
+    DTensor [B,H,dk,dv]) holds every head and a block of dv: the step is
+    separable over dv, so each rank advances its own block in place for
+    every head (their q, k, v gathered from the ranks' heads ``h0 .. h0 +
+    hl``, split over the mesh dims ``heads``; the gates are every head's)
+    and the outputs are gathered along dv.  Returns y [B,1,hl,dv]."""
+    mesh = state.device_mesh
+    H = gates.shape[-1] // 2
+    Sb = state.to_local()                                   # [B,H,dk,dvl]
+    v0 = sharding.block_start(state, 3)
+    q_all, k_all, v_all = sharding.gather_many([q[:, 0], k[:, 0], v[:, 0]],
+                                               1, mesh, heads)
+    ig_all = torch.sigmoid(gates[:, 0, :H])
+    kv = (k_all * ig_all[..., None])[..., :, None] \
+        * v_all[..., v0:v0 + Sb.shape[3]][..., None, :]
+    Sb.mul_(torch.exp(F.logsigmoid(gates[:, 0, H:]))[..., None, None]
+            ).add_(kv)
+    y = torch.einsum("bhd,bhdv->bhv", q_all, Sb) \
+        * (1.0 / math.sqrt(q.shape[-1]))
+    y = sharding.gather_over(y, 2, mesh, sharding.shard_dims(state, 3))
+    return y[:, h0:h0 + hl][:, None].to(q.dtype)
 
 
 def init_slstm_block(cfg, gen: torch.Generator) -> dict:
@@ -159,6 +225,8 @@ def slstm_init_state(B, H, dh, device):
 def slstm_apply(cfg, p, x, state=None):
     """Sequential sLSTM with a per-head recurrence, x [B,T,d] → (x + its
     output, the state (c, n, h) [B,H,dh] f32 after step T)."""
+    if is_dtensor(x):
+        return _slstm_mesh(cfg, p, x, state), None
     B, T, d = x.shape
     H = cfg.n_heads
     dh = d // H
@@ -167,8 +235,18 @@ def slstm_apply(cfg, p, x, state=None):
     r = p["r"].float()                  # used as stored, as in the reference
     c, n, h = (slstm_init_state(B, H, dh, x.device) if state is None
                else state)
+    y, state = _slstm_loop(pre, r, (c, n, h))
+    return x + y.reshape(B, T, d).to(x.dtype) @ p["wout"], state
+
+
+def _slstm_loop(pre, r, state):
+    """The sLSTM recurrence over pre [B,T,H,4·dh] (f32) from ``state``
+    (c, n, h) [B,H,dh] → (h of every step [B,T,H,dh], the state after
+    step T)."""
+    c, n, h = state
+    dh = r.shape[1]
     hs = []
-    for t in range(T):
+    for t in range(pre.shape[1]):
         g = pre[:, t] + torch.einsum("bhd,hdk->bhk", h, r)
         z, i, f, o = g.split(dh, dim=-1)
         z, i, f, o = torch.tanh(z), torch.sigmoid(i), torch.sigmoid(f), \
@@ -177,8 +255,7 @@ def slstm_apply(cfg, p, x, state=None):
         n = f * n + i
         h = o * c / torch.clamp(n, min=1e-6)
         hs.append(h)
-    y = torch.stack(hs, dim=1).reshape(B, T, d).to(x.dtype)
-    return x + y @ p["wout"], (c, n, h)
+    return torch.stack(hs, dim=1), (c, n, h)
 
 
 # -- full model ---------------------------------------------------------------------
@@ -225,13 +302,15 @@ class XLSTM(ParamTree):
         cfg = self.cfg
         for i, (kind, bp) in enumerate(zip(self.kinds, w["blocks"])):
             st = None if states is None else states[i]
+            # (over a mesh the blocks write their states' blocks
+            # themselves and return None)
             if kind == "m":
                 x, S = mlstm_apply(cfg, bp, x, st, decode)
-                if st is not None:
+                if st is not None and S is not None:
                     st.copy_(S)
             else:
                 x, new = slstm_apply(cfg, bp, x, st)
-                if st is not None:
+                if st is not None and new is not None:
                     for a, b in zip(st, new):
                         a.copy_(b)
         return norm(w["final_norm"], x, cfg.norm, cfg.norm_eps)
@@ -289,6 +368,40 @@ class XLSTM(ParamTree):
         w = self.weights() if w is None else w
         x = self._run(w, embed(w["embed"], tokens), caches, decode=True)
         return unembed(self.cfg, w["embed"], x), caches
+
+
+def _slstm_mesh(cfg, p, x, state):
+    """:func:`slstm_apply` over a device mesh, x a DTensor [B,T,d] in the
+    stream's layout.  ``wx``'s columns (head-major, 4·dh a head) over
+    "model" hold whole heads where the heads divide the axis: each rank
+    then runs the recurrence of its own heads (with their blocks of the
+    replicated ``r``), else every rank runs every head, ``wx``'s product
+    made whole (``sharding.column_product``).
+    The state (c, n, h) [B,H,dh] is gathered whole for the rank's rows and
+    each rank writes its own block of the new one; ``wout``'s partial
+    product is summed over "model".  Returns x plus the block's output."""
+    mesh = x.device_mesh
+    xl = sharding.batch_local(x)
+    Bl, T, d = xl.shape
+    H = cfg.n_heads
+    dh = d // H
+    h0, hl = sharding.head_split(p["wx"], 1, H)
+    heads = sharding.shard_dims(p["wx"], 1) if hl != H else []
+    inp = norm({"scale": sharding.whole(p["ln"]["scale"])}, xl, cfg.norm,
+               cfg.norm_eps)
+    pre = (inp @ p["wx"].to_local() if heads
+           else sharding.column_product(inp, p["wx"]))
+    pre = pre.reshape(Bl, T, hl, 4 * dh).float()
+    r = sharding.whole(p["r"]).float()[h0:h0 + hl]
+    st = (slstm_init_state(Bl, hl, dh, xl.device) if state is None
+          else tuple(sharding.batch_local(s)[:, h0:h0 + hl] for s in state))
+    y, new = _slstm_loop(pre, r, st)
+    if state is not None:
+        for s, n in zip(state, new):
+            sharding.write_block(s, sharding.gather_over(n, 1, mesh, heads))
+    y = y.reshape(Bl, T, hl * dh).to(xl.dtype)
+    return sharding.as_batch(
+        xl + sharding.row_product(y, h0 * dh, p["wout"]), x)
 
 
 def kinds(cfg) -> list:

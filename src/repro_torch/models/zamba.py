@@ -25,9 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
-from .layers import (ParamTree, attention, cast_params, dense_init, dt_of,
-                     embed, init_embed, init_norm, norm, target_logprobs,
-                     unembed)
+from .layers import (ParamTree, _residual, attention, cast_params,
+                     dense_init, dt_of, embed, init_embed, init_norm, norm,
+                     target_logprobs, unembed)
 from .mamba2 import init_mamba_block, mamba_apply
 
 
@@ -58,8 +58,8 @@ def shared_attn_apply(cfg, p, h, e0, positions, cache=None, cur_len=0,
     xa = xa + attention(cfg, p, y, positions, cache, cur_len, decode)
     y = norm(p["ln2"], xa, cfg.norm, cfg.norm_eps)
     ff = F.silu(y @ p["wg"]) * (y @ p["wu"])
-    xa = xa + ff @ p["wd"]
-    return h + xa @ p["wproj"]
+    xa = xa + _residual(ff @ p["wd"])
+    return h + _residual(xa @ p["wproj"])
 
 
 class Zamba(ParamTree):

@@ -437,71 +437,198 @@ def main_path_replicated_rank(rank: int, group, device: str, seeds: list,
 
 def serve_mesh_rank(rank: int, group, cfg, mesh_shape, prompts, runs,
                     tree=None, device: str = "cpu", keep_logits: bool = True,
-                    measure: bool = False) -> dict:
-    """Serve the dense config ``cfg`` over a ``("data", "model")`` mesh of
+                    measure: bool = False, max_len: int | None = None,
+                    routes: bool = False, all_logits: bool = False) -> dict:
+    """Serve ``cfg`` (any family) over a ``("data", "model")`` mesh of
     ``mesh_shape`` (the spawn's ranks, row-major): the model's parameters
     (from ``tree``, a host copy of the JAX model's, through
     ``interop.params_from_numpy``, else the port's seeded ones) placed by
     ``params_shardings``, the caches by ``cache_shardings`` and the
     prompts [B, T] by ``batch_shardings``, with the mesh ambient.  Each of
     ``runs``, ``(dtype, feed, modes, ref)``, serves in compute ``dtype``: a
-    prefill of ``prompts`` into caches of ``T + n`` rows, then, from a copy
-    of them under each ``decode_attn`` of ``modes``, one decode step per
-    column of ``feed`` [B, n] (step i feeds ``feed[:, i]`` at position
-    ``T + i``).
+    prefill of ``prompts`` into caches of ``max_len`` rows (default ``T +
+    n``), then, from a copy of them under each ``decode_attn`` of
+    ``modes``, one decode step per column of ``feed`` [B, n] (step i feeds
+    ``feed[:, i]`` at position ``T + i``).
 
     Returns ``shapes`` (``(what, key, local shape, shard_shape)`` of every
-    parameter leaf and of the first run's cache leaves) and per run (``runs``, in order): the
-    prefill's kernel ``launches`` and ``prefill_s`` (host clock, the card
-    synchronized); ``sp_vs_gather``; and per mode: the logits [n + 1, B, V]
-    (the prefill's last position, then each step's; f32, numpy) if
+    parameter leaf and of the first run's cache leaves), ``build_s`` and
+    ``seconds`` (host clock: the model made and placed, and the whole
+    call) and per run
+    (``runs``, in order): the prefill's kernel ``launches`` and
+    ``prefill_s`` (host clock, the card synchronized); ``sp_vs_gather``;
+    with ``routes`` (an MoE config) ``routes``, each MoE layer's dispatch
+    in the prefill as this rank routed its rows (:func:`_recording_routes`:
+    ``(idx [Tt, k], keep [Tt, k], margin [Tt])`` in (token, slot) order,
+    numpy), and per mode the decode steps' in the order of the calls;
+    with ``all_logits`` (a
+    decoder) ``prefill_logits``, the prefill's logits at every position
+    [B, T, V] (f32, numpy); and per mode: the logits [n + 1, B, V] (the
+    prefill's last position, then each step's; f32, numpy) if
     ``keep_logits``, their greedy ``tokens``, their max |Δ| ``err``
-    against ``ref`` (numpy, same shape) where it is not None.  With
+    against ``ref`` (numpy, same shape) where it is not None (``errs``:
+    at each position).  With
     ``measure`` also: per mode the decode steps' seconds per token on the
     host clock (steps 2..n, the gather of each step's vocab-sharded
     logits included) and the collectives of step 1 (kind → bytes and
     count) with their host µs (the ``c10d`` calls and the functional
-    collectives' waits); per run
-    ``allreduce_s``, one all-reduce of a [B, 1, d] activation over
-    "model"."""
-    import dataclasses
-
-    from ..core.device import resolve_device
-    from ..distributed import sharding
+    collectives' waits); per run ``allreduce_s``, one all-reduce of a [B,
+    1, d] activation over "model", and ``peak_bytes``, the rank's peak
+    device memory over the run (the card's allocator; 0 on the CPU)."""
     from ..launch.mesh import make_mesh
-    from ..models.registry import build_model
-    from ..serve.engine import cache_shardings
-    sharding.refuse_unported(cfg, "decode")
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        torch.set_num_threads(1)        # the ranks share the host's cores
+    dev = _serving_device(device)
     mesh = make_mesh(mesh_shape, ("data", "model"), dev.type)
-    model = build_model(cfg, device=dev)
-    if tree is not None:
-        from ..interop import params_from_numpy
-        model.load_state_dict(params_from_numpy(tree, cfg))
-    pspecs = sharding.place_module(model, mesh)
-    shapes = [("param", k, tuple(p.to_local().shape),
-               sharding.shard_shape(p.shape, pspecs[k], mesh))
-              for k, p in model.named_parameters()]
-    B, T = prompts.shape
-    caches = model.init_cache(B, T + runs[0][1].shape[1])
-    cspecs = cache_shardings(caches, mesh, B)
-    shapes += [("cache", f"{i}.{k}", tuple(c.to_local().shape),
-                sharding.shard_shape(caches[i][k].shape, cspecs[i][k], mesh))
-               for i, layer in enumerate(sharding.place(caches, cspecs, mesh))
-               for k, c in layer.items()]
-    del caches
-    out = {"shapes": shapes, "runs": []}
-    for dtype, feed, modes, ref in runs:
-        model.cfg = dataclasses.replace(cfg, dtype=dtype)
-        out["runs"].append(_serve_run(model, mesh, dev, prompts, feed, modes,
-                                      ref, keep_logits, measure))
+    return _serve_on(mesh, dev, cfg, prompts, runs, tree, keep_logits,
+                     measure, max_len, routes, all_logits)
+
+
+def serve_mesh_many(rank: int, group, plan: list,
+                    device: str = "cpu") -> list:
+    """:func:`serve_mesh_rank` of several jobs in one spawn: ``plan`` is a
+    list of ``(mesh_shape, jobs)``, each job a dict of the keyword
+    arguments (``cfg``, ``prompts``, ``runs`` and the options), run on a
+    ``("data", "model")`` mesh of that shape over the spawn's ranks; per
+    entry of ``plan`` the jobs' results in order."""
+    from ..launch.mesh import make_mesh
+    dev = _serving_device(device)
+    out = []
+    for mesh_shape, jobs in plan:
+        mesh = make_mesh(mesh_shape, ("data", "model"), dev.type)
+        out.append([])
+        for job in jobs:
+            job = dict(job)
+            out[-1].append(_serve_on(mesh, dev, job.pop("cfg"),
+                                     job.pop("prompts"), job.pop("runs"),
+                                     **job))
     return out
 
 
+def _serving_device(device: str) -> torch.device:
+    """A serving rank's device, with one intra-op thread on the CPU (the
+    ranks share the host's cores)."""
+    from ..core.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    return dev
+
+
+def _serve_on(mesh, dev, cfg, prompts, runs, tree=None, keep_logits=True,
+              measure=False, max_len=None, routes=False,
+              all_logits=False) -> dict:
+    """:func:`serve_mesh_rank` on ``mesh``."""
+    import dataclasses
+
+    from ..distributed import sharding
+    from ..models.registry import build_model
+    from ..serve.engine import cache_shardings
+    import torch.distributed as dist
+    t_job = time.perf_counter()
+    sharding.refuse_unported(cfg, "decode")
+    # every rank makes the whole model and keeps its blocks; ranks sharing
+    # one card take turns, so that only one whole model is there at once.
+    turns = range(dist.get_world_size()) if dev.type == "cuda" else [None]
+    for turn in turns:
+        if turn in (None, dist.get_rank()):
+            model = build_model(cfg, device=dev)
+            if tree is not None:
+                from ..interop import params_from_numpy
+                model.load_state_dict(params_from_numpy(tree, cfg))
+            pspecs = sharding.place_module(model, mesh)
+            if dev.type == "cuda":
+                gc.collect()
+                torch.cuda.empty_cache()
+        if turn is not None:
+            dist.barrier()
+    shapes = [("param", k, tuple(p.to_local().shape),
+               sharding.shard_shape(p.shape, pspecs[k], mesh))
+              for k, p in model.named_parameters()]
+    n_par = len(shapes)
+    B, T = prompts.shape
+    rows = max_len or T + runs[0][1].shape[1]
+    caches = model.init_cache(B, rows)
+    cspecs = cache_shardings(caches, mesh, B)
+    placed = sharding.place(caches, cspecs, mesh)
+    keys, locs = [], []
+    sharding.tree_map_with_path(lambda k, t: keys.append(k), caches)
+    sharding.tree_map_with_path(lambda k, t: locs.append(t.to_local()),
+                                placed)
+    sharding._zip_map(lambda t, spec: shapes.append(
+        ("cache", keys[len(shapes) - n_par].replace("/", "."),
+         tuple(locs[len(shapes) - n_par].shape),
+         sharding.shard_shape(t.shape, spec, mesh))), caches, cspecs)
+    del caches, placed, locs
+    out = {"shapes": shapes, "runs": [],
+           "build_s": time.perf_counter() - t_job}
+    for dtype, feed, modes, ref in runs:
+        model.cfg = dataclasses.replace(cfg, dtype=dtype)
+        out["runs"].append(_serve_run(model, mesh, dev, prompts, feed, modes,
+                                      ref, keep_logits, measure, rows,
+                                      routes, all_logits))
+    model.cfg = cfg
+    out["seconds"] = time.perf_counter() - t_job
+    return out
+
+
+def _tree_clone(tree):
+    """A copy of a nest of dicts, lists and tuples of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree_clone(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_clone(v) for v in tree)
+    return tree.clone()
+
+
+@contextlib.contextmanager
+def _recording_routes(into: list):
+    """``moe.route`` recording each dispatch it makes into ``into``:
+    ``(idx [Tt, k], keep [Tt, k], margin [Tt])`` in (token, slot) order,
+    numpy; ``margin`` is each token's k-th largest router logit less its
+    (k+1)-th over the call's largest |router logit|, how far the choice of
+    its experts is from a tie."""
+    from ..models import moe
+    real = moe.route
+
+    def recording(cfg, p, xf, *args, **kwargs):
+        r = real(cfg, p, xf, *args, **kwargs)
+        keep = torch.empty_like(r["keep"])
+        keep[r["order"]] = r["keep"]
+        k = r["idx"].shape[1]
+        top = torch.sort((xf @ p["router"]).float(), dim=-1,
+                         descending=True).values
+        into.append((r["idx"].cpu().numpy(),
+                     keep.reshape(r["idx"].shape).cpu().numpy(),
+                     ((top[:, k - 1] - top[:, k])
+                      / top.abs().max()).cpu().numpy()))
+        return r
+    moe.route = recording
+    try:
+        yield into
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def _forcing_routes(idxs):
+    """``moe.route`` taking, at its i-th call, the experts ``idxs[i]``
+    ([Tt, k], numpy) instead of the router's top k: a one-device run
+    given another run's routing."""
+    from ..models import moe
+    real = moe.route
+    given = iter(idxs)
+
+    def forced(cfg, p, xf, *args, **kwargs):
+        idx = torch.as_tensor(next(given), device=xf.device)
+        return real(cfg, p, xf, *args, idx=idx, **kwargs)
+    moe.route = forced
+    try:
+        yield
+    finally:
+        moe.route = real
+
+
 def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
-               measure) -> dict:
+               measure, rows, routes=False, all_logits=False) -> dict:
     """One run of :func:`serve_mesh_rank`: a prefill, then each mode's
     decode steps."""
     import dataclasses
@@ -509,11 +636,12 @@ def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
 
     from ..distributed import sharding
     from ..kernels.ops import KERNELS
-    from ..models.layers import dt_of
+    from ..models.layers import dt_of, unembed
     from ..serve.engine import (cache_shardings, make_decode_step,
                                 make_prefill)
     cfg = model.cfg
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     B, T = prompts.shape
     n = feed.shape[1]
     prompts = torch.as_tensor(prompts, device=dev)
@@ -523,30 +651,52 @@ def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
         return sharding.place(t, sharding.batch_shardings(t, mesh), mesh)
 
     prefill, step = make_prefill(model), make_decode_step(model)
-    full = model.init_cache(B, T + n)
+    full = model.init_cache(B, rows)
     filled = sharding.place(full, cache_shardings(full, mesh, B), mesh)
     del full
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
     for fn in KERNELS:
         fn.launches = 0
+    seen: list = []
+    recorder = (_recording_routes(seen) if routes
+                else contextlib.nullcontext())
     with sharding.use_mesh(mesh):
         w = model.weights()
         sync()
         t0 = time.perf_counter()
-        lg, filled = prefill(w, batched({"tokens": prompts}), filled)
+        with recorder:
+            lg, filled = prefill(w, batched({"tokens": prompts}), filled)
         first = sharding.full(lg)[:, -1].float()
         sync()
     out = {"modes": {}, "prefill_s": time.perf_counter() - t0,
            "launches": {fn.__name__: fn.launches for fn in KERNELS}}
+    if routes:
+        out["routes"] = seen
+    if all_logits:
+        # the prefill's own steps, unembedding every position
+        with sharding.use_mesh(mesh), torch.no_grad():
+            batch = batched({"tokens": prompts})
+            x, _, _ = model.embed_inputs(w, batch)
+            pos = torch.arange(x.shape[1], device=dev)[None, :]
+            empty = model.init_cache(B, rows)
+            x = model._run(w, x, pos, sharding.place(
+                empty, cache_shardings(empty, mesh, B), mesh))
+            out["prefill_logits"] = sharding.full(
+                unembed(cfg, w["embed"], x)).float().cpu().numpy()
     kept = {}
     for mode in modes:
         # the decode attention is the only difference between the modes:
         # each decodes from its own copy of the prefilled caches.
         model.cfg = dataclasses.replace(cfg, decode_attn=mode)
-        caches = [{k: c.clone() for k, c in layer.items()}
-                  for layer in filled]
+        caches = _tree_clone(filled)
         rec = {}
         steps = [first]
-        with sharding.use_mesh(mesh):
+        seen = []
+        with sharding.use_mesh(mesh), (_recording_routes(seen) if routes
+                                       else contextlib.nullcontext()):
             t0 = None
             for i in range(n):
                 tok = batched({"t": feed[:, i:i + 1]})["t"]
@@ -566,16 +716,21 @@ def _serve_run(model, mesh, dev, prompts, feed, modes, ref, keep_logits,
             if measure and n > 1:
                 rec["decode_s_per_token"] = (time.perf_counter() - t0) / (n - 1)
         del caches
+        if routes:
+            rec["routes"] = seen
         logits = torch.stack(steps).cpu().numpy()
         kept[mode] = logits
         rec["tokens"] = logits.argmax(-1)
         if ref is not None:
-            rec["err"] = float(np.max(np.abs(logits - ref)))
+            rec["errs"] = np.abs(logits - ref).max(axis=(1, 2)).tolist()
+            rec["err"] = max(rec["errs"])
         if keep_logits:
             rec["logits"] = logits
         out["modes"][mode] = rec
     model.cfg = cfg
     if measure:
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated(dev) if cuda
+                             else 0)
         # the latency of one collective between the ranks: an all-reduce of
         # a decode step's residual [B, 1, d] over "model".
         x = torch.zeros((B, 1, cfg.d_model), dtype=dt_of(cfg), device=dev)

@@ -25,7 +25,8 @@ step runs with the mesh ambient; a retry is agreed by all ranks
 (``SupervisedStep(mesh=)``), a checkpoint is written whole by one rank,
 and a resume re-places it onto this mesh whatever mesh saved it.  As in
 the reference, the Trainer passes no ``grad_shardings``.  Only the dense
-decoders train over a mesh; the other families refuse naming ROADMAP A20.
+decoders train over a mesh; the other families refuse naming ROADMAP A21
+(they serve over one: ``serve/engine.py``).
 """
 from __future__ import annotations
 

@@ -12,12 +12,14 @@ against the reference's where the two compute the same thing.
   tables from them;
 * ``--mesh single`` over the fake 256-rank group on a reduced dense
   prefill and decode cell: the argument bytes are the summed per-device
-  shapes of the reference's specs, collectives are issued; the other
-  families refused by name (A20), their train cells too;
+  shapes of the reference's specs, collectives are issued; the same for
+  a reduced MoE (16 experts) and a reduced zamba2; the other families'
+  train cells refused by name (A21);
 * a reduced dense train cell over a fake ``(2, 2)`` mesh under fsdp with
   ``_grad_shard``: the AdamW state placed as the parameters, the
   backward's reduce-scatters counted.
 """
+import dataclasses
 import json
 import math
 
@@ -153,23 +155,24 @@ def fake_group():
 
 
 def test_meshes_other_than_local_refuse_by_name(fake_group, tmp_path):
-    """On ``single`` and ``multi`` a non-dense family refuses naming A20,
-    to serve and to train, before anything is built; the CLI writes a
-    ``"refused"`` record and exits 0."""
+    """On ``single`` and ``multi`` a non-dense family's train cell refuses
+    naming A21 before anything is built (its serving cells run:
+    :func:`test_run_cell_of_other_families_on_the_single_mesh`); the CLI
+    writes a ``"refused"`` record and exits 0."""
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_local_mesh
     for mesh in ("single", "multi"):
-        for arch in ("deepseek-v2-lite-16b", "zamba2-1.2b", "xlstm-1.3b"):
-            for shape in ("decode_32k", "train_4k"):
-                with pytest.raises(NotImplementedError, match="A20"):
-                    dryrun.run_cell(arch, shape, mesh, mesh=object())
+        for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
+                     "zamba2-1.2b", "xlstm-1.3b"):
+            with pytest.raises(NotImplementedError, match="A21"):
+                dryrun.run_cell(arch, "train_4k", mesh, mesh=object())
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "kimi-k2-1t-a32b", "--shape", "train_4k",
                      "--mesh", "single", "--out", str(tmp_path)])
     assert e.value.code == 0
     rec = json.loads((tmp_path / "kimi-k2-1t-a32b__train_4k__single.json")
                      .read_text())
-    assert rec["status"] == "refused" and "A20" in rec["skip_reason"]
+    assert rec["status"] == "refused" and "A21" in rec["skip_reason"]
     m = make_local_mesh()
     assert m.shape == {"data": len(m.devices)} and m.size >= 1
 
@@ -239,6 +242,60 @@ def test_run_cell_on_the_single_mesh(fake_group, monkeypatch):
         local = run_cell("granite-3-2b", shape.name, "local")
         assert 0 < rec["cost_analysis"]["dot flops"] < \
             local["cost_analysis"]["dot flops"]
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("deepseek-v2-lite-16b", {"n_experts": 16}), ("zamba2-1.2b", {})])
+def test_run_cell_of_other_families_on_the_single_mesh(fake_group,
+                                                       monkeypatch, arch,
+                                                       over):
+    """A reduced MoE (deepseek-v2-lite-16b with 16 experts, so that they
+    shard over the 16-wide "model" axis, and MLA's latent cache) and
+    reduced zamba2-1.2b, prefill and decode on the fake 16x16 mesh: rank
+    0's argument bytes are the reference's specs' per-device blocks
+    (parameters and caches f32, token ids int64 here), with all-gathers
+    and all-reduces issued, and for the MoE's prefill the expert buffer's
+    reduce-scatter over "data" (``moe_buf_layout="md"``)."""
+    from repro.configs.registry import get_config as jget
+    from repro.data.synthetic import batch_spec as jbatch
+    from repro.distributed.sharding import (batch_shardings,
+                                            params_shardings)
+    from repro.models.registry import build_model as jbuild
+    from repro.serve.engine import cache_shardings
+    from jax.sharding import AbstractMesh
+    from repro_torch.launch.dryrun import run_cell
+    for shape in TINY_SERVE:
+        monkeypatch.setitem(SHAPES, shape.name, shape)
+    monkeypatch.setattr("repro_torch.launch.specs.get_config",
+                        lambda arch: get_config(arch, reduced=True))
+    amesh = AbstractMesh((16, 16), ("data", "model"))
+    mesh = {"data": 16, "model": 16}
+    jcfg = dataclasses.replace(jget(arch, reduced=True), **over)
+    jm = jbuild(jcfg)
+    params = jax.eval_shape(jm.init, jax.random.key(0))
+    pbytes = _ref_local_bytes(params, params_shardings(params, amesh), mesh,
+                              None)
+    B, T = 32, 64
+    caches = jax.eval_shape(lambda: jm.init_cache(B, T, jax.numpy.float32))
+    cbytes = _ref_local_bytes(caches, cache_shardings(caches, amesh, B),
+                              mesh, None)
+    batch = {"tokens": jax.ShapeDtypeStruct((B, T), np.int32)}
+    tokens = {"t": jax.ShapeDtypeStruct((B, 1), np.int32)}
+    for shape, inputs in zip(TINY_SERVE, (batch, tokens)):
+        rec = run_cell(arch, shape.name, "single", overrides=over)
+        assert rec["status"] == "ok" and rec["n_devices"] == 256
+        want = pbytes + cbytes + _ref_local_bytes(
+            inputs, batch_shardings(inputs, amesh), mesh, 8)
+        if shape.kind == "decode":
+            want += 8                                       # cur_len
+        assert rec["argument_size_in_bytes"] == want, (shape.name, want)
+        coll = rec["collectives"]
+        assert coll["all-gather"]["count"] > 0 and \
+            coll["all-reduce"]["count"] > 0, coll
+        if over and shape.kind == "prefill":
+            # the prefill's 384 slots an expert exceed its 3·ff = 192
+            # weights a row: the buffer is scattered, the weights move
+            assert coll["reduce-scatter"]["count"] > 0, coll
 
 
 def test_train_cell_over_a_fake_mesh_under_fsdp(fake_group, monkeypatch):

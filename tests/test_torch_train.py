@@ -436,10 +436,10 @@ def test_loader_follows_the_reference_seed_rule():
 def test_trainer_refuses_a_mesh():
     """``Trainer(mesh=)`` trains the dense decoders
     (``tests/test_torch_train_mesh.py``); an MoE config refuses naming
-    ROADMAP A20 before anything is placed."""
+    ROADMAP A21 before anything is placed."""
     m = build_model(treg.get_config("deepseek-v2-lite-16b", reduced=True),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="A20"):
+    with pytest.raises(NotImplementedError, match="A21"):
         Trainer(m, TrainConfig(), mesh=object())
 
 
